@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs an NVIDIA GPU with nvcc and skips without one. This
+file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
+"""
+
+import os
+
+import pytest
+import torch
+
+from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
+    flash_sliding_attention,
+    local_rows_plain,
+)
+from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
+    mips_topk,
+    mips_topk_plain,
+    quantize_corpus_sq8,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_mips_kernel_matches_plain(gen, dtype, k):
+    """Ids equal, values to f32 summation-order noise (rtol 1e-5, atol 1e-4),
+    with bias, ignore lists, a ragged N and three duplicate rows."""
+    q = torch.randn((40, 96), generator=gen, device="cuda")
+    e = torch.randn((5003, 96), generator=gen, device="cuda")
+    e[[10, 900, 4000]] = e[7].clone()
+    q[0] = 3 * e[7]
+    scale = None
+    if dtype == "int8":
+        e, scale = quantize_corpus_sq8(e)
+    else:
+        e = e.to(getattr(torch, dtype))
+    bias = torch.randn(5003, generator=gen, device="cuda")
+    bias[[10, 900, 4000]] = bias[7].clone()
+    ign = torch.randint(-1, 5003, (40, 3), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    vals, ids = mips_topk(q, e, k, bias, ign, scale)
+    ref_v, ref_i = mips_topk_plain(q, e, k, bias, ign, scale)
+    assert torch.equal(ids, ref_i)
+    torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+    assert not torch.isin(torch.tensor([10, 900, 4000], device="cuda"), ids[0]).any()
+
+
+def test_mips_kernel_pads_missing_hits(gen):
+    q = torch.randn((3, 32), generator=gen, device="cuda")
+    e = torch.randn((5, 32), generator=gen, device="cuda")
+    vals, ids = mips_topk(q, e, 8)
+    assert (ids[:, 5:] == -1).all() and (vals[:, 5:] == -3.0e38).all()
+    assert torch.equal(ids, mips_topk_plain(q, e, 8)[1])
+
+
+def test_mips_kernel_rejects_k_above_128(gen):
+    q = torch.randn((2, 32), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        mips_topk(q, torch.randn((300, 32), generator=gen, device="cuda"), 129)
+
+
+def _sliding_inputs(gen, dtype, b=3, nh=4, t=512, dh=64, g=8):
+    """Batch 1 has padded keys and an invalid global; batch 2 is fully
+    masked (every key and every global)."""
+    q, k, v = (torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    kg, vg = (torch.randn((b, nh, g, dh), generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    key_bias = torch.zeros((b, t), device="cuda")
+    key_bias[1, 300:] = -1e9
+    key_bias[1, 5::17] = -1e9
+    key_bias[2] = -1e9
+    g_bias = torch.zeros((b, g), device="cuda")
+    g_bias[1, -1] = -1e9
+    g_bias[2] = -1e9
+    return q, k, v, key_bias, kg, vg, g_bias
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_sliding_kernel_matches_plain(gen, dh, dtype, tol):
+    """out (atol 1e-4 f32 / 2e-2 bf16), m and l on every row, the fully
+    masked ones included."""
+    args = _sliding_inputs(gen, getattr(torch, dtype), dh=dh)
+    out, m, l = flash_sliding_attention(*args, window=128, return_stats=True)
+    ref, ref_m, ref_l = local_rows_plain(*args, 128, return_stats=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
+
+
+def test_sliding_kernel_rejects_untiled_window(gen):
+    args = _sliding_inputs(gen, torch.float32, t=480)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_sliding_attention(*args, window=48)
+
+
+def test_predict_runs_through_both_kernels(gen):
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
+    mips_topk.launches = flash_sliding_attention.launches = 0
+    out = cli.run_predict(cfg, device="cuda")
+    assert len(out["predictions"]) == cfg.data.batch_size
+    assert mips_topk.launches > 0 and flash_sliding_attention.launches > 0
+
+    cpu = cli.run_predict(cfg, device="cpu")
+    assert len(cpu["predictions"]) == len(out["predictions"])
