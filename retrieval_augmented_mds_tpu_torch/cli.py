@@ -1,18 +1,30 @@
 """Command-line entry point of the port:
 
-    python -m retrieval_augmented_mds_tpu_torch.cli predict --config <yaml> \
-        [--index DIR] [--device cuda|cpu]
+    python -m retrieval_augmented_mds_tpu_torch.cli {fit,validate,test,predict} \
+        --config <yaml> [--index DIR] [--device cuda|cpu]
 
-``predict`` does what the JAX package's ``run_predict`` does: build the
-data and the (seeded, random) parameters, build or load the memory store,
-run `rag_encode` and `generate` on the first batch of the test split, and
-print the predictions as JSON. It runs on CUDA by default and raises when
-CUDA is missing, unless ``--device cpu`` is given.
+The subcommands do what the JAX package's ``run_fit``, ``run_validate``
+and ``run_predict`` do, on one device:
+
+* ``fit``: build the data and the (seeded, random) parameters, resume from
+  ``ckpt_dir/latest.json`` when there is one, build the memory store, and
+  take ``max_steps`` train steps, refreshing the store every
+  ``index.rebuild_every`` steps, evaluating every ``eval_every`` steps and
+  checkpointing as the reference does. Metrics go to
+  ``<log_dir>/<run_name>.metrics.jsonl``.
+* ``validate`` / ``test``: generate over the whole val / test split and
+  score it with ROUGE, from the checkpoint ``best.json`` marks (else
+  ``latest.json``) when ``ckpt_dir`` has one.
+* ``predict``: generate for the first batch of the test split.
+
+Serving runs under ``torch.no_grad()``. Everything runs on CUDA by default
+and raises when CUDA is missing, unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -23,6 +35,12 @@ import torch
 
 _BATCH_KEYS = ("input_ids", "attention_mask", "query_input_ids",
                "query_attention_mask", "mips_ignore")
+# what a train or eval batch carries to the device (the reference's
+# _device_batch); decoder_input_ids are derived from the labels
+_TRAIN_KEYS = _BATCH_KEYS + (
+    "labels", "gold_aid", "aid_counts", "target_memory_ids", "target_memory_mask",
+    "input_memory_ids", "input_memory_mask", "input_memory_count",
+)
 
 
 def resolve_device(device: str) -> torch.device:
@@ -140,6 +158,180 @@ def load_store(index_dir: str, cfg, device: torch.device):
     )
 
 
+def device_batch(host: dict, cfg, device: torch.device) -> dict[str, torch.Tensor]:
+    """Host batch → device tensors, with the teacher-forcing decoder inputs."""
+    from .models.led import shift_tokens_right
+
+    out = {k: torch.from_numpy(np.asarray(v)).to(device)
+           for k, v in host.items() if k in _TRAIN_KEYS}
+    out["decoder_input_ids"] = shift_tokens_right(
+        out["labels"], cfg.model.led.pad_id, cfg.generation.decoder_start_id)
+    return out
+
+
+def build_tx(cfg, params):
+    """The one optimizer construction: ``fit`` and every command that loads
+    a train state must build the same one, or its state will not load."""
+    from .train.optimizer import build_optimizer
+
+    t = cfg.train
+    return build_optimizer(
+        t.lr, t.warmup_steps, t.total_steps, weight_decay=t.weight_decay,
+        grad_clip=t.grad_clip,
+        frozen_groups=tuple(t.frozen_groups) + cfg.model.frozen_groups(),
+        accumulate_steps=t.accumulate_steps, mu_dtype=t.adam_mu_dtype,
+        state_8bit=t.adam_8bit,
+    )
+
+
+def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
+            ) -> dict[str, Any]:
+    """Train for ``cfg.max_steps`` steps → the last step's metrics and
+    ``steps``. With ``report``, also fills in per-step wall times (seconds,
+    synchronised) and phase times, the losses, the store builds' and
+    refreshes' times, and the objects the run made."""
+    from retrieval_augmented_mds_tpu.obs import MetricsLogger
+
+    from .train.trainer import TrainState, make_train_step, refresh_store
+    from .utils.checkpoint import load_train_state, mark_best, save_train_state
+
+    dev = resolve_device(device)
+    dm, tok = build_data(cfg)
+    params = build_params(cfg, dev)
+    tx = build_tx(cfg, params)
+    state = TrainState.create(params, tx)
+    start_step = 0
+    if cfg.ckpt_dir and os.path.exists(os.path.join(cfg.ckpt_dir, "latest.json")):
+        state, start_step = load_train_state(cfg.ckpt_dir, state, tx)
+        print(f"resumed from step {start_step}")
+    dtype = compute_dtype(cfg)
+    t0 = time.perf_counter()
+    # built from the current (possibly resumed) weights, as the reference
+    store = None if cfg.model.mips_disabled else build_store(state.params, cfg, dm, dev)
+    _sync(dev)
+    rep = report if report is not None else {}
+    rep.update(store_s=time.perf_counter() - t0, step_s=[], phase_s=[], losses=[],
+               refresh_s=[])
+    step_fn = make_train_step(cfg.model, tx, cfg.train, dtype=dtype,
+                              remat=cfg.train.remat,
+                              phase_times=rep["phase_s"] if report is not None else None)
+
+    log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name,
+                        tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
+    log.log_hyperparams(dataclasses.asdict(cfg))
+    step, metrics, best_rouge1 = start_step, {}, -1.0
+    # a resumed run starts "saved" at start_step
+    last_saved = start_step if start_step else -1
+    # the batch order is a function of (seed, step): epoch e shuffles with
+    # seed + e, so a resumed run re-enters the same permutation
+    steps_per_epoch = max(1, len(dm.split_indices("train")) // cfg.data.batch_size)
+    try:
+        while step < cfg.max_steps:
+            epoch, skip = divmod(step, steps_per_epoch)
+            for bi, batch in enumerate(dm.batches(cfg.data.batch_size,
+                                                  seed=cfg.seed + epoch, split="train")):
+                if bi < skip:
+                    continue
+                if step >= cfg.max_steps:
+                    break
+                if (store is not None and cfg.index.rebuild_every > 0 and step > 0
+                        and step % cfg.index.rebuild_every == 0):
+                    t0 = time.perf_counter()
+                    store = refresh_store(state.params, cfg.model, store,
+                                          index_cfg=cfg.index, dtype=dtype)
+                    _sync(dev)
+                    rep["refresh_s"].append(time.perf_counter() - t0)
+                dbatch = device_batch(batch, cfg, dev)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, store, dbatch)
+                loss = float(metrics["loss"])  # waits for the device
+                sec = time.perf_counter() - t0
+                rep["step_s"].append(sec)
+                rep["losses"].append(loss)
+                metrics["steps_per_s"] = 1.0 / max(sec, 1e-9)
+                metrics["tokens_per_s"] = dbatch["input_ids"].numel() / max(sec, 1e-9)
+                log.log(step, metrics)
+                step += 1
+                if cfg.ckpt_dir and cfg.train.save_every and step % cfg.train.save_every == 0:
+                    save_train_state(cfg.ckpt_dir, state, tx, step)
+                    last_saved = step
+                if cfg.eval_every and step % cfg.eval_every == 0:
+                    ev = run_eval_loop(cfg, state.params, store, dm, tok,
+                                       max_batches=cfg.eval_max_batches, device=dev)
+                    log.log(step, ev, prefix="val_")
+                    # keep the checkpoint of the best rouge1
+                    if cfg.ckpt_dir and ev.get("rouge1", 0) > best_rouge1:
+                        best_rouge1 = ev["rouge1"]
+                        path = save_train_state(cfg.ckpt_dir, state, tx, step)
+                        mark_best(cfg.ckpt_dir, step, path, best_rouge1)
+                        last_saved = step
+        if cfg.ckpt_dir and last_saved != step:
+            save_train_state(cfg.ckpt_dir, state, tx, step)
+    finally:
+        log.close()
+    rep.update(state=state, store=store, tx=tx)
+    out = {k: float(v) for k, v in metrics.items()}
+    out["steps"] = step
+    return out
+
+
+def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
+                  dump_name: str | None = None, split: str = "val", *,
+                  device: torch.device) -> dict[str, float]:
+    """Generate for every batch of ``split`` (at most ``max_batches``) and
+    score the outputs with ROUGE; with ``dump_name``, also write them to
+    ``<log_dir>/<dump_name>.json``. Runs without autograd."""
+    from retrieval_augmented_mds_tpu.eval import RougeAccumulator
+
+    from .models.generate import generate
+    from .models.retriever_generator import rag_encode
+
+    dtype = compute_dtype(cfg)
+    acc = RougeAccumulator()
+    outputs = []
+    with torch.no_grad():
+        for bi, batch in enumerate(dm.batches(cfg.data.batch_size, shuffle=False,
+                                              drop_last=False, split=split)):
+            if max_batches is not None and bi >= max_batches:
+                break
+            dbatch = device_batch(batch, cfg, device)
+            enc = rag_encode(params, cfg.model, store, dbatch, dtype=dtype)
+            ids = generate(params, cfg.model, enc, cfg.generation, dtype=dtype)
+            preds = tok.batch_decode(ids.cpu().numpy())
+            refs = tok.batch_decode(np.asarray(batch["labels"]))
+            acc.add_batch(preds, refs)
+            outputs.extend({"prediction": p, "reference": r} for p, r in zip(preds, refs))
+    if dump_name:
+        from retrieval_augmented_mds_tpu.obs import MetricsLogger
+
+        logger = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name)
+        logger.dump_outputs(dump_name, outputs)
+        logger.close()
+    return acc.compute()
+
+
+def run_validate(cfg, split: str = "val", index_dir: str | None = None, *,
+                 device: str = "cuda") -> dict[str, float]:
+    """ROUGE over the whole ``split``, from the checkpoint of ``ckpt_dir``
+    (the best-marked one, else the latest) when there is one."""
+    from .utils.checkpoint import checkpoint_path, load_arrays, load_params
+
+    dev = resolve_device(device)
+    dm, tok = build_data(cfg)
+    params = build_params(cfg, dev)
+    if cfg.ckpt_dir and os.path.exists(os.path.join(cfg.ckpt_dir, "latest.json")):
+        load_params(params, load_arrays(checkpoint_path(cfg.ckpt_dir, prefer="best")))
+    if cfg.model.mips_disabled:
+        store = None
+    elif index_dir:
+        store = load_store(index_dir, cfg, dev)
+    else:
+        store = build_store(params, cfg, dm, dev)
+    return run_eval_loop(cfg, params, store, dm, tok,
+                         dump_name=f"{split}_outputs_{int(time.time())}", split=split,
+                         device=dev)
+
+
 def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
                 report: dict[str, Any] | None = None) -> dict[str, Any]:
     """Predictions for the first test batch. With ``report``, also fills in the
@@ -166,7 +358,8 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
                            split="test", drop_last=False))
     batch = {k: torch.from_numpy(host[k]).to(dev) for k in _BATCH_KEYS if k in host}
     dtype = compute_dtype(cfg)
-    enc = rag_encode(params, cfg.model, store, batch, dtype=dtype)
+    with torch.no_grad():
+        enc = rag_encode(params, cfg.model, store, batch, dtype=dtype)
     _sync(dev)
     t2 = time.perf_counter()
     ids = generate(params, cfg.model, enc, cfg.generation, dtype=dtype)
@@ -183,11 +376,11 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="retrieval_augmented_mds_tpu_torch")
-    p.add_argument("command", choices=["predict"])
+    p.add_argument("command", choices=["fit", "validate", "test", "predict"])
     p.add_argument("--config", default=None)
     p.add_argument("--index", default=None, metavar="DIR",
                    help="load this persisted index directory instead of "
-                   "embedding the corpus")
+                   "embedding the corpus (validate, test, predict)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
@@ -198,7 +391,13 @@ def main(argv=None) -> int:
 
     cfg = (load_config(args.config) if args.config
            else ExperimentConfig(model=RAGConfig.tiny()))
-    out = run_predict(cfg, index_dir=args.index, device=args.device)
+    if args.command == "fit":
+        out = run_fit(cfg, device=args.device)
+    elif args.command in ("validate", "test"):
+        split = "val" if args.command == "validate" else "test"
+        out = run_validate(cfg, split, index_dir=args.index, device=args.device)
+    else:
+        out = run_predict(cfg, index_dir=args.index, device=args.device)
     print(json.dumps(out, default=str)[:2000])
     return 0
 

@@ -32,117 +32,11 @@
 // row whose max is still about -1e9 (fully masked), so such CTAs add them
 // afterwards in closed form: their count and the sum of their value rows.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr float kMaskVal = -1e9f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBK = 32;        // keys per tile: one per lane
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int DH>
-struct Tile {
-  static constexpr int BQ = DH >= 128 ? 16 : 32;  // query rows per CTA
-  static constexpr int R = BQ / 4;                // rows per warp
-  static constexpr int DV = DH / 32;              // head dims per lane
-};
-
-template <int DH>
-struct Smem {
-  float q[Tile<DH>::BQ][DH];  // pre-scaled queries
-  float k[DH][kBK + 1];       // transposed key tile
-  float v[kBK][DH];
-  float p[4][Tile<DH>::R][kBK];
-};
-
-// State of one warp's R rows: running max, denominator and accumulator.
-template <int DH>
-struct Rows {
-  float m[Tile<DH>::R], l[Tile<DH>::R], acc[Tile<DH>::R][Tile<DH>::DV];
-};
-
-// Stage keys/values src[pos0 + j] (j < kBK, valid while pos0 + j < end) into
-// shared memory; invalid slots are zero.
-template <int DH, typename T>
-__device__ void stage(Smem<DH>& sm, const T* __restrict__ k, const T* __restrict__ v,
-                      int pos0, int end) {
-  for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
-    const int j = i / DH, d = i % DH, pos = pos0 + j;
-    float kv = 0.f, vv = 0.f;
-    if (pos < end) {
-      kv = to_f(k[(long)pos * DH + d]);
-      vv = to_f(v[(long)pos * DH + d]);
-    }
-    sm.k[d][j] = kv;
-    sm.v[j][d] = vv;
-  }
-}
-
-// Scores of the staged tile against this warp's rows: s[r] for key = lane.
-template <int DH>
-__device__ void scores(const Smem<DH>& sm, int r0, float (&s)[Tile<DH>::R]) {
-  constexpr int R = Tile<DH>::R;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    const float kd = sm.k[d][lane];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = fmaf(sm.q[r0 + r][d], kd, s[r]);
-  }
-}
-
-// Online-softmax update of the warp's rows with the staged tile; lanes with
-// !in are not columns of this tile.
-template <int DH>
-__device__ void update(Smem<DH>& sm, Rows<DH>& st, const float (&s)[Tile<DH>::R],
-                       bool in) {
-  constexpr int R = Tile<DH>::R, DV = Tile<DH>::DV;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float mn = fmaxf(st.m[r], warp_max(in ? s[r] : -FLT_MAX));
-    const float alpha = expf(st.m[r] - mn);
-    const float p = in ? expf(s[r] - mn) : 0.f;
-    st.l[r] = st.l[r] * alpha + warp_sum(p);
-    st.m[r] = mn;
-#pragma unroll
-    for (int dd = 0; dd < DV; ++dd) st.acc[r][dd] *= alpha;
-    sm.p[warp][r][lane] = p;
-  }
-  __syncwarp();
-#pragma unroll 4
-  for (int j = 0; j < kBK; ++j) {
-    float vj[DV];
-#pragma unroll
-    for (int dd = 0; dd < DV; ++dd) vj[dd] = sm.v[j][lane + 32 * dd];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float pj = sm.p[warp][r][j];
-#pragma unroll
-      for (int dd = 0; dd < DV; ++dd) st.acc[r][dd] = fmaf(pj, vj[dd], st.acc[r][dd]);
-    }
-  }
-  __syncwarp();
-}
+using namespace attn;
 
 template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -152,7 +46,7 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ g_bias, T* __restrict__ out,
                    float* __restrict__ m_out, float* __restrict__ l_out, int nh,
                    int T_len, int w, int G, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
+  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R;
   __shared__ Smem<DH> sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bh = blockIdx.y, b = bh / nh;
@@ -160,17 +54,9 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long base = (long)bh * T_len * DH;
   const float* kb = key_bias + (long)b * T_len;
 
-  for (int i = threadIdx.x; i < BQ * DH; i += kThreads)
-    sm.q[i / DH][i % DH] = to_f(q[base + (long)q0 * DH + i]) * scale;
-
+  stage_block<DH>(sm.q, q + base, q0, T_len, scale);
   Rows<DH> st;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    st.m[r] = -FLT_MAX;
-    st.l[r] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DV; ++dd) st.acc[r][dd] = 0.f;
-  }
+  init_rows<DH>(st);
 
   // band: the keys any row of this tile can see
   const int lo = max(q0 - w, 0), hi = min(q0 + BQ + w, T_len);
@@ -210,10 +96,9 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // fully masked rows: add the skipped window columns (all exactly -1e9)
   bool degenerate = false;
 #pragma unroll
-  for (int r = 0; r < R; ++r) degenerate |= st.m[r] < kMaskVal + 1000.f;
+  for (int r = 0; r < R; ++r) degenerate |= st.m[r] < kDegenerate;
   if (__syncthreads_or(degenerate)) {
     const int n = q0 / w, wlo = (n - 1) * w, whi = (n + 2) * w;
-    const float count = static_cast<float>(3 * w - (hi - lo));
     for (int d = threadIdx.x; d < DH; d += kThreads) {
       float sum = 0.f;
       for (int pos = max(wlo, 0); pos < min(whi, T_len); ++pos)
@@ -221,29 +106,10 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sm.v[0][d] = sum;
     }
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float mn = fmaxf(st.m[r], kMaskVal);
-      const float alpha = expf(st.m[r] - mn), pd = expf(kMaskVal - mn);
-      st.l[r] = st.l[r] * alpha + count * pd;
-      st.m[r] = mn;
-#pragma unroll
-      for (int dd = 0; dd < DV; ++dd)
-        st.acc[r][dd] = st.acc[r][dd] * alpha + pd * sm.v[0][lane + 32 * dd];
-    }
+    add_masked_columns<DH>(st, static_cast<float>(3 * w - (hi - lo)), sm.v[0]);
   }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int qp = q0 + r0 + r;
-#pragma unroll
-    for (int dd = 0; dd < DV; ++dd)
-      store(&out[base + (long)qp * DH + lane + 32 * dd], st.acc[r][dd] / st.l[r]);
-    if (lane == 0) {
-      m_out[(long)bh * T_len + qp] = st.m[r];
-      l_out[(long)bh * T_len + qp] = st.l[r];
-    }
-  }
+  write_rows<DH>(st, out + base, m_out + (long)bh * T_len, l_out + (long)bh * T_len,
+                 q0 + r0, T_len);
 }
 
 template <int DH, typename T>
@@ -282,7 +148,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, const void* k
 
 // Query-row tile of the dh variant: T and w must be multiples of it.
 extern "C" int sliding_fwd_block_rows(int dh) {
-  return dh >= 128 ? Tile<128>::BQ : Tile<64>::BQ;
+  return dh >= 128 ? attn::Tile<128>::BQ : attn::Tile<64>::BQ;
 }
 
 // dtype: 0 = f32, 1 = bf16. q/k/v/out [B*nh, T, dh]; key_bias [B, T] f32;

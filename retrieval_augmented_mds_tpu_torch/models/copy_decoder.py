@@ -9,8 +9,9 @@ is one single-head alignment attention with a diverter. Both end in
     p = gen_gate · softmax(lm_logits);  p[copy_seq] += copy_probs
     out = log(p + 1e-7)
 
-The biased cross-attention stays plain PyTorch: its memory bias will need
-gradients when training is ported.
+The biased cross-attention stays plain PyTorch: its logits bias
+``beta·memory_bias`` is differentiable (in ``beta`` and in the retrieval
+scores), which no attention kernel here carries.
 """
 
 from __future__ import annotations

@@ -199,6 +199,45 @@ def attention(
     return dense(p.o, _merge_heads(out)), cache
 
 
+def attention_train(
+    p: MHA,
+    x_q: torch.Tensor,  # [B, Tq, H]
+    x_kv: torch.Tensor,  # [B, Tk, H]
+    n_heads: int,
+    *,
+    key_padding_mask: torch.Tensor | None = None,  # [B, Tk] {0,1}
+    causal: bool = False,
+) -> torch.Tensor:
+    """Training-time dense attention (no cache, no precomputed K/V, no beam
+    fold) through `ops.flash_dense.dense_rows`: kernels K4/K5 on the card,
+    which save only the row statistics for the backward, never a
+    [B, nh, Tq, Tk] tensor."""
+    from ..ops.flash_dense import dense_rows
+
+    q = _split_heads(dense(p.q, x_q), n_heads)
+    k = _split_heads(dense(p.k, x_kv), n_heads)
+    v = _split_heads(dense(p.v, x_kv), n_heads)
+    b, s = x_kv.shape[0], x_kv.shape[1]
+    if key_padding_mask is None:
+        kb = torch.zeros((b, s), dtype=torch.float32, device=x_q.device)
+    else:
+        kb = torch.where(key_padding_mask > 0,
+                         torch.zeros((), dtype=torch.float32, device=x_q.device),
+                         torch.full((), NEG_INF, dtype=torch.float32, device=x_q.device))
+    out = dense_rows(q, k, v, kb, causal)
+    return dense(p.o, _merge_heads(out))
+
+
+def check_remat(remat) -> None:
+    """Gradient checkpointing (``train.remat``) is not ported: raise on
+    anything but False."""
+    if remat:
+        raise NotImplementedError(
+            f"train.remat={remat!r}: gradient checkpointing is not ported yet "
+            "(ROADMAP queue 1: remat); use remat: false"
+        )
+
+
 def ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
     return dense(p.w2, F.gelu(dense(p.w1, x), approximate="tanh"))

@@ -241,8 +241,8 @@ def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype):
 
 
 def copy_trace(*args, **kwargs):
-    """Per-token copy traces need the teacher-forced decoder (flash_dense
-    port): not ported yet."""
+    """Per-token copy traces (``generation.output_copy_probs``): not ported
+    yet."""
     raise NotImplementedError(
-        "copy_trace needs the teacher-forced decoder (ROADMAP queue 1)"
+        "copy_trace is not ported yet (ROADMAP queue 1: copy_trace)"
     )

@@ -2,9 +2,9 @@
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/led.py``: a sliding-
 window + global attention encoder and a causal decoder with cross-
-attention, decoded incrementally over a KV cache. Embeddings are shared
-by the encoder, the decoder and the tied LM head. Only the cached decode
-path is ported; the teacher-forced decoder needs the dense flash kernel.
+attention, run teacher-forced for training (through the dense attention
+kernels K4/K5) or incrementally over a KV cache for decoding. Embeddings
+are shared by the encoder, the decoder and the tied LM head.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from .core import (
     Embedding,
     LayerNorm,
     attention,
+    attention_train,
     build_module,
     causal_mask,
+    check_remat,
     embed,
     ffn,
     layernorm,
@@ -105,21 +107,32 @@ def led_decode(
     caches: list[dict] | None = None,  # per-layer self-attn caches
     pos_offset: int = 0,  # decode position of dec_ids[:, 0]
     dtype=torch.float32,
+    remat: bool | str = False,
 ):
-    """Returns (hidden [B, T, H], caches). Runs incrementally: dec_ids is the
-    new chunk and each layer's cache is appended in place."""
-    if caches is None:
-        raise NotImplementedError(
-            "teacher-forced led_decode needs the flash_dense kernel port "
-            "(ROADMAP queue 1: training, teacher-forced decoder)"
-        )
+    """Returns (hidden [B, T, H], caches). Without ``caches`` it runs
+    teacher-forced over the whole target (the training path: causal
+    self-attention and padded cross-attention through `attention_train`)
+    and returns caches None. With ``caches`` it runs incrementally:
+    dec_ids is the new chunk and each layer's cache is appended in
+    place."""
+    check_remat(remat)
     b, t = dec_ids.shape
     pos = torch.arange(t, device=dec_ids.device)[None, :] + pos_offset
     x = embed(params.shared_emb, dec_ids, dtype) + embed(params.dec_pos, pos, dtype)
     x = layernorm(params.dec_emb_ln, x)
+    enc = enc_hidden.to(x.dtype)
+
+    if caches is None:
+        for lp in params.decoder:
+            a = attention_train(lp.self_attn, x, x, cfg.n_heads, causal=True)
+            x = layernorm(lp.self_ln, x + a)
+            c = attention_train(lp.cross_attn, x, enc, cfg.n_heads,
+                                key_padding_mask=enc_padding_mask)
+            x = layernorm(lp.cross_ln, x + c)
+            x = layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
+        return x, None
 
     cross_mask = (enc_padding_mask > 0)[:, None, None, :]
-    enc = enc_hidden.to(x.dtype)
     for lp, cache in zip(params.decoder, caches):
         smask = causal_mask(t, cache["k"].shape[2], cache["pos"], x.device)
         a, _ = attention(lp.self_attn, x, x, cfg.n_heads, mask=smask, cache=cache)

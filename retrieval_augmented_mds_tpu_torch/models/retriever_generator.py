@@ -2,14 +2,17 @@
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/retriever_generator.py``.
 `rag_encode` embeds the query, searches the device-resident index
-(`index.flat.search`: the MIPS kernel on the card), gathers the retrieved
-rows of the pre-tokenized corpus, re-encodes them with the mips encoder
-(cosine rescoring + copy memory) and runs the LED encoder; `rag_decode`
-runs the cached decoder and the copy head.
+(`index.flat.search`: the MIPS kernel on the card) with the query's
+gradient stopped, gathers the retrieved rows of the pre-tokenized corpus,
+re-encodes them with the mips encoder (a differentiable cosine rescoring
++ the copy memory) and runs the LED encoder; `rag_decode` runs the
+decoder (teacher-forced, or cached for generation) and the copy head;
+`rag_forward` chains them for training. Gradients flow wherever the
+reference's do; callers that serve run them under ``torch.no_grad()``.
 
 Ported memory modes: ``no_forcing`` and ``retrieved_forcing``, with
 ``memory_model_fixed`` true or false. ``target_only``, ``target_in`` and
-dual mode come with the training port and raise until then.
+dual mode raise (ROADMAP queue 1: memory forcing).
 """
 
 from __future__ import annotations
@@ -89,6 +92,21 @@ class RAGConfig:
                     "encodes memory); set memory_model_fixed=False"
                 )
 
+    def frozen_groups(self) -> tuple[str, ...]:
+        """Freeze policy → top-level param groups: ``mips_freezed`` freezes
+        the whole retrieval stack, ``mips_encoder_freezed`` only the index
+        encoder."""
+        groups = []
+        if self.mips_freezed:
+            groups += ["query_encoder", "mips_encoder"]
+            if not self.memory_model_fixed:
+                groups += ["memory_encoder"]
+        if self.mips_encoder_freezed:
+            groups += ["mips_encoder"]
+        if self.query_encoder_freezed:
+            groups += ["query_encoder"]
+        return tuple(dict.fromkeys(groups))
+
     @property
     def memory_slots(self) -> int:
         return self.mips_topk + (1 if self.memory_forcing == "target_in" else 0)
@@ -164,7 +182,6 @@ def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype):
     return hid.reshape(b, s, l, -1)
 
 
-@torch.no_grad()
 def rag_encode(
     params: RAG,
     cfg: RAGConfig,
@@ -185,8 +202,8 @@ def rag_encode(
     if not cfg.mips_disabled and store is not None:
         if cfg.memory_forcing in _PENDING_MODES or "input_memory_ids" in batch:
             raise NotImplementedError(
-                f"memory_forcing={cfg.memory_forcing!r} / dual memory come "
-                "with the training port (ROADMAP queue 1)"
+                f"memory_forcing={cfg.memory_forcing!r} / dual memory are not "
+                "ported yet (ROADMAP queue 1: memory forcing)"
             )
         q_hidden = longformer_encode(
             params.query_encoder, cfg.query_enc, batch["query_input_ids"],
@@ -197,21 +214,23 @@ def rag_encode(
         # retrieved_forcing disables self-exclusion
         ignore = (None if cfg.memory_forcing == "retrieved_forcing"
                   else batch.get("mips_ignore"))
-        faiss_scores, idx = flat_search(store.index, query_cls, k=cfg.mips_topk,
-                                        ignore=ignore)
+        # the search carries no gradient; the rescoring below does
+        faiss_scores, idx = flat_search(store.index, query_cls.detach(),
+                                        k=cfg.mips_topk, ignore=ignore)
         safe_idx = idx.clamp(min=0).long()
         mem_ids = store.token_ids[safe_idx]  # [B, k, L]
         mem_mask = store.token_mask[safe_idx]
         slots = mem_ids.shape[1]
 
-        # cosine rescoring of the retrieved rows
+        # cosine rescoring of the retrieved rows, with the norms' gradient
+        # stopped (as the reference's)
         mips_hid = _encode_memory_rows(
             params.mips_encoder, cfg.mips_enc, mem_ids, mem_mask, dtype=dtype
         )
         mips_cls = mips_hid[:, :, 0].float()  # [B, slots, H]
         raw = torch.einsum("bh,bsh->bs", query_cls, mips_cls)
-        qn = torch.linalg.norm(query_cls, dim=-1, keepdim=True)
-        mn = torch.linalg.norm(mips_cls, dim=-1)
+        qn = torch.linalg.norm(query_cls, dim=-1, keepdim=True).detach()
+        mn = torch.linalg.norm(mips_cls, dim=-1).detach()
         mips_scores = raw / torch.clamp(qn * mn, min=1e-12)
 
         if cfg.memory_model_fixed:
@@ -246,7 +265,6 @@ def rag_encode(
     )
 
 
-@torch.no_grad()
 def rag_decode(
     params: RAG,
     cfg: RAGConfig,
@@ -256,14 +274,16 @@ def rag_decode(
     caches=None,
     pos_offset: int = 0,
     dtype=torch.float32,
+    remat: bool | str = False,
     copy_kv=None,
 ):
     """Decoder + copy head → (log-probs or logits [B, T, V], aux, caches).
     With memory the output is the LOG-PROBS of the gated mixture; without,
-    raw LM logits."""
+    raw LM logits. Without ``caches`` the decoder runs teacher-forced."""
     hid, caches = led_decode(
         params.led, cfg.led, decoder_input_ids, enc_out.enc_hidden,
         enc_out.enc_mask, caches=caches, pos_offset=pos_offset, dtype=dtype,
+        remat=remat,
     )
     aux: dict[str, Any] = {}
     if cfg.mips_disabled or enc_out.memory is None:
@@ -287,11 +307,11 @@ def rag_decode(
 
 
 def rag_forward(params: RAG, cfg: RAGConfig, store: MemoryStore | None,
-                batch: dict[str, Any], *, dtype=torch.float32):
-    """Teacher-forced forward → (out, aux, enc_out). Needs the teacher-
-    forced decoder, which comes with the flash_dense port: raises until
-    then."""
+                batch: dict[str, Any], *, dtype=torch.float32,
+                remat: bool | str = False):
+    """The full teacher-forced forward, with gradients → (out, aux,
+    enc_out)."""
     enc_out = rag_encode(params, cfg, store, batch, dtype=dtype)
     out, aux, _ = rag_decode(params, cfg, enc_out, batch["decoder_input_ids"],
-                             dtype=dtype)
+                             dtype=dtype, remat=remat)
     return out, aux, enc_out

@@ -7,8 +7,14 @@ global-token keys (plus g_bias). Besides the output, both versions can
 return the softmax row max ``m`` and denominator ``l`` as [B*nh, 1, T]
 f32, the residuals a fused backward consumes.
 
-Routing is by device: a CPU tensor goes to `local_rows_plain`, a CUDA
-tensor to the kernel in ``csrc/flash_sliding_fwd.cu``; no fallback.
+`sliding_local_rows` is the differentiable entry point (`SlidingRows`):
+its forward saves out, m and l; its backward computes
+delta = rowsum(dO * out) and calls the backward of
+``flash_sliding_bwd.py`` (kernel K3 on the card). Routing is by device: a
+CPU tensor goes to `local_rows_plain` and the plain backward, a CUDA
+tensor to the kernels in ``csrc/flash_sliding_fwd.cu`` (K2) and
+``csrc/flash_sliding_bwd.cu`` (K3); no fallback. The masks ``key_bias``
+and ``g_bias`` get zero gradients.
 """
 
 from __future__ import annotations
@@ -138,13 +144,51 @@ def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
 flash_sliding_attention.launches = 0
 
 
+def device_route(x: torch.Tensor) -> bool:
+    """True for the kernels (CUDA tensors), False for the plain versions
+    (CPU tensors); raises on any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {x.device}")
+    return True
+
+
+def row_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * out) as [B*nh, 1, T] f32: FlashAttention-2's
+    identity for each row's sum_k p * dp."""
+    b, nh, t, _ = out.shape
+    return (do.float() * out.float()).sum(-1).reshape(b * nh, 1, t)
+
+
+class SlidingRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, kg, vg, g_bias, window):
+        if device_route(q):
+            out, m, l = flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias,
+                                                window=window, return_stats=True)
+        else:
+            out, m, l = local_rows_plain(q, k, v, key_bias, kg, vg, g_bias, window,
+                                         return_stats=True)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, key_bias, kg, vg, g_bias, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from .flash_sliding_bwd import flash_sliding_backward, sliding_backward_plain
+
+        q, k, v, key_bias, kg, vg, g_bias, out, m, l = ctx.saved_tensors
+        args = (q, k, v, key_bias, kg, vg, g_bias, do, m, l, row_delta(do, out))
+        if device_route(q):
+            dq, dk, dv, dkg, dvg = flash_sliding_backward(*args, window=ctx.window)
+        else:
+            dq, dk, dv, dkg, dvg = sliding_backward_plain(*args, ctx.window)
+        # the masks carry no gradient on any path
+        return (dq, dk, dv, torch.zeros_like(key_bias), dkg, dvg,
+                torch.zeros_like(g_bias), None)
+
+
 def sliding_local_rows(q, k, v, key_bias, kg, vg, g_bias, window):
-    """Local-query rows [B, nh, T, dh]: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (forward only in this port)."""
-    if q.device.type == "cpu":
-        return local_rows_plain(q, k, v, key_bias, kg, vg, g_bias, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"sliding_local_rows has no kernel for {q.device}")
-    return flash_sliding_attention(
-        q, k, v, key_bias, kg, vg, g_bias, window=window
-    )
+    """Differentiable local-query rows [B, nh, T, dh]."""
+    return SlidingRows.apply(q, k, v, key_bias, kg, vg, g_bias, window)

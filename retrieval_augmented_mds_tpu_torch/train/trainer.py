@@ -1,18 +1,142 @@
-"""Memory-store build: embed the tokenized corpus and index it.
+"""Train step, memory-store build and the train-time index refresh.
 
-Counterpart of ``encode_corpus`` and ``build_memory_store`` in
-``retrieval_augmented_mds_tpu/train/trainer.py`` — the store-build path of
-``predict``. The train step, losses and index refresh come with the
-training port.
+Counterpart of ``retrieval_augmented_mds_tpu/train/trainer.py``:
+
+* `make_train_step`: the teacher-forced `rag_forward` with gradients
+  (the attention kernels K2-K5 on the card), the label-smoothed loss,
+  the copy and retriever diagnostics, and one optimizer update
+  (`train.optimizer.AdamW`). The step returns the reference's metric
+  names. Where the reference returns a new state, the port updates the
+  parameters and the optimizer state in place and returns the same
+  `TrainState`.
+* `encode_corpus` / `build_memory_store`: embed the tokenized corpus under
+  the mips encoder and index it (the store-build path of ``predict`` and
+  ``fit``).
+* `refresh_store`: rebuild the index under the current mips encoder
+  weights and swap it in, the reference's stale-index refresh.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+import types
+from typing import Any, Callable
+
 import torch
 
 from ..index import build_index_from_factory
+from ..index.flat import FlatIndex
+from ..models.core import check_remat
 from ..models.longformer import longformer_encode
-from ..models.retriever_generator import MemoryStore, RAGConfig
+from ..models.retriever_generator import RAG, MemoryStore, RAGConfig, rag_forward
+from .loss import summarization_loss
+from .optimizer import AdamW, OptState, param_group
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: RAG
+    opt_state: OptState
+    step: int
+
+    @staticmethod
+    def create(params: RAG, tx: AdamW) -> "TrainState":
+        return TrainState(params=params, opt_state=tx.init(params), step=0)
+
+
+def _global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def make_train_step(
+    cfg: RAGConfig,
+    tx: AdamW,
+    hyper,
+    *,
+    dtype=torch.float32,
+    remat: bool | str = False,
+    phase_times: list[dict[str, float]] | None = None,
+) -> Callable:
+    """Returns ``train_step(state, store, batch, copy_force=None) →
+    (state, metrics)``, metrics as 0-d tensors. With ``phase_times``, each
+    step synchronises the device between its phases and appends
+    ``{"forward", "backward", "optimizer"}`` wall seconds to the list."""
+    check_remat(remat)
+
+    def loss_fn(params, store, batch):
+        out, aux, enc_out = rag_forward(params, cfg, store, batch, dtype=dtype)
+        if cfg.mips_disabled or enc_out.memory is None:
+            log_probs = torch.log_softmax(out, dim=-1)
+        else:
+            log_probs = out
+        loss = summarization_loss(log_probs, batch["labels"],
+                                  hyper.label_smoothing_eps, cfg.led.pad_id)
+        metrics: dict[str, Any] = {"loss": loss.detach()}
+        with torch.no_grad():
+            if aux.get("copy_gate") is not None:
+                mask = (batch["labels"] != cfg.led.pad_id)[..., None]
+                metrics["copy_gate_mean"] = ((aux["copy_gate"] * mask).sum()
+                                             / mask.sum().clamp(min=1))
+                metrics["copy_probs_mass"] = aux["copy_probs"].sum(-1).mean()
+            if enc_out.mips_scores is not None:
+                metrics["mips_score_mean"] = enc_out.mips_scores.mean()
+            if (enc_out.retrieved_idx is not None and store is not None
+                    and store.row_aids is not None and "gold_aid" in batch):
+                from ..retriever.metrics import retriever_metrics_fixed
+
+                r_aids = store.row_aids[enc_out.retrieved_idx.clamp(min=0).long()]
+                hits = (r_aids == batch["gold_aid"][:, None, None]).any(-1)
+                counts = batch.get("aid_counts", torch.ones_like(batch["gold_aid"]))
+                rm = retriever_metrics_fixed(hits, counts)
+                metrics.update({f"retriever_{k}": v for k, v in rm.items()})
+        return loss, metrics
+
+    def mark(times: dict, name: str, t0: float, device) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        times[name] = t1 - t0
+        return t1
+
+    def train_step(state: TrainState, store, batch, copy_force=None):
+        if copy_force is not None:
+            raise NotImplementedError(
+                "copy_force (memory_forcing='target_in') is not ported yet "
+                "(ROADMAP queue 1: memory forcing)")
+        params = state.params
+        device = next(params.parameters()).device
+        times: dict[str, float] = {}
+        t0 = time.perf_counter()
+        for p in params.parameters():
+            p.grad = None
+        loss, metrics = loss_fn(params, store, batch)
+        if phase_times is not None:
+            t0 = mark(times, "forward", t0, device)
+        loss.backward()
+        named = list(params.named_parameters())
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in named}
+        for p in params.parameters():
+            p.grad = None
+        if phase_times is not None:
+            t0 = mark(times, "backward", t0, device)
+        with torch.no_grad():
+            metrics["grad_norm"] = _global_norm(grads.values())
+            if hyper.grad_group_norms:
+                for group in dict.fromkeys(param_group(n) for n, _ in named):
+                    metrics[f"grad_norm_{group}"] = _global_norm(
+                        g for n, g in grads.items() if param_group(n) == group)
+        tx.update(params, grads, state.opt_state)
+        state.step += 1
+        if phase_times is not None:
+            mark(times, "optimizer", t0, device)
+            phase_times.append(times)
+        return state, metrics
+
+    return train_step
 
 
 @torch.no_grad()
@@ -58,3 +182,35 @@ def build_memory_store(
     )
     return MemoryStore(index=index, token_ids=token_ids, token_mask=token_mask,
                        row_aids=row_aids)
+
+
+def _index_cfg_from_store(store: MemoryStore):
+    """The factory knobs an existing (flat) store was built with."""
+    idx: FlatIndex = store.index
+    dtype = "int8" if idx.row_scale is not None else str(idx.embeddings.dtype)
+    return types.SimpleNamespace(factory="Flat", metric=idx.metric,
+                                 normalize=idx.normalized,
+                                 dtype=dtype.replace("torch.", ""))
+
+
+def refresh_store(
+    params,
+    cfg: RAGConfig,
+    store: MemoryStore,
+    *,
+    index_cfg=None,
+    batch_size: int = 64,
+    dtype=torch.float32,
+) -> MemoryStore:
+    """Re-embed the corpus under the CURRENT mips encoder and return a new
+    store (the caller swaps it in); ``index_cfg`` pins the factory knobs,
+    else they are recovered from ``store``. Same path as the first build,
+    so a refresh under equal weights equals a fresh build."""
+    n = store.index.n
+    new = build_memory_store(
+        params, cfg, index_cfg or _index_cfg_from_store(store),
+        token_ids=store.token_ids[:n], token_mask=store.token_mask[:n],
+        row_aids=store.row_aids, compute_dtype=dtype, batch_size=batch_size,
+    )
+    return MemoryStore(index=new.index, token_ids=store.token_ids,
+                       token_mask=store.token_mask, row_aids=store.row_aids)

@@ -19,8 +19,9 @@ from ..models.retriever_generator import RAGConfig
 
 @dataclasses.dataclass(frozen=True)
 class TrainHyper:
-    """Training knobs; read so that training configs parse, unused until
-    the train step is ported."""
+    """Training knobs of `train.trainer.make_train_step` and
+    `cli.build_tx`. ``remat`` and ``adam_8bit`` raise when set (not ported
+    yet); ``adam_8bit_fused`` has no effect without ``adam_8bit``."""
 
     lr: float = 3e-5
     warmup_steps: int = 1000

@@ -11,9 +11,22 @@ import os
 import pytest
 import torch
 
+from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
+    dense_backward_plain,
+    dense_rows,
+    dense_rows_plain,
+    flash_dense_attention,
+    flash_dense_backward,
+)
 from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
     flash_sliding_attention,
     local_rows_plain,
+    row_delta,
+    sliding_local_rows,
+)
+from retrieval_augmented_mds_tpu_torch.ops.flash_sliding_bwd import (
+    flash_sliding_backward,
+    sliding_backward_plain,
 )
 from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
     mips_topk,
@@ -107,6 +120,95 @@ def test_sliding_kernel_rejects_untiled_window(gen):
     args = _sliding_inputs(gen, torch.float32, t=480)
     with pytest.raises(ValueError, match="multiple"):
         flash_sliding_attention(*args, window=48)
+
+
+def _close(got, ref, tol):
+    """rtol = tol, atol = tol x the reference's largest magnitude (at least
+    1): f32 summation order, or one bf16 rounding of the result."""
+    for a, r in zip(got, ref):
+        atol = tol * max(1.0, r.float().abs().max().item())
+        torch.testing.assert_close(a.float(), r.float(), rtol=tol, atol=atol)
+
+
+@pytest.mark.parametrize("window", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_sliding_backward_kernel_matches_plain(gen, dh, dtype, tol, window):
+    """K3 against the plain backward from the same m, l, delta: dq, dk, dv,
+    dkg, dvg, with a fully masked batch whose dO is not zero."""
+    args = _sliding_inputs(gen, getattr(torch, dtype), dh=dh)
+    out, m, l = flash_sliding_attention(*args, window=window, return_stats=True)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    bwd = (*args, do, m, l, row_delta(do, out))
+    got = flash_sliding_backward(*bwd, window=window)
+    ref = sliding_backward_plain(*bwd, window)
+    assert [x.dtype for x in got] == [x.dtype for x in ref]
+    _close(got, ref, tol)
+
+
+def test_sliding_backward_kernel_rejects_untiled_window(gen):
+    args = _sliding_inputs(gen, torch.float32, t=480)
+    out, m, l = local_rows_plain(*args, 48, return_stats=True)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_sliding_backward(*args, out, m, l, row_delta(out, out), window=48)
+
+
+def _dense_inputs(gen, dtype, t, s, dh, b=2, nh=3):
+    """Batch 1 has a padded source tail; batch 0 is fully masked."""
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    key_bias = torch.zeros((b, s), device="cuda")
+    key_bias[1, s // 2:] = -1e9
+    key_bias[0] = -1e9
+    return q, k, v, key_bias
+
+
+@pytest.mark.parametrize("causal,t,s", [(True, 100, 100), (True, 64, 200),
+                                        (False, 77, 300), (False, 32, 128)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_dense_kernels_match_plain(gen, causal, t, s, dh, dtype, tol):
+    """K4 (out, m, l) and K5 (dq, dk, dv from the same m, l, delta) against
+    the plain versions, at ragged T and S, causal or not."""
+    q, k, v, kb = _dense_inputs(gen, getattr(torch, dtype), t, s, dh)
+    out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
+    ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
+    _close([out], [ref], tol)
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    bwd = (q, k, v, kb, do, m, l, row_delta(do, out))
+    got = flash_dense_backward(*bwd, causal=causal)
+    _close(got, dense_backward_plain(*bwd, causal), tol)
+
+
+def test_dense_kernel_rejects_head_dim(gen):
+    q, k, v, kb = _dense_inputs(gen, torch.float32, 8, 8, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_dense_attention(q, k, v, kb, causal=False)
+
+
+def test_autograd_functions_launch_the_kernels(gen):
+    """dense_rows and sliding_local_rows on CUDA tensors: forward and
+    backward through K4/K5 and K2/K3, gradients equal to the CPU path's."""
+    q, k, v, kb = _dense_inputs(gen, torch.float32, 40, 72, 32)
+    args = _sliding_inputs(gen, torch.float32, dh=32)
+    flash_dense_attention.launches = flash_dense_backward.launches = 0
+    flash_sliding_attention.launches = flash_sliding_backward.launches = 0
+    for dev in ("cuda", "cpu"):
+        dq = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        ds = [x.detach().to(dev).requires_grad_() if i in (0, 1, 2, 4, 5) else x.to(dev)
+              for i, x in enumerate(args)]
+        loss = (dense_rows(*dq, kb.to(dev), True) ** 2).sum() \
+            + (sliding_local_rows(*ds, 64) ** 2).sum()
+        loss.backward()
+        grads = [x.grad.cpu() for x in dq + [ds[i] for i in (0, 1, 2, 4, 5)]]
+        if dev == "cuda":
+            cuda_grads = grads
+    _close(cuda_grads, grads, 1e-4)
+    assert (flash_dense_attention.launches, flash_dense_backward.launches) == (1, 1)
+    assert (flash_sliding_attention.launches, flash_sliding_backward.launches) == (1, 1)
 
 
 def test_predict_runs_through_both_kernels(gen):

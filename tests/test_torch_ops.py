@@ -14,9 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+from retrieval_augmented_mds_tpu.ops.flash_dense import (
+    _dense_xla,
+    flash_dense_attention as jax_flash_dense,
+    flash_dense_backward as jax_flash_dense_backward,
+)
 from retrieval_augmented_mds_tpu.ops.flash_sliding import (
     _local_rows_xla,
     flash_sliding_attention as jax_flash_sliding,
+)
+from retrieval_augmented_mds_tpu.ops.flash_sliding_bwd import (
+    flash_sliding_backward as jax_flash_sliding_backward,
 )
 from retrieval_augmented_mds_tpu.ops.mips_topk import (
     mips_topk as jax_mips_topk,
@@ -27,10 +35,22 @@ from retrieval_augmented_mds_tpu.ops.sliding_attention import (
     sliding_global_attention as jax_sliding_global_attention,
 )
 from retrieval_augmented_mds_tpu_torch.bridge import load_jax_params
+from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
+    dense_backward_plain,
+    dense_rows,
+    dense_rows_plain,
+    flash_dense_attention,
+    flash_dense_backward,
+)
 from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
     flash_sliding_attention,
     local_rows_plain,
+    row_delta,
     sliding_local_rows,
+)
+from retrieval_augmented_mds_tpu_torch.ops.flash_sliding_bwd import (
+    flash_sliding_backward,
+    sliding_backward_plain,
 )
 from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
     NEG_INF,
@@ -224,3 +244,121 @@ def test_sliding_global_attention_matches_jax(max_globals):
                                        jnp.asarray(pad), max_globals)
     got = sliding_global_attention(mod, _t(x), nh, w, _t(glob), _t(pad), max_globals)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3: the backward of the sliding-window local rows
+# ---------------------------------------------------------------------------
+
+_GRAD_ARGS = (0, 1, 2, 4, 5)  # q, k, v, kg, vg: the masks get no gradient
+
+
+@pytest.mark.parametrize("w", [64, 128])
+def test_sliding_backward_plain_matches_composite_vjp(w):
+    """Every row, the fully masked batch (with a nonzero dO) included,
+    against the VJP of the JAX composite; through `sliding_local_rows`'s
+    autograd as well."""
+    arrays = _local_rows_inputs(np.float32, seed=2)
+    do = np.random.default_rng(7).standard_normal(arrays[0].shape).astype(np.float32)
+    j = [jnp.asarray(a) for a in arrays]
+
+    def fn(q, k, v, kg, vg):
+        return _local_rows_xla(q, k, v, j[3], kg, vg, j[6], w)
+
+    _, vjp = jax.vjp(fn, *[j[i] for i in _GRAD_ARGS])
+    ref = vjp(jnp.asarray(do))
+    t = [_t(a) for a in arrays]
+    out, m, l = local_rows_plain(*t, w, return_stats=True)
+    got = sliding_backward_plain(*t, _t(do), m, l, row_delta(_t(do), out), w)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+    leaves = [x.requires_grad_() if i in _GRAD_ARGS else x for i, x in enumerate(t)]
+    sliding_local_rows(*leaves, w).backward(_t(do))
+    for i, r in zip(_GRAD_ARGS, ref):
+        np.testing.assert_allclose(leaves[i].grad.numpy(), np.asarray(r), **TOL)
+    assert flash_sliding_backward.launches == 0
+
+
+@pytest.mark.parametrize("w", [64, 128])
+def test_sliding_backward_plain_matches_pallas_kernel(w):
+    """Against the Pallas backward (interpret mode), each fed its own
+    forward's m and l. The kernel's fully masked rows are uniform over its
+    padded lanes, not over 3w + G, so dO is zero on them (batch 2)."""
+    arrays = _local_rows_inputs(np.float32, seed=3)
+    do = np.random.default_rng(8).standard_normal(arrays[0].shape).astype(np.float32)
+    do[2] = 0.0
+    j = [jnp.asarray(a) for a in arrays]
+    j_out, j_m, j_l = jax_flash_sliding(*j, window=w, interpret=True, return_stats=True)
+    j_delta = jnp.sum(jnp.asarray(do) * j_out, axis=-1).reshape(-1, 1, j_out.shape[2])
+    ref = jax_flash_sliding_backward(*j, jnp.asarray(do), j_m, j_l, j_delta, window=w,
+                                     interpret=True)
+    t = [_t(a) for a in arrays]
+    out, m, l = local_rows_plain(*t, w, return_stats=True)
+    got = sliding_backward_plain(*t, _t(do), m, l, row_delta(_t(do), out), w)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K4/K5: dense attention rows, forward and backward
+# ---------------------------------------------------------------------------
+
+def _dense_inputs(t, s, full_mask, seed=0, b=2, nh=2, dh=16):
+    """Batch 1 has a padded source tail; with ``full_mask`` batch 0 is an
+    all-padding source (its rows are uniform over the S keys)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, nh, t, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((b, nh, s, dh)).astype(np.float32) for _ in range(2))
+    key_bias = np.zeros((b, s), np.float32)
+    key_bias[1, s // 2:] = -1e9
+    if full_mask:
+        key_bias[0] = -1e9
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    return q, k, v, key_bias, do
+
+
+@pytest.mark.parametrize("causal,t,s,full_mask", [
+    (False, 16, 128, False),
+    (False, 24, 200, True),  # S not a multiple of 128
+    (True, 32, 32, False),
+    (True, 40, 40, True),
+])
+def test_dense_rows_plain_matches_composite(causal, t, s, full_mask):
+    """Forward, m/l-based backward and `dense_rows`'s autograd against
+    `_dense_xla` and its VJP; the key bias gets a zero gradient."""
+    q, k, v, kb, do = _dense_inputs(t, s, full_mask)
+    ref, vjp = jax.vjp(lambda a, b_, c: _dense_xla(a, b_, c, jnp.asarray(kb), causal),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(do))
+    out, m, l = dense_rows_plain(_t(q), _t(k), _t(v), _t(kb), causal, return_stats=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    got = dense_backward_plain(_t(q), _t(k), _t(v), _t(kb), _t(do), m, l,
+                               row_delta(_t(do), out), causal)
+    for g, r in zip(got, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+    leaves = [_t(x).requires_grad_() for x in (q, k, v, kb)]
+    dense_rows(*leaves, causal).backward(_t(do))
+    for x, r in zip(leaves, ref_grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(r), **TOL)
+    assert not leaves[3].grad.any()
+    assert flash_dense_attention.launches == flash_dense_backward.launches == 0
+
+
+@pytest.mark.parametrize("causal,t,s", [(False, 16, 128), (True, 16, 16),
+                                        (False, 64, 256)])
+def test_dense_rows_plain_matches_pallas_kernels(causal, t, s):
+    """Against the Pallas forward and backward kernels (interpret mode)."""
+    q, k, v, kb, do = _dense_inputs(t, s, full_mask=not causal, seed=1)
+    j = [jnp.asarray(x) for x in (q, k, v, kb)]
+    ref = jax_flash_dense(*j, causal=causal, interpret=True)
+    ref_grads = jax_flash_dense_backward(*j, jnp.asarray(do), causal=causal,
+                                         interpret=True)
+    out, m, l = dense_rows_plain(*[_t(x) for x in (q, k, v, kb)], causal,
+                                 return_stats=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    got = dense_backward_plain(*[_t(x) for x in (q, k, v, kb, do)], m, l,
+                               row_delta(_t(do), out), causal)
+    for g, r in zip(got, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-5, atol=2e-5)
