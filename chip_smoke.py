@@ -14,20 +14,31 @@ Phases, in order; any failure exits non-zero:
   5. kernels K4/K5 (dense attention rows, forward and backward) against
      their plain versions, at the decoder's self and cross shapes and at
      S = 8192;
-  6. ``predict`` on ``configs/smoke.yaml`` on the card and on the CPU (the
+  6. kernel K8 (the per-query IVF probe top-k) against its plain version on
+     the same probe ids, on IVF indexes (C = 1024, SQ8 and bf16) built by
+     the port over 1,048,576 rows of the ``bench-index`` Gaussian mixture
+     (D = 768), at B = 4 and 16, nprobe = 32, k = 10; with the K1 flat scan
+     of the same payload, the build time and recall@10;
+  7. ``predict`` on ``configs/smoke.yaml`` on the card and on the CPU (the
      plain versions), from one seed: equal retrieved and generated ids;
      then ``fit`` on the same config for 3 steps, card against CPU: the
      same losses;
-  7. the serving slice: ``cli.run_predict`` of the port on the led_base
+  8. the same config on an ``IVF16,SQ8`` index (the per-query route):
+     ``predict`` and a 3-step ``fit``, card against CPU, then a
+     ``build-index`` → ``predict --index`` round trip on the card;
+  9. the serving slice: ``cli.run_predict`` of the port on the led_base
      preset (seeded random weights) over the committed 2000-example
-     fixture, with the kernels' launch counts read around that run;
-  8. the training slice: ``cli.run_fit`` on
-     ``configs/led_base_multi_x_science.yaml`` (a Flat bf16 index, no
-     pretrained weights, the hash tokenizer, the same fixture) for 4 steps
-     with one store refresh, with the launch counts read around it.
+     fixture, on the config's ``IVF256,SQ8`` index (nprobe 8), with the
+     kernels' launch counts read around that run;
+ 10. the training slice: ``cli.run_fit`` on
+     ``configs/led_base_multi_x_science.yaml`` (its ``IVF256,SQ8`` index,
+     no pretrained weights, the hash tokenizer, the same fixture) for 4
+     steps with one store refresh, with the launch counts read around it.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the two slices); the last line is ``{"ok": true, "device": {...}}``.
+over the two slices; ms, plain_ms and library_ms measured here with CUDA
+events; bound_ms the least time for the same work on an H100 SXM from
+these inputs); the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port's package beside this file, it exits
 non-zero and prints no result.
 """
@@ -48,8 +59,12 @@ FIXTURE = os.path.join(
     REPO, "retrieval_augmented_mds_tpu", "data", "fixtures",
     "multi_x_science_2000.json.gz",
 )
-OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # logs of the fit runs
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # fit logs, saved indexes
 WARMUP, REPS = 2, 10
+# H100 SXM (NVIDIA data sheet, dense): HBM bytes/s; peak operations/s of
+# the f32 CUDA cores and the bf16 tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32, PEAK_BF16 = 67e12, 989e12
 
 
 class SmokeFailure(AssertionError):
@@ -68,11 +83,12 @@ def _counters() -> dict:
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding_bwd import (
         flash_sliding_backward,
     )
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import ivf_probe_topk
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk
 
     return {f.__name__: f for f in (mips_topk, flash_sliding_attention,
                                     flash_sliding_backward, flash_dense_attention,
-                                    flash_dense_backward)}
+                                    flash_dense_backward, ivf_probe_topk)}
 
 
 def run_counted(fn):
@@ -91,11 +107,15 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of fn() in ms over ``reps`` launches (CUDA events)."""
+    """Mean device time of fn() in ms over ``reps`` launches (CUDA events).
+    The launches queue behind ~10 ms of device sleep, so the host's launch
+    overhead shows only where fn() itself waits for the device."""
     import torch
 
     for _ in range(WARMUP):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # clock cycles
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -104,6 +124,24 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def roofline(n_bytes: float, n_ops: float, f32: bool) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of the inputs' type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / (PEAK_F32 if f32 else PEAK_BF16) * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def result(err, ms, plain_ms, bound, library_ms=None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +233,13 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False):
     if timed:
         ms = cuda_ms(lambda: mips_topk(q, e, k, rb, ign, scale))
         plain_ms = cuda_ms(lambda: mips_topk_plain(q, e, k, rb, ign, scale))
+    bound = roofline(nbytes(q, e, rb, scale, ign, vals, ids), 2.0 * b * n * d,
+                     dtype == torch.float32)
     print(f"[K1] {name}: B={b} N={n} D={d} k={k} {dtype}: PASS ({tol}); "
           f"max_abs_err {err:.3e}"
-          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""))
-    return err, ms, plain_ms
+          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})" if timed else ""))
+    return result(err, ms, plain_ms, bound)
 
 
 def phase_k1():
@@ -241,6 +282,19 @@ def _k2_inputs(b, nh, t, dh, w, n_glob, lengths, n_valid_glob, dtype, seed):
     return (q, k, v, key_bias, take(k), take(v), g_bias, w), ~padded
 
 
+def _sliding_pairs(key_bias, g_bias, w, nh) -> float:
+    """Visible (query, key) pairs of the sliding rows: for every row, the
+    unmasked keys within w of it plus the valid globals, times the heads."""
+    import torch
+
+    b, t = key_bias.shape
+    ok = torch.nn.functional.pad((key_bias == 0).long().cumsum(1), (1, 0))
+    i = torch.arange(t, device=key_bias.device)
+    hi, lo = torch.clamp(i + w + 1, max=t), torch.clamp(i - w, min=0)
+    window = (ok[:, hi] - ok[:, lo]).sum()
+    return float(nh * (window + t * (g_bias == 0).sum()))
+
+
 def _k2_case(name, shape, dtype, *, timed=True):
     import torch
 
@@ -251,6 +305,7 @@ def _k2_case(name, shape, dtype, *, timed=True):
 
     args, rows_ok = _k2_inputs(*shape, dtype=dtype, seed=7)
     *tensors, w = args
+    flops = 4 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
     ref, ref_m, ref_l = local_rows_plain(*tensors, w, return_stats=True)
     torch.cuda.synchronize()
@@ -271,11 +326,14 @@ def _k2_case(name, shape, dtype, *, timed=True):
     if timed:
         ms = cuda_ms(lambda: flash_sliding_attention(*tensors, window=w))
         plain_ms = cuda_ms(lambda: local_rows_plain(*tensors, w))
+    bound = roofline(nbytes(*tensors, out), flops, dtype == torch.float32)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (out on non-padded "
           f"rows atol {tol_out}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
           f"l rtol {tol_l}: {l_rel:.3e})"
-          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""))
-    return err, ms, plain_ms
+          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
+             if timed else ""))
+    return result(err, ms, plain_ms, bound)
 
 
 def phase_k2():
@@ -331,6 +389,7 @@ def _k3_case(name, shape, dtype, *, timed=True):
 
     args, _ = _k2_inputs(*shape, dtype=dtype, seed=11)
     *tensors, w = args
+    flops = 10 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
     g = torch.Generator(device="cuda").manual_seed(12)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
@@ -344,11 +403,14 @@ def _k3_case(name, shape, dtype, *, timed=True):
     if timed:
         ms = cuda_ms(lambda: flash_sliding_backward(*bwd, window=w))
         plain_ms = cuda_ms(lambda: sliding_backward_plain(*bwd, w))
+    bound = roofline(nbytes(*bwd, *got), flops, dtype == torch.float32)
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (dq, dk, dv, dkg, dvg "
           f"on every row, fully masked ones included, within {tol} x max|ref|: "
           f"max abs err {err:.3e})"
-          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""))
-    return err, ms, plain_ms
+          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
+             if timed else ""))
+    return result(err, ms, plain_ms, bound)
 
 
 def phase_k3():
@@ -401,20 +463,47 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=1e-3), f"K4 {what}: m differs")
     check(bool(((l - ref_l).abs() / ref_l).max() <= 1e-3), f"K4 {what}: l differs")
     err5 = _compare(f"K5 {what}", got, ref_g, tol)
-    times = [None] * 4
+    # visible (query, key) pairs: keys inside the source, and not after the
+    # query when causal; 4 (forward) and 10 (backward) x dh operations each
+    j = torch.arange(s, device="cuda")
+    vis = j[None, None, :] < torch.tensor(lengths, device="cuda")[:, None, None]
+    if causal:
+        vis = vis & (j[None, None, :] <= torch.arange(t, device="cuda")[None, :, None])
+    pairs = float(nh * vis.expand(b, t, s).sum())
+    f32 = dtype == torch.float32
+    bound4 = roofline(nbytes(q, k, v, kb, out, m, l), 4 * dh * pairs, f32)
+    bound5 = roofline(nbytes(*bwd, *got), 10 * dh * pairs, f32)
+    times = [None] * 6
     if timed:
+        # the library's yardstick: one scaled_dot_product_attention call with
+        # the same additive key mask, and its backward
+        mask = kb[:, None, None, :].expand(b, 1, t, s)
+        if causal:
+            later = j[None, :] > torch.arange(t, device="cuda")[:, None]
+            mask = mask + torch.where(later, -1e9, 0.0)
+        mask = mask.to(dtype)
+        q2, k2, v2 = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(q2, k2, v2, attn_mask=mask)
         times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
                  cuda_ms(lambda: dense_rows_plain(q, k, v, kb, causal)),
                  cuda_ms(lambda: flash_dense_backward(*bwd, causal=causal)),
-                 cuda_ms(lambda: dense_backward_plain(*bwd, causal))]
+                 cuda_ms(lambda: dense_backward_plain(*bwd, causal)),
+                 cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask)),
+                 cuda_ms(lambda: torch.autograd.grad(lib_out, (q2, k2, v2), do,
+                                                     retain_graph=True))]
     shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
     print(f"[K4] {what}: {shape}: PASS (out within {tol} x max|ref|: {err4:.3e}; "
           f"m atol 1e-3, l rtol 1e-3)"
-          + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms" if timed else ""))
+          + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
+             f"bound {bound4['bound_ms']:.3f} ms ({bound4['bound_by']})" if timed else ""))
     print(f"[K5] {what}: {shape}: PASS (dq, dk, dv within {tol} x max|ref|: "
           f"{err5:.3e})"
-          + (f"; kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms" if timed else ""))
-    return (err4, times[0], times[1]), (err5, times[2], times[3])
+          + (f"; kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms, sdpa backward "
+             f"{times[5]:.3f} ms, bound {bound5['bound_ms']:.3f} ms ({bound5['bound_by']})"
+             if timed else ""))
+    return (result(err4, times[0], times[1], bound4, times[4]),
+            result(err5, times[2], times[3], bound5, times[5]))
 
 
 def phase_k45():
@@ -434,7 +523,124 @@ def phase_k45():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# phase 6: K8 on IVF indexes of 1M rows
+# ---------------------------------------------------------------------------
+
+K8_N, K8_D, K8_C, K8_NPROBE, K8_K = 1 << 20, 768, 1024, 32, 10
+
+
+def _k8_check(what, args, k):
+    """K8 against `ivf_probe_topk_plain` on the same probe ids: equal
+    positions, except where the plain scores of the two candidates differ
+    by less than the tolerance; values within 1e-4 x max|score| (the f32
+    sums run in another order) → (max abs err, tolerance)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
+        ivf_probe_scores_plain,
+        ivf_probe_topk,
+        ivf_probe_topk_plain,
+    )
+
+    vals, pos = ivf_probe_topk(*args, k)
+    ref_v, ref_p = ivf_probe_topk_plain(*args, k)
+    scores = ivf_probe_scores_plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * scores[scores > -1e38].abs().max().item()
+    err = (vals - ref_v).abs().max().item()
+    check(err <= tol, f"K8 {what}: values differ by {err} > {tol}")
+    differ = pos != ref_p
+    if bool(differ.any()):
+        at = lambda p: scores.gather(1, p.long().clamp(max=scores.shape[1] - 1))  # noqa: E731
+        gap = (at(pos) - at(ref_p)).abs()[differ].max().item()
+        check(gap <= tol, f"K8 {what}: positions differ where scores differ by {gap}")
+    return err, tol, int(differ.sum())
+
+
+def phase_k8() -> dict:
+    import numpy as np
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.cli import gaussian_mixture, recall
+    from retrieval_augmented_mds_tpu_torch.index.ivf import (
+        build_ivf_index,
+        prepare_queries,
+        probe_clusters,
+    )
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
+        ivf_probe_topk,
+        ivf_probe_topk_plain,
+        ivf_search_serving,
+    )
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
+        mips_topk,
+        mips_topk_plain,
+        quantize_corpus_sq8,
+    )
+
+    t0 = time.perf_counter()
+    x_np, q_np = gaussian_mixture(K8_N, K8_D, 16, seed=0)
+    x = torch.from_numpy(x_np).cuda()
+    del x_np
+    queries = torch.from_numpy(np.ascontiguousarray(q_np)).cuda()
+    print(f"[K8] corpus: {K8_N} rows x {K8_D} of the bench-index Gaussian mixture "
+          f"(numpy, seed 0), made in {time.perf_counter() - t0:.1f} s")
+    _, exact = mips_topk_plain(queries, x, K8_K)  # exact top-10 over the f32 rows
+    measured = None
+    for payload in ("int8", "bfloat16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = build_ivf_index(x, K8_C, dtype=payload, alpha=1.5, train_size=65536, seed=0,
+                              keep_flat=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        c, L, d = idx.clustered.shape
+        check((c, L, d) == (K8_C, 1536, K8_D), f"K8: clustered shape {(c, L, d)}")
+        if payload == "int8":  # the same rows as one flat payload, for K1
+            flat, flat_scale = quantize_corpus_sq8(x)
+        else:
+            flat, flat_scale = x.to(torch.bfloat16), None
+        print(f"[K8] IVF{K8_C},{'SQ8' if payload == 'int8' else 'Flat'} ({payload}) built in "
+              f"{build_s:.3f} s (k-means on 65536 rows, 15 iterations; every row "
+              f"assigned): L = {L}, spill rows {idx.n_spill}")
+        for b in (4, 16):
+            q = prepare_queries(idx, queries[:b])
+            probes = probe_clusters(idx, q, K8_NPROBE).to(torch.int32).contiguous()
+            args = (q, idx.clustered, idx.clustered_bias, idx.clustered_scale, probes)
+            err, tol, n_swapped = _k8_check(f"{payload} B={b}", args, K8_K)
+            ms = cuda_ms(lambda: ivf_probe_topk(*args, K8_K))
+            plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, K8_K))
+            flat_ms = cuda_ms(lambda: mips_topk(q, flat, K8_K, None, None, flat_scale))
+            # the whole per-query route: probes, K8, ids, the spill by K1, merge
+            route_ms = cuda_ms(lambda: ivf_search_serving(idx, queries[:b], k=K8_K,
+                                                          nprobe=K8_NPROBE))
+            # each probed cluster read once: its rows, their bias and scale
+            n_probed = int(torch.unique(probes).numel())
+            row_bytes = d * idx.clustered.element_size() + 4 * (
+                1 if idx.clustered_scale is None else 2)
+            bound = roofline(n_probed * L * row_bytes + nbytes(q, probes) + b * K8_K * 8,
+                             2.0 * b * K8_NPROBE * L * d, False)
+            _, ids = ivf_search_serving(idx, queries[:b], k=K8_K, nprobe=K8_NPROBE)
+            rec = recall(ids, exact[:b])
+            _, flat_ids = mips_topk(queries[:b], flat, K8_K, None, None, flat_scale)
+            print(f"[K8] {payload} B={b} nprobe={K8_NPROBE} k={K8_K}: PASS (positions equal "
+                  f"but {n_swapped} swapped near-ties within tol {tol:.3e}; values max abs "
+                  f"err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, K1 flat "
+                  f"scan of the same {K8_N}-row payload {flat_ms:.3f} ms; bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {n_probed} distinct "
+                  f"clusters of {b * K8_NPROBE} probes), {bound['bound_ms'] / ms:.1%} of it; "
+                  f"the whole per-query route {route_ms:.3f} ms; recall@10 vs exact f32: "
+                  f"IVF per-query {rec:.4f}, flat {recall(flat_ids, exact[:b]):.4f}")
+            if measured is None:  # the reported case: SQ8, B = 4
+                measured = result(err, ms, plain_ms, bound)
+        del idx, flat, flat_scale
+    del x
+    torch.cuda.empty_cache()
+    return measured
+
+
+# ---------------------------------------------------------------------------
+# phases 7 to 9: the small configs on the card and the CPU; the serving slice
 # ---------------------------------------------------------------------------
 
 SLICE_CONFIG = {
@@ -444,7 +650,8 @@ SLICE_CONFIG = {
         "query_max_length": 512, "decoder_max_length": 256,
         "memory_len": 512, "batch_size": 4,
     },
-    "index": {"factory": "Flat", "dtype": "bfloat16"},
+    # configs/led_base_multi_x_science.yaml's index (sotasum/config.yaml:94)
+    "index": {"factory": "IVF256,SQ8", "nprobe": 8, "dtype": "bfloat16"},
     "precision": "bfloat16",
     # configs/led_base_multi_x_science.yaml generation settings
     "generation": {
@@ -505,7 +712,8 @@ def phase_small_fit() -> None:
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(cfg, device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
-    check(all(n > 0 for n in launches.values()), f"small fit: a kernel not launched {launches}")
+    check(all(n > 0 for name, n in launches.items() if name != "ivf_probe_topk"),
+          f"small fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1, "small fit: no store refresh")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
     check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small fit losses {lg}")
@@ -516,12 +724,90 @@ def phase_small_fit() -> None:
           f"max rel err {rel:.3e} (rtol 1e-3): PASS; card launches {launches}")
 
 
+SMALL_IVF = {"factory": "IVF16,SQ8", "nprobe": 2}  # C = 15 > B * nprobe = 8
+
+
+def phase_small_ivf() -> None:
+    """``configs/smoke.yaml`` on an ``IVF16,SQ8`` index (15 clusters of the
+    123-row corpus, so B * nprobe = 8 < C and the per-query route runs):
+    ``predict`` on the card (K8 + K1 on the spill) and on the CPU, equal
+    retrieved and generated ids; ``fit`` for 3 steps with a refresh, the
+    same losses to rtol 1e-3; then ``build-index`` → ``predict --index``
+    on the card, the same retrieved ids as the card's own build."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.index import IVFIndex
+    from retrieval_augmented_mds_tpu_torch.index.ivf import ivf_route
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
+    cfg = dataclasses.replace(cfg, index=dataclasses.replace(cfg.index, **SMALL_IVF))
+    gpu, cpu = {}, {}
+    out_gpu, launches = run_counted(lambda: cli.run_predict(cfg, device="cuda", report=gpu))
+    out_cpu = cli.run_predict(cfg, device="cpu", report=cpu)
+    idx = gpu["store"].index
+    route = ivf_route(idx, cfg.data.batch_size, cfg.model.mips_topk, cfg.index.nprobe,
+                      gpu["batch"]["mips_ignore"].shape[1])
+    check(isinstance(idx, IVFIndex) and route == "per_query", f"small IVF: route {route}")
+    check(launches["ivf_probe_topk"] > 0, f"small IVF: K8 not launched {launches}")
+    idx_g, idx_c = gpu["enc"].retrieved_idx.cpu(), cpu["enc"].retrieved_idx
+    check(torch.equal(idx_g, idx_c), f"small IVF: retrieved ids {idx_g} != CPU {idx_c}")
+    check(torch.equal(gpu["ids"].cpu(), cpu["ids"]) and out_gpu == out_cpu,
+          "small IVF: generated ids differ")
+    print(f"[small-ivf] configs/smoke.yaml on {SMALL_IVF['factory']} nprobe "
+          f"{SMALL_IVF['nprobe']}: {idx.n_clusters} clusters of {idx.clustered.shape[1]} "
+          f"rows over {idx.n} rows, spill {idx.n_spill}; route {route}; predict, card vs "
+          f"CPU: retrieved ids {idx_g.tolist()} and generated ids equal: PASS; card "
+          f"launches {launches}")
+
+    fcfg = dataclasses.replace(
+        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
+        index=dataclasses.replace(cfg.index, rebuild_every=2),
+        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, "small_ivf")))
+    gpu, cpu = {}, {}
+    _, launches = run_counted(lambda: cli.run_fit(fcfg, device="cuda", report=gpu))
+    cli.run_fit(fcfg, device="cpu", report=cpu)
+    check(all(n > 0 for n in launches.values()), f"small IVF fit: a kernel not launched "
+          f"{launches}")
+    check(len(gpu["refresh_s"]) == 1 and isinstance(gpu["store"].index, IVFIndex),
+          "small IVF fit: no IVF refresh")
+    lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
+    check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small IVF fit losses {lg}")
+    rel = ((lg - lc).abs() / lc.abs()).max().item()
+    check(rel <= 1e-3, f"small IVF fit: card losses {lg.tolist()} vs CPU {lc.tolist()}")
+    print(f"[small-ivf] fit, 3 steps + 1 refresh, card vs CPU: losses "
+          f"{[f'{x:.6f}' for x in lg.tolist()]} vs {[f'{x:.6f}' for x in lc.tolist()]}, "
+          f"max rel err {rel:.3e} (rtol 1e-3): PASS; card launches {launches}")
+
+    path = os.path.join(OUT_DIR, "small_ivf_index")
+    built = cli.run_build_index(cfg, path, device="cuda")
+    rt = {}
+    out_rt = cli.run_predict(cfg, path, device="cuda", report=rt)
+    check(isinstance(rt["store"].index, IVFIndex) and rt["store"].nprobe == cfg.index.nprobe,
+          "small IVF: --index did not load an IVF store")
+    check(torch.equal(rt["enc"].retrieved_idx.cpu(), idx_g) and out_rt == out_gpu,
+          "small IVF: predict --index differs from the card's own build")
+    print(f"[small-ivf] build-index ({built['n']} rows) -> predict --index on the card: "
+          f"the same retrieved ids and predictions: PASS")
+
+
 def phase_slice() -> dict:
     import torch
 
     from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.index import IVFIndex, index_to
+    from retrieval_augmented_mds_tpu_torch.index.ivf import (
+        ivf_route,
+        ivf_search,
+        prepare_queries,
+        probe_clusters,
+    )
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
+        ivf_probe_topk,
+        ivf_probe_topk_plain,
+    )
     from retrieval_augmented_mds_tpu_torch.models.retriever_generator import rag_decode
-    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk_plain
     from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
 
     cfg = config_from_dict(SLICE_CONFIG)
@@ -536,7 +822,7 @@ def phase_slice() -> dict:
     b = cfg.data.batch_size
     n = store.index.n
     check(launches["mips_topk"] > 0 and launches["flash_sliding_attention"] > 0,
-          f"kernel not launched: {launches}")
+          f"kernel not launched: {launches}")  # K1: the IVF spill
     preds = out["predictions"]
     check(len(preds) == b and all(p.strip() for p in preds), "empty predictions")
     check(tuple(ids.shape) == (b, cfg.generation.max_new_tokens), f"ids {ids.shape}")
@@ -547,10 +833,29 @@ def phase_slice() -> dict:
           "a self-excluded corpus row was retrieved")
     for name in ("enc_hidden", "memory", "mips_scores", "query_cls"):
         check(bool(torch.isfinite(getattr(enc, name).float()).all()), f"{name} not finite")
-    # the kernel's retrieval agrees with the plain search on these queries
-    _, ref = mips_topk_plain(enc.query_cls, store.index.embeddings, cfg.model.mips_topk,
-                             store.index.row_bias, ign, store.index.row_scale)
-    check(torch.equal(ref, idx), "retrieval differs from the plain search")
+    # the retrieval agrees with the plain IVF search (every kernel's plain
+    # version, on the CPU) of the same store on these queries
+    idx_obj, nprobe = store.index, store.nprobe
+    route = ivf_route(idx_obj, b, cfg.model.mips_topk, nprobe, ign.shape[1])
+    check(isinstance(idx_obj, IVFIndex) and route == "per_query", f"route {route}")
+    check(launches["ivf_probe_topk"] > 0, f"K8 not launched: {launches}")
+    _, ref = ivf_search(index_to(idx_obj, "cpu"), enc.query_cls.cpu(), k=cfg.model.mips_topk,
+                        nprobe=nprobe, ignore=ign.cpu())
+    check(torch.equal(ref, idx.cpu()), f"retrieval {idx.tolist()} differs from the plain "
+          f"IVF search {ref.tolist()}")
+    # K8 at the slice's own shape: B queries, nprobe probes, k + I hits
+    q = prepare_queries(idx_obj, enc.query_cls)
+    probes = probe_clusters(idx_obj, q, nprobe).to(torch.int32).contiguous()
+    args = (q, idx_obj.clustered, idx_obj.clustered_bias, idx_obj.clustered_scale, probes)
+    k_fetch = cfg.model.mips_topk + ign.shape[1]
+    err, tol, _ = _k8_check("slice", args, k_fetch)
+    ms = cuda_ms(lambda: ivf_probe_topk(*args, k_fetch))
+    plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, k_fetch))
+    print(f"[slice] IVF index: {idx_obj.n_clusters} clusters x {idx_obj.clustered.shape[1]} "
+          f"rows ({idx_obj.clustered.dtype}), spill {idx_obj.n_spill}, nprobe {nprobe}; "
+          f"route {route}; retrieval equals the plain IVF search; K8 at B={b} "
+          f"nprobe={nprobe} k={k_fetch}: max abs err {err:.3e} (tol {tol:.3e}), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
     # one cached decode step from the start token: finite log-probs
     from retrieval_augmented_mds_tpu_torch.models.led import init_decode_caches
 
@@ -581,19 +886,19 @@ def phase_slice() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the training slice
+# phase 10: the training slice
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 4
 
 
 def train_slice_config():
-    """``configs/led_base_multi_x_science.yaml`` cut to a few steps: a Flat
-    bf16 index (IVF needs a kernel not ported yet) refreshed every 2
-    steps, no pretrained weights (seeded random init), the hash tokenizer
-    over the committed 2000-example fixture, no eval and no checkpoints.
-    Widths, lengths, batch, top-k, memory encoder and precision are the
-    file's."""
+    """``configs/led_base_multi_x_science.yaml`` cut to a few steps: its
+    ``IVF256,SQ8`` index (nprobe 8; 131 clusters over the fixture's 1055
+    rows) refreshed every 2 steps, no pretrained weights (seeded random
+    init), the hash tokenizer over the committed 2000-example fixture, no
+    eval and no checkpoints. Widths, lengths, batch, top-k, memory encoder,
+    index and precision are the file's."""
     import yaml
 
     from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
@@ -602,7 +907,7 @@ def train_slice_config():
         d = yaml.safe_load(f)
     d["model"] = {k: v for k, v in d["model"].items() if not k.endswith("_weights")}
     d["data"].update(source=FIXTURE, tokenizer=None)
-    d["index"].update(factory="Flat", rebuild_every=2)
+    d["index"].update(rebuild_every=2)
     d.update(max_steps=TRAIN_STEPS, eval_every=0, ckpt_dir=None,
              logging={"log_dir": os.path.join(OUT_DIR, "train_slice"),
                       "run_name": "led_base_train"})
@@ -631,6 +936,9 @@ def phase_train_slice() -> dict:
           f"grad_norm {out['grad_norm']}")
     check(len(report["refresh_s"]) == 1, f"{len(report['refresh_s'])} store refreshes")
     check(all(n > 0 for n in launches.values()), f"kernel not launched: {launches}")
+    store = report["store"]
+    check(type(store.index).__name__ == "IVFIndex" and store.nprobe == cfg.index.nprobe,
+          "the train slice's store is not the config's IVF index")
     params = report["state"].params
     check(all(bool(torch.isfinite(p).all()) for p in params.parameters()),
           "non-finite parameters after the steps")
@@ -639,7 +947,8 @@ def phase_train_slice() -> dict:
           f"{d.decoder_max_length}, query {d.query_max_length}, memory {d.memory_len} "
           f"x top-{cfg.model.mips_topk}, {cfg.precision} compute, f32 master weights, "
           f"memory_model_fixed={cfg.model.memory_model_fixed}, corpus rows "
-          f"{report['store'].index.n}, {sum(p.numel() for p in params.parameters())} "
+          f"{store.index.n}, index {cfg.index.factory} ({store.index.n_clusters} clusters, "
+          f"nprobe {store.nprobe}), {sum(p.numel() for p in params.parameters())} "
           f"parameters")
     print(f"[train] losses {[f'{x:.5f}' for x in losses]}; last metrics "
           f"{json.dumps({k: round(v, 6) for k, v in out.items()})}")
@@ -674,8 +983,10 @@ def main() -> int:
         measured = {"mips_topk": phase_k1(), "flash_sliding_attention": phase_k2(),
                     "flash_sliding_backward": phase_k3()}
         measured["flash_dense_attention"], measured["flash_dense_backward"] = phase_k45()
+        measured["ivf_probe_topk"] = phase_k8()
         phase_small_reference()
         phase_small_fit()
+        phase_small_ivf()
         served = phase_slice()
         trained = phase_train_slice()
     except SmokeFailure as e:
@@ -688,16 +999,13 @@ def main() -> int:
         ("flash_sliding_backward", "flash_sliding_bwd.cu", "ops/flash_sliding_bwd.py:44"),
         ("flash_dense_attention", "flash_dense_fwd.cu", "ops/flash_dense.py:75"),
         ("flash_dense_backward", "flash_dense_bwd.cu", "ops/flash_dense.py:88"),
+        ("ivf_probe_topk", "ivf_probe_topk.cu", "index/ivf_serving.py:36"),
     ]
-    kernels = []
-    for name, src, tpu in sources:
-        err, ms, plain_ms = measured[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",
-            "replaces": f"retrieval_augmented_mds_tpu/{tpu}",
-            "launches": served[name] + trained[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",
+                "replaces": f"retrieval_augmented_mds_tpu/{tpu}",
+                "launches": served[name] + trained[name], **measured[name]}
+               for name, src, tpu in sources]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

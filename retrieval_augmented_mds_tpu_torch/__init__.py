@@ -7,12 +7,17 @@ hand-written CUDA kernels for Hopper (``csrc/``), each beside a plain
 PyTorch version that CPU tensors take.
 
 Layout:
-  ops/       CUDA kernel wrappers (MIPS top-k, sliding-window attention)
+  ops/       CUDA kernel wrappers (MIPS top-k, sliding-window and dense
+             attention)
   csrc/      the CUDA C++ sources, built with nvcc at first use
-  index/     the flat MIPS index and its persistence
+  index/     the flat and IVF MIPS indexes (the IVF probe kernel's wrapper
+             in index/ivf_serving.py), their files and the factory
   models/    Longformer, LED, copy heads, the RAG model, generation
-  train/     corpus embedding and memory-store build
-  utils/     the YAML config system
-  bridge.py  JAX param trees → the port's modules
-  cli.py     `predict`
+  train/     loss, optimizer, train step, corpus embedding and store build
+  data/      corpus, tokenizer and batch pipeline (pandas)
+  eval/      ROUGE
+  obs/       the JSONL metrics logger
+  utils/     the YAML config system, checkpoints
+  bridge.py  JAX param trees and indexes → the port's modules and indexes
+  cli.py     fit, validate, test, predict, build-index, bench-index
 """

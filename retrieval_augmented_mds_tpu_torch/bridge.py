@@ -1,19 +1,26 @@
-"""JAX param trees → the port's modules.
+"""JAX param trees and indexes → the port's modules and indexes.
 
 The port's modules name their parameters after the JAX param tree
 (``led.encoder.0.attn.q.kernel`` is ``params["led"]["encoder"][0]["attn"]
 ["q"]["kernel"]``) and keep its layouts, so loading a tree is a copy with
-no renames. Works on any tree of numpy-convertible leaves (numpy arrays,
-or JAX arrays through ``np.asarray``); imports no JAX.
+no renames. An index built by the JAX package comes over as its arrays
+and static fields (`ivf_index_from_arrays`, `flat_index_from_arrays`), so
+one index can be searched by both packages whatever k-means drew. Works on
+numpy-convertible leaves (numpy arrays, or JAX arrays through
+``np.asarray``, bf16 included); imports no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+
+from .index.flat import FlatIndex
+from .index.ivf import IVFIndex
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -45,3 +52,38 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
             raise ValueError(f"{name}: tree shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return module
+
+
+def _tensor(a: Any, device=None) -> torch.Tensor:
+    """A numpy-convertible array as a tensor of the same type (bf16 via
+    f32, which holds it exactly)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def flat_index_from_arrays(arrays: dict[str, Any], *, n: int, metric: str,
+                           normalized: bool, device=None) -> FlatIndex:
+    """The port's FlatIndex from a flat index's ``embeddings``, ``row_bias``
+    and ``row_scale`` (None unless SQ8) and static fields."""
+    scale = arrays.get("row_scale")
+    return FlatIndex(
+        embeddings=_tensor(arrays["embeddings"], device).contiguous(),
+        row_bias=_tensor(arrays["row_bias"], device).contiguous(),
+        row_scale=None if scale is None else _tensor(scale, device).contiguous(),
+        n=n, metric=metric, normalized=normalized)
+
+
+def ivf_index_from_arrays(arrays: dict[str, Any], *, n: int, metric: str,
+                          normalized: bool, n_spill: int = -1,
+                          flat: FlatIndex | None = None, device=None) -> IVFIndex:
+    """The port's IVFIndex from the arrays of an IVF index (every tensor
+    field of `IVFIndex` but ``flat``; the scales None unless SQ8) and its
+    static fields."""
+    fields = [f.name for f in dataclasses.fields(IVFIndex)
+              if f.name not in ("n", "metric", "normalized", "flat", "n_spill")]
+    kw = {f: None if arrays.get(f) is None else _tensor(arrays[f], device).contiguous()
+          for f in fields}
+    return IVFIndex(n=n, metric=metric, normalized=normalized, n_spill=n_spill,
+                    flat=flat, **kw)

@@ -1,7 +1,8 @@
 """Command-line entry point of the port:
 
-    python -m retrieval_augmented_mds_tpu_torch.cli {fit,validate,test,predict} \
-        --config <yaml> [--index DIR] [--device cuda|cpu]
+    python -m retrieval_augmented_mds_tpu_torch.cli \
+        {fit,validate,test,predict,build-index,bench-index} \
+        --config <yaml> [--index DIR] [--out DIR] [--device cuda|cpu]
 
 The subcommands do what the JAX package's ``run_fit``, ``run_validate``
 and ``run_predict`` do, on one device:
@@ -16,6 +17,11 @@ and ``run_predict`` do, on one device:
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one.
 * ``predict``: generate for the first batch of the test split.
+* ``build-index``: embed the corpus, build the configured index and save
+  it with the tokenized corpus (``corpus_tokens.npz``) under ``--out``, in
+  the JAX package's layout; ``--index DIR`` loads such a directory.
+* ``bench-index``: flat and IVF index build times and recall@10 on a
+  seeded Gaussian-mixture corpus shaped like the config.
 
 Serving runs under ``torch.no_grad()``. Everything runs on CUDA by default
 and raises when CUDA is missing, unless ``--device cpu`` is given.
@@ -62,9 +68,12 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def build_data(cfg):
-    """Host data pipeline of the JAX package (framework-free, pandas)."""
-    from retrieval_augmented_mds_tpu.data import (
+    """The host data pipeline (pandas): the module, and the tokenizer."""
+    from .data import (
         RAGDataModule,
+        aggregate_by_aid,
+        load_fixture,
+        load_multi_x_science,
         load_tokenizer,
         synthetic_multi_x_science,
     )
@@ -73,21 +82,15 @@ def build_data(cfg):
     if d.source == "synthetic":
         df = synthetic_multi_x_science(d.n_synthetic)
     elif d.source == "fixture" or d.source.endswith((".json", ".json.gz")):
-        from retrieval_augmented_mds_tpu.data.corpus import load_fixture
-
         df = load_fixture(None if d.source == "fixture" else d.source)
     else:
         import pandas as pd
-
-        from retrieval_augmented_mds_tpu.data.corpus import load_multi_x_science
 
         hf = load_multi_x_science(
             d.source if d.source != "multi_x_science" else "multi_x_science_sum"
         )
         df = pd.concat([v.to_pandas() for v in hf.values()], ignore_index=True)
     if d.dataset_mode == "aggregated":
-        from retrieval_augmented_mds_tpu.data.corpus import aggregate_by_aid
-
         df = aggregate_by_aid(df)
     tok = load_tokenizer(d.tokenizer, vocab_size=cfg.model.led.vocab_size,
                          doc_sep=d.doc_sep, fallback=d.tokenizer_fallback)
@@ -133,28 +136,25 @@ def build_store(params, cfg, dm, device: torch.device):
         token_ids=torch.from_numpy(arr["token_ids"]).to(device),
         token_mask=torch.from_numpy(arr["token_mask"]).to(device),
         row_aids=None if aids is None else torch.from_numpy(aids).to(device),
-        compute_dtype=compute_dtype(cfg),
+        seed=cfg.seed, compute_dtype=compute_dtype(cfg),
     )
 
 
 def load_store(index_dir: str, cfg, device: torch.device):
     """A MemoryStore from a persisted ``build-index`` directory (either
-    package's), with no re-embedding."""
-    from .index import load_flat_index
+    package's, flat or IVF), with no re-embedding; ``cfg.index.nprobe``
+    sets the probe width."""
+    from .index import load_index
     from .models.retriever_generator import MemoryStore
 
-    with open(os.path.join(index_dir, "meta.json")) as f:
-        if json.load(f).get("kind", "flat") != "flat":
-            raise NotImplementedError(
-                "only Flat indexes load in the port (ROADMAP queue 1: IVF)"
-            )
     tok = np.load(os.path.join(index_dir, "corpus_tokens.npz"))
     aids = tok["row_aids"] if "row_aids" in tok.files else None
     return MemoryStore(
-        index=load_flat_index(index_dir, device=device),
+        index=load_index(index_dir, device=device),
         token_ids=torch.from_numpy(tok["token_ids"]).to(device),
         token_mask=torch.from_numpy(tok["token_mask"]).to(device),
         row_aids=None if aids is None else torch.from_numpy(aids).to(device),
+        nprobe=cfg.index.nprobe,
     )
 
 
@@ -190,8 +190,7 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     ``steps``. With ``report``, also fills in per-step wall times (seconds,
     synchronised) and phase times, the losses, the store builds' and
     refreshes' times, and the objects the run made."""
-    from retrieval_augmented_mds_tpu.obs import MetricsLogger
-
+    from .obs import MetricsLogger
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
 
@@ -238,7 +237,8 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                         and step % cfg.index.rebuild_every == 0):
                     t0 = time.perf_counter()
                     store = refresh_store(state.params, cfg.model, store,
-                                          index_cfg=cfg.index, dtype=dtype)
+                                          index_cfg=cfg.index, dtype=dtype,
+                                          seed=cfg.seed)
                     _sync(dev)
                     rep["refresh_s"].append(time.perf_counter() - t0)
                 dbatch = device_batch(batch, cfg, dev)
@@ -281,8 +281,7 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
     """Generate for every batch of ``split`` (at most ``max_batches``) and
     score the outputs with ROUGE; with ``dump_name``, also write them to
     ``<log_dir>/<dump_name>.json``. Runs without autograd."""
-    from retrieval_augmented_mds_tpu.eval import RougeAccumulator
-
+    from .eval import RougeAccumulator
     from .models.generate import generate
     from .models.retriever_generator import rag_encode
 
@@ -302,7 +301,7 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
             acc.add_batch(preds, refs)
             outputs.extend({"prediction": p, "reference": r} for p, r in zip(preds, refs))
     if dump_name:
-        from retrieval_augmented_mds_tpu.obs import MetricsLogger
+        from .obs import MetricsLogger
 
         logger = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name)
         logger.dump_outputs(dump_name, outputs)
@@ -354,8 +353,8 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
     t1 = time.perf_counter()
     # the first batch of the held-out test split (the JAX package's
     # run_predict draws from the unsplit set, train examples included)
-    host = next(dm.batches(cfg.data.batch_size, shuffle=False, native=False,
-                           split="test", drop_last=False))
+    host = next(dm.batches(cfg.data.batch_size, shuffle=False, split="test",
+                           drop_last=False))
     batch = {k: torch.from_numpy(host[k]).to(dev) for k in _BATCH_KEYS if k in host}
     dtype = compute_dtype(cfg)
     with torch.no_grad():
@@ -374,10 +373,97 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
     return out
 
 
+def run_build_index(cfg, out_dir: str, *, device: str = "cuda") -> dict[str, Any]:
+    """Embed the corpus, build the configured index and save it, with the
+    tokenized corpus, in the JAX package's layout (either package loads
+    it with ``--index``)."""
+    from .index import save_index
+
+    dev = resolve_device(device)
+    dm, _ = build_data(cfg)
+    store = build_store(build_params(cfg, dev), cfg, dm, dev)
+    save_index(store.index, out_dir)
+    arrays = {"token_ids": store.token_ids.cpu().numpy(),
+              "token_mask": store.token_mask.cpu().numpy()}
+    if store.row_aids is not None:
+        arrays["row_aids"] = store.row_aids.cpu().numpy()
+    np.savez(os.path.join(out_dir, "corpus_tokens.npz"), **arrays)
+    return {"n": store.index.n, "out": out_dir}
+
+
+def gaussian_mixture(n: int, d: int, b: int, seed: int):
+    """The index benchmark's corpus and queries (numpy, from ``seed``; the
+    draws of the JAX package's ``bench-index``): an anisotropic Gaussian
+    mixture with power-law component masses, since encoder embeddings are
+    strongly clustered and isotropic noise flatters IVF recall, and
+    queries that are perturbed corpus rows → (x [n, d], q [b, d]) f32."""
+    rng = np.random.default_rng(seed)
+    n_comp = max(32, n // 512)
+    centers = 3.0 * rng.standard_normal((n_comp, d)).astype(np.float32)
+    w = 1.0 / np.arange(1, n_comp + 1)
+    comp = rng.choice(n_comp, size=n, p=w / w.sum())
+    scales = (0.5 + rng.random((n_comp, d))).astype(np.float32)
+    x = centers[comp] + scales[comp] * rng.standard_normal((n, d)).astype(np.float32)
+    q = x[rng.integers(0, n, b)] + 0.1 * rng.standard_normal((b, d)).astype(np.float32)
+    return x, q
+
+
+def recall(ids: torch.Tensor, ref: torch.Tensor) -> float:
+    """Share of the reference's ids found in ``ids``, row by row."""
+    ids, ref = ids.cpu().tolist(), ref.cpu().tolist()
+    return sum(len(set(a) & set(r)) for a, r in zip(ids, ref)) / max(1, sum(map(len, ref)))
+
+
+def run_bench_index(cfg, *, device: str = "cuda") -> dict[str, Any]:
+    """Index build times and recall@10 of the flat and IVF indexes (64
+    queries) on `gaussian_mixture` data of ``data.mips_db_max_size`` rows
+    (65536 by default) at the mips encoder's width. Recall is against an
+    exact top-10 over the f32 corpus by the plain MIPS search on the CPU;
+    the IVF queries go in batches of 4, so that B·nprobe < C and the
+    probed route runs (a batch of 64 would scan every cluster). Times are
+    host seconds with the device synchronised."""
+    from .index import build_flat_index, build_ivf_index, ivf_search, search
+    from .ops.mips_topk import mips_topk_plain
+
+    dev = resolve_device(device)
+    n = cfg.data.mips_db_max_size or 65536
+    d = cfg.model.mips_enc.d_model
+    b, k = 64, 10
+    x, q = gaussian_mixture(n, d, b, cfg.seed)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    out: dict[str, Any] = {"n": n, "d": d, "device": str(dev)}
+
+    t0 = time.perf_counter()
+    flat = build_flat_index(x, dtype=dtype, device=dev)
+    _sync(dev)
+    out["flat_build_s"] = round(time.perf_counter() - t0, 3)
+    nc = min(256, max(1, n // 64))
+    # keep_flat=False: the recall below measures the probed routes (with the
+    # flat sibling, B·nprobe >= C batches are exact flat searches)
+    for name in ("ivf_build_cold_s", "ivf_rebuild_warm_s"):
+        t0 = time.perf_counter()
+        ivf = build_ivf_index(x, nc, dtype=dtype, train_size=min(n, 16384), iters=5,
+                              keep_flat=False, device=dev)
+        _sync(dev)
+        out[name] = round(time.perf_counter() - t0, 3)
+
+    _, ref = mips_topk_plain(torch.from_numpy(q), torch.from_numpy(x), k)
+    qt = torch.from_numpy(q).to(dev)
+    out["flat_recall"] = round(recall(search(flat, qt, k=k)[1], ref), 4)
+    for nprobe in (8, 32):
+        ids = torch.cat([ivf_search(ivf, qt[i:i + 4], k=k, nprobe=nprobe)[1]
+                         for i in range(0, b, 4)])
+        out[f"ivf_recall_nprobe{nprobe}"] = round(recall(ids, ref), 4)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="retrieval_augmented_mds_tpu_torch")
-    p.add_argument("command", choices=["fit", "validate", "test", "predict"])
+    p.add_argument("command", choices=["fit", "validate", "test", "predict",
+                                       "build-index", "bench-index"])
     p.add_argument("--config", default=None)
+    p.add_argument("--out", default="./index_out",
+                   help="build-index: the directory to save the index in")
     p.add_argument("--index", default=None, metavar="DIR",
                    help="load this persisted index directory instead of "
                    "embedding the corpus (validate, test, predict)")
@@ -396,6 +482,10 @@ def main(argv=None) -> int:
     elif args.command in ("validate", "test"):
         split = "val" if args.command == "validate" else "test"
         out = run_validate(cfg, split, index_dir=args.index, device=args.device)
+    elif args.command == "build-index":
+        out = run_build_index(cfg, args.out, device=args.device)
+    elif args.command == "bench-index":
+        out = run_bench_index(cfg, device=args.device)
     else:
         out = run_predict(cfg, index_dir=args.index, device=args.device)
     print(json.dumps(out, default=str)[:2000])

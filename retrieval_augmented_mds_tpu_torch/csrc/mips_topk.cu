@@ -22,8 +22,8 @@
 // element is read from HBM once per 16 queries. After every tile the 256
 // new scores of a query are merged with its running top-k in shared memory
 // by one warp: k rounds of (warp max, lowest index among equal values,
-// remove every equal value). Pass 2 merges the per-split lists
-// [B, splits, k] with the same rule. The merge is exact: a value among the
+// remove every equal value; `topk::warp_select`, shared with K8). Pass 2
+// merges the per-split lists [B, splits, k] with the same rule. The merge is exact: a value among the
 // global top-k distinct values is among the top-k distinct values of every
 // split holding it, reported there with that split's lowest index.
 
@@ -33,9 +33,14 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace {
 
-constexpr float kNegInf = -3.0e38f;
+using topk::kNegInf;
+using topk::warp_max;
+using topk::warp_min;
+
 constexpr int kQB = 16;       // queries per CTA
 constexpr int kRT = 256;      // corpus rows per tile
 constexpr int kKC = 16;       // depth staged per step
@@ -50,47 +55,6 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
 }
 __device__ __forceinline__ float load_f(const int8_t* p, long i) {
   return static_cast<float>(p[i]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// k rounds over the candidates a warp holds (NS per lane). Each round takes
-// the largest remaining value, reports the lowest index holding it, and
-// removes every candidate equal to it. Exhausted rounds give (-3e38, -1).
-template <int NS>
-__device__ void warp_select(float (&v)[NS], int (&id)[NS], int k, float* out_v,
-                            int* out_i) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < k; ++r) {
-    float m = kNegInf;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) m = fmaxf(m, v[s]);
-    m = warp_max(m);
-    int best = -1;
-    if (m > kNegInf) {  // warp-uniform
-      best = INT_MAX;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        if (v[s] == m) {
-          best = min(best, id[s]);
-          v[s] = kNegInf;
-        }
-      }
-      best = warp_min(best);
-    }
-    if (lane == 0) {
-      out_v[r] = m;
-      out_i[r] = best;
-    }
-  }
 }
 
 template <typename ET>
@@ -190,7 +154,7 @@ mips_partial_kernel(const float* __restrict__ q, const ET* __restrict__ E,
         id[kNewSlots + s] = kk < k ? Ri[qi][kk] : INT_MAX;
       }
       __syncwarp();
-      warp_select(v, id, k, Rv[qi], Ri[qi]);
+      topk::warp_select(v, id, k, Rv[qi], Ri[qi], -1);
       __syncwarp();
     }
   }

@@ -1,18 +1,29 @@
 """FAISS-style factory strings → index builders.
 
-Counterpart of ``retrieval_augmented_mds_tpu/index/factory.py``. Only
-"Flat" is ported; the "IVF<n>,Flat|SQ8" specs parse as in the JAX package
-and raise until the IVF index is ported.
+Counterpart of ``retrieval_augmented_mds_tpu/index/factory.py`` on one
+device (no mesh, so no rounding of the cluster count to a shard count):
+
+  * "Flat"               → FlatIndex (exact search by the MIPS kernel)
+  * "IVF<n>,Flat"        → IVFIndex with n clusters, payload of ``dtype``
+  * "IVF<n>,SQ8"         → IVFIndex with n clusters and int8 payloads with
+                           per-row scales
+  * "IVF<n>_HNSW<m>,..." → as "IVF<n>,...": the centroid scan is one small
+                           matmul, so the graph quantizer is not needed
+
+The cluster count is clamped to ``min(n, N // 8)`` and a clamp is reported
+on stderr, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import re
+import sys
 from typing import Any
 
 import torch
 
 from .flat import FlatIndex, build_flat_index
+from .ivf import IVFIndex, build_ivf_index
 
 _IVF_RE = re.compile(r"^IVF(\d+)(?:_HNSW\d+)?$")
 
@@ -31,12 +42,19 @@ def parse_factory(spec: str) -> dict[str, Any]:
 
 def build_index_from_factory(
     embeddings, spec: str, *, metric: str = "ip", normalize: bool = False,
-    dtype=torch.bfloat16, device=None,
-) -> FlatIndex:
-    if parse_factory(spec)["kind"] != "flat":
-        raise NotImplementedError(
-            f"index factory {spec!r}: the IVF index is not ported yet "
-            "(ROADMAP queue 1: IVF, kernel K8)"
-        )
-    return build_flat_index(embeddings, metric=metric, normalize=normalize,
-                            dtype=dtype, device=device)
+    dtype=torch.bfloat16, train_size: int | None = None, seed: int = 0, device=None,
+) -> FlatIndex | IVFIndex:
+    p = parse_factory(spec)
+    if p["kind"] == "flat":
+        return build_flat_index(embeddings, metric=metric, normalize=normalize,
+                                dtype=dtype, device=device)
+    n = len(embeddings)
+    n_clusters = min(p["n_clusters"], max(1, n // 8))
+    if n_clusters != p["n_clusters"]:
+        print(f"[index] factory {spec!r}: effective n_clusters={n_clusters} "
+              f"(requested {p['n_clusters']}; corpus={n}, shards=1)", file=sys.stderr)
+    return build_ivf_index(
+        embeddings, n_clusters, metric=metric, normalize=normalize,
+        dtype="int8" if p["payload"] == "sq8" else dtype, train_size=train_size,
+        seed=seed, device=device,
+    )

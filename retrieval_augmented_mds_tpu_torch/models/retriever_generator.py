@@ -1,9 +1,10 @@
 """Retrieval-augmented generator: the flagship model.
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/retriever_generator.py``.
-`rag_encode` embeds the query, searches the device-resident index
-(`index.flat.search`: the MIPS kernel on the card) with the query's
-gradient stopped, gathers the retrieved rows of the pre-tokenized corpus,
+`rag_encode` embeds the query, searches the device-resident index (a flat
+index through the MIPS kernel K1, an IVF index through `ivf_search`,
+whose per-query route is the probe kernel K8) with the query's gradient
+stopped, gathers the retrieved rows of the pre-tokenized corpus,
 re-encodes them with the mips encoder (a differentiable cosine rescoring
 + the copy memory) and runs the LED encoder; `rag_decode` runs the
 decoder (teacher-forced, or cached for generation) and the copy head;
@@ -25,6 +26,7 @@ from torch import nn
 
 from ..index.flat import FlatIndex
 from ..index.flat import search as flat_search
+from ..index.ivf import IVFIndex, ivf_search
 from .config import EncoderConfig, Seq2SeqConfig
 from .copy_decoder import (
     CopyDecoder,
@@ -126,10 +128,11 @@ class RAGConfig:
 class MemoryStore:
     """Device-resident memory: the index plus the pre-tokenized corpus."""
 
-    index: FlatIndex
+    index: FlatIndex | IVFIndex
     token_ids: torch.Tensor  # [N, L_mem] int32
     token_mask: torch.Tensor  # [N, L_mem] int32
     row_aids: torch.Tensor | None = None  # [N, A] int32
+    nprobe: int = 8  # IVF probe width (mips_nprobe)
 
 
 @dataclasses.dataclass
@@ -215,8 +218,13 @@ def rag_encode(
         ignore = (None if cfg.memory_forcing == "retrieved_forcing"
                   else batch.get("mips_ignore"))
         # the search carries no gradient; the rescoring below does
-        faiss_scores, idx = flat_search(store.index, query_cls.detach(),
-                                        k=cfg.mips_topk, ignore=ignore)
+        if isinstance(store.index, FlatIndex):
+            faiss_scores, idx = flat_search(store.index, query_cls.detach(),
+                                            k=cfg.mips_topk, ignore=ignore)
+        else:
+            faiss_scores, idx = ivf_search(store.index, query_cls.detach(),
+                                           k=cfg.mips_topk, nprobe=store.nprobe,
+                                           ignore=ignore)
         safe_idx = idx.clamp(min=0).long()
         mem_ids = store.token_ids[safe_idx]  # [B, k, L]
         mem_mask = store.token_mask[safe_idx]

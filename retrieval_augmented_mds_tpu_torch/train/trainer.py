@@ -26,7 +26,7 @@ from typing import Any, Callable
 import torch
 
 from ..index import build_index_from_factory
-from ..index.flat import FlatIndex
+from ..index.ivf import IVFIndex
 from ..models.core import check_remat
 from ..models.longformer import longformer_encode
 from ..models.retriever_generator import RAG, MemoryStore, RAGConfig, rag_forward
@@ -167,11 +167,13 @@ def build_memory_store(
     token_ids: torch.Tensor,
     token_mask: torch.Tensor,
     row_aids: torch.Tensor | None = None,
+    seed: int = 0,
     compute_dtype=torch.float32,
     batch_size: int | None = None,
 ) -> MemoryStore:
     """Embed the corpus under the mips encoder and build the configured
-    index. ``index_cfg`` is duck-typed (factory/metric/normalize/dtype)."""
+    index. ``index_cfg`` is duck-typed (factory/metric/normalize/nprobe/
+    train_size/dtype); ``seed`` draws the IVF k-means sample."""
     emb = encode_corpus(
         params.mips_encoder, model_cfg.mips_enc, token_ids, token_mask,
         batch_size=batch_size or min(64, token_ids.shape[0]), dtype=compute_dtype,
@@ -179,18 +181,24 @@ def build_memory_store(
     index = build_index_from_factory(
         emb, index_cfg.factory, metric=index_cfg.metric,
         normalize=index_cfg.normalize, dtype=index_cfg.dtype,
+        train_size=index_cfg.train_size, seed=seed,
     )
     return MemoryStore(index=index, token_ids=token_ids, token_mask=token_mask,
-                       row_aids=row_aids)
+                       row_aids=row_aids, nprobe=index_cfg.nprobe)
 
 
 def _index_cfg_from_store(store: MemoryStore):
-    """The factory knobs an existing (flat) store was built with."""
-    idx: FlatIndex = store.index
-    dtype = "int8" if idx.row_scale is not None else str(idx.embeddings.dtype)
-    return types.SimpleNamespace(factory="Flat", metric=idx.metric,
-                                 normalize=idx.normalized,
-                                 dtype=dtype.replace("torch.", ""))
+    """The factory knobs an existing store was built with."""
+    idx = store.index
+    if isinstance(idx, IVFIndex):
+        factory = f"IVF{idx.n_clusters},{'Flat' if idx.clustered_scale is None else 'SQ8'}"
+        dtype = str(idx.clustered.dtype)
+    else:
+        factory = "Flat"
+        dtype = "int8" if idx.row_scale is not None else str(idx.embeddings.dtype)
+    return types.SimpleNamespace(factory=factory, metric=idx.metric,
+                                 normalize=idx.normalized, nprobe=store.nprobe,
+                                 train_size=None, dtype=dtype.replace("torch.", ""))
 
 
 def refresh_store(
@@ -201,16 +209,20 @@ def refresh_store(
     index_cfg=None,
     batch_size: int = 64,
     dtype=torch.float32,
+    seed: int = 0,
 ) -> MemoryStore:
     """Re-embed the corpus under the CURRENT mips encoder and return a new
     store (the caller swaps it in); ``index_cfg`` pins the factory knobs,
     else they are recovered from ``store``. Same path as the first build,
-    so a refresh under equal weights equals a fresh build."""
+    so a refresh under equal weights equals a fresh build. The store's
+    ``nprobe`` is kept."""
     n = store.index.n
     new = build_memory_store(
         params, cfg, index_cfg or _index_cfg_from_store(store),
         token_ids=store.token_ids[:n], token_mask=store.token_mask[:n],
-        row_aids=store.row_aids, compute_dtype=dtype, batch_size=batch_size,
+        row_aids=store.row_aids, seed=seed, compute_dtype=dtype,
+        batch_size=batch_size,
     )
     return MemoryStore(index=new.index, token_ids=store.token_ids,
-                       token_mask=store.token_mask, row_aids=store.row_aids)
+                       token_mask=store.token_mask, row_aids=store.row_aids,
+                       nprobe=store.nprobe)

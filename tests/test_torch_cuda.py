@@ -28,6 +28,11 @@ from retrieval_augmented_mds_tpu_torch.ops.flash_sliding_bwd import (
     flash_sliding_backward,
     sliding_backward_plain,
 )
+from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
+    INT_MAX,
+    ivf_probe_topk,
+    ivf_probe_topk_plain,
+)
 from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
     mips_topk,
     mips_topk_plain,
@@ -84,6 +89,89 @@ def test_mips_kernel_rejects_k_above_128(gen):
     q = torch.randn((2, 32), generator=gen, device="cuda")
     with pytest.raises(ValueError):
         mips_topk(q, torch.randn((300, 32), generator=gen, device="cuda"), 129)
+
+
+def _probe_inputs(gen, dtype, c=40, L=300, d=96, b=6, p=5):
+    """Clusters with padded tail slots, a row repeated in one cluster and in
+    another (equal scores: the lowest position wins), and each query's
+    distinct probes in a random order."""
+    e = torch.randn((c, L, d), generator=gen, device="cuda")
+    e[3, 10] = e[3, 2].clone()
+    e[7, 0] = e[3, 2].clone()
+    bias = torch.randn((c, L), generator=gen, device="cuda")
+    bias[3, 10] = bias[3, 2].clone()
+    bias[7, 0] = bias[3, 2].clone()
+    bias[:, L - 37:] = -3.0e38
+    scale = None
+    if dtype == "int8":
+        from retrieval_augmented_mds_tpu_torch.ops.mips_topk import quantize_corpus_sq8
+
+        q8, s8 = quantize_corpus_sq8(e.reshape(c * L, d))
+        e, scale = q8.reshape(c, L, d).contiguous(), s8.reshape(c, L).contiguous()
+    else:
+        e = e.to(getattr(torch, dtype))
+    probes = torch.stack([torch.randperm(c, generator=gen, device="cuda")[:p]
+                          for _ in range(b)]).to(torch.int32)
+    probes[0, :2] = torch.tensor([7, 3], device="cuda")
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    return q, e, bias, scale, probes.contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_ivf_probe_kernel_matches_plain(gen, dtype, k):
+    """K8 against its plain version: positions equal, values to f32
+    summation-order noise (rtol 1e-5, atol 1e-4), with padded slots, two
+    256-row slices per cluster (one ragged) and duplicate rows."""
+    args = _probe_inputs(gen, dtype)
+    ivf_probe_topk.launches = 0
+    vals, pos = ivf_probe_topk(*args, k)
+    ref_v, ref_p = ivf_probe_topk_plain(*args, k)
+    assert ivf_probe_topk.launches == 1
+    assert torch.equal(pos, ref_p)
+    torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+
+
+def test_ivf_probe_kernel_pads_missing_hits(gen):
+    """Fewer real rows than k: the rest are (-3e38, INT_MAX)."""
+    q, e, bias, scale, probes = _probe_inputs(gen, "float32", c=8, L=20, d=32, b=2, p=2)
+    bias[:, 5:] = -3.0e38
+    vals, pos = ivf_probe_topk(q, e, bias, scale, probes, 16)
+    assert (pos[:, 10:] == INT_MAX).all() and (vals[:, 10:] == -3.0e38).all()
+    assert torch.equal(pos, ivf_probe_topk_plain(q, e, bias, scale, probes, 16)[1])
+
+
+def test_ivf_probe_kernel_rejects_unaligned_dim(gen):
+    q, e, bias, scale, probes = _probe_inputs(gen, "float32", d=40)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ivf_probe_topk(q, e, bias, scale, probes, 4)
+
+
+def test_ivf_search_on_the_card_matches_the_cpu(gen):
+    """An SQ8 IVF index built on the CPU and copied to the card: the
+    per-query route (K8 + K1 on the spill) gives the CPU's ids."""
+    from retrieval_augmented_mds_tpu_torch.index import index_to
+    from retrieval_augmented_mds_tpu_torch.index.ivf import (
+        build_ivf_index,
+        ivf_route,
+        ivf_search,
+    )
+
+    g = torch.Generator().manual_seed(1)
+    centers = 5.0 * torch.randn((16, 64), generator=g)
+    x = centers[torch.randint(0, 16, (4096,), generator=g)] + torch.randn((4096, 64),
+                                                                          generator=g)
+    q = x[:4] + 0.05 * torch.randn((4, 64), generator=g)
+    ignore = torch.tensor([[0, -1], [1, 5], [2, -1], [3, 3]], dtype=torch.int32)
+    cpu = build_ivf_index(x, 32, dtype="int8", alpha=1.0, keep_flat=False)
+    card = index_to(cpu, "cuda")
+    assert ivf_route(cpu, 4, 8, 4, 2) == "per_query" and cpu.n_spill > 0
+    ivf_probe_topk.launches = mips_topk.launches = 0
+    v_card, i_card = ivf_search(card, q.cuda(), k=8, nprobe=4, ignore=ignore.cuda())
+    v_cpu, i_cpu = ivf_search(cpu, q, k=8, nprobe=4, ignore=ignore)
+    assert (ivf_probe_topk.launches, mips_topk.launches) == (1, 1)
+    assert torch.equal(i_card.cpu(), i_cpu)
+    torch.testing.assert_close(v_card.cpu(), v_cpu, rtol=1e-5, atol=1e-4)
 
 
 def _sliding_inputs(gen, dtype, b=3, nh=4, t=512, dh=64, g=8):

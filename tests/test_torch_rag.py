@@ -1,6 +1,7 @@
 """Parity of the port's serving slice with the JAX package, on the CPU:
 flat search and index files, `rag_encode`, `rag_decode`, `generate`, the
-config schema, `predict`, and the port's independence from JAX.
+config schema, `predict`, and the port's independence from JAX (the IVF
+index has its own file, `test_torch_ivf.py`).
 
 Parameters come from the JAX package's `init_rag` (RAGConfig.tiny)
 through `bridge.load_jax_params`; inputs are numpy arrays made from a
@@ -87,10 +88,16 @@ def test_index_files_load_in_either_package(tmp_path, dtype, writer):
 
 
 def test_ivf_factory_is_pending():
-    from retrieval_augmented_mds_tpu_torch.index import build_index_from_factory
+    """The IVF factory specs, once pending, build an IVF index (SQ8: an
+    int8 payload); what stays unsupported raises as in the JAX package."""
+    from retrieval_augmented_mds_tpu_torch.index import IVFIndex, build_index_from_factory
 
-    with pytest.raises(NotImplementedError, match="IVF"):
-        build_index_from_factory(np.zeros((8, 4), np.float32), "IVF4,SQ8")
+    x = np.random.default_rng(3).standard_normal((64, 16)).astype(np.float32)
+    idx = build_index_from_factory(x, "IVF4,SQ8")
+    assert isinstance(idx, IVFIndex) and idx.clustered.dtype == torch.int8
+    assert idx.n_clusters == 4 and idx.n == 64
+    with pytest.raises(ValueError, match="unsupported"):
+        build_index_from_factory(x, "IVF4,PQ16")
 
 
 # ---------------------------------------------------------------------------
@@ -301,17 +308,18 @@ def test_predict_loads_an_index_built_by_jax(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the training slice's included, and the
-    JAX package's host-side modules it reuses (data, ROUGE, metrics
-    logging) import with JAX made unimportable."""
+    """Every module of the port, the training slice's and the IVF index's
+    included, imports with JAX made unimportable, and loads nothing of the
+    JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import retrieval_augmented_mds_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "mods += ['retrieval_augmented_mds_tpu.' + m for m in ('data', 'eval', 'obs')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert 'jax' not in loaded\n"
+        "assert not [k for k in loaded if k.split('.')[0] == 'retrieval_augmented_mds_tpu']\n"
         "print(' '.join(mods))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -320,5 +328,6 @@ def test_port_imports_no_jax():
     mods = res.stdout.split()
     assert len(mods) >= 30
     for m in ("ops.flash_dense", "ops.flash_sliding_bwd", "train.loss", "train.optimizer",
-              "train.trainer", "utils.checkpoint", "retriever.metrics"):
+              "train.trainer", "utils.checkpoint", "retriever.metrics", "index.ivf",
+              "data.pipeline", "obs.logging"):
         assert f"retrieval_augmented_mds_tpu_torch.{m}" in mods
