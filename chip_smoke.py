@@ -30,13 +30,20 @@ Phases, in order; any failure exits non-zero:
      preset (seeded random weights) over the committed 2000-example
      fixture, on the config's ``IVF256,SQ8`` index (nprobe 8), with the
      kernels' launch counts read around that run;
+  7b. kernel K9 (the 8-bit AdamW superleaf update) against its plain
+     version at the capacity slice's superleaf (613,192,286 parameters)
+     and on a small superleaf with tails, padding, weight decay and a clip;
+  8b. ``fit`` on ``configs/smoke.yaml`` with ``train.adam_8bit``, card
+     against CPU, and its checkpoint loaded back on the card;
  10. the training slice: ``cli.run_fit`` on
      ``configs/led_base_multi_x_science.yaml`` (its ``IVF256,SQ8`` index,
      no pretrained weights, the hash tokenizer, the same fixture) for 4
-     steps with one store refresh, with the launch counts read around it.
+     steps with one store refresh, with the launch counts read around it;
+ 11. the capacity training slice: the same with ``train.adam_8bit`` and
+     ``train.remat`` on, its peak memory and step time beside 10's.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the two slices; ms, plain_ms and library_ms measured here with CUDA
+over the three slices; ms, plain_ms and library_ms measured here with CUDA
 events; bound_ms the least time for the same work on an H100 SXM from
 these inputs); the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port's package beside this file, it exits
@@ -84,11 +91,15 @@ def _counters() -> dict:
         flash_sliding_backward,
     )
     from retrieval_augmented_mds_tpu_torch.index.ivf_serving import ivf_probe_topk
+    from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
+        adam8bit_superleaf_update,
+    )
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk
 
     return {f.__name__: f for f in (mips_topk, flash_sliding_attention,
                                     flash_sliding_backward, flash_dense_attention,
-                                    flash_dense_backward, ivf_probe_topk)}
+                                    flash_dense_backward, ivf_probe_topk,
+                                    adam8bit_superleaf_update)}
 
 
 def run_counted(fn):
@@ -279,7 +290,22 @@ def _k2_inputs(b, nh, t, dh, w, n_glob, lengths, n_valid_glob, dtype, seed):
     g_bias = torch.where(g_valid, 0.0, -1e9).float()
     take = lambda x: torch.gather(  # noqa: E731
         x, 2, g_idx[:, None, :, None].expand(b, nh, n_glob, dh))
-    return (q, k, v, key_bias, take(k), take(v), g_bias, w), ~padded
+    return (q, k, v, key_bias, take(k), take(v), g_bias, w), ~padded, is_global
+
+
+def _band_global_mask(key_bias, is_global, w, dtype):
+    """The additive [B, 1, T, T] mask under which one full softmax over all
+    T keys computes K2's local rows: key j is open to row i when it lies in
+    the band |i - j| <= w and is neither padding nor global (key_bias 0),
+    or when it is a valid global token. Rows with no open key differ:
+    K2's are uniform over their 3w + G columns, these over all T."""
+    import torch
+
+    t = key_bias.shape[1]
+    i = torch.arange(t, device=key_bias.device)
+    band = (i[None, :] - i[:, None]).abs() <= w
+    open_ = (band[None] & (key_bias == 0)[:, None, :]) | is_global[:, None, :]
+    return torch.where(open_, 0.0, -1e9).to(dtype)[:, None]
 
 
 def _sliding_pairs(key_bias, g_bias, w, nh) -> float:
@@ -295,7 +321,7 @@ def _sliding_pairs(key_bias, g_bias, w, nh) -> float:
     return float(nh * (window + t * (g_bias == 0).sum()))
 
 
-def _k2_case(name, shape, dtype, *, timed=True):
+def _k2_case(name, shape, dtype, *, timed=True, library=False):
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -303,7 +329,7 @@ def _k2_case(name, shape, dtype, *, timed=True):
         local_rows_plain,
     )
 
-    args, rows_ok = _k2_inputs(*shape, dtype=dtype, seed=7)
+    args, rows_ok, is_global = _k2_inputs(*shape, dtype=dtype, seed=7)
     *tensors, w = args
     flops = 4 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
@@ -322,18 +348,25 @@ def _k2_case(name, shape, dtype, *, timed=True):
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=tol_m), f"K2 {name}: m err {m_err}")
     check(l_rel <= tol_l, f"K2 {name}: l max rel err {l_rel} > {tol_l}")
     check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite output")
-    ms = plain_ms = None
+    ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: flash_sliding_attention(*tensors, window=w))
         plain_ms = cuda_ms(lambda: local_rows_plain(*tensors, w))
+    if library:
+        q, k, v = tensors[:3]
+        mask = _band_global_mask(tensors[3], is_global, w, dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     bound = roofline(nbytes(*tensors, out), flops, dtype == torch.float32)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (out on non-padded "
           f"rows atol {tol_out}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
           f"l rtol {tol_l}: {l_rel:.3e})"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
-             if timed else ""))
-    return result(err, ms, plain_ms, bound)
+             if timed else "")
+          + (f"; SDPA with the [B, 1, T, T] band + global mask {lib_ms:.3f} ms"
+             if library else ""))
+    return result(err, ms, plain_ms, bound, lib_ms)
 
 
 def phase_k2():
@@ -345,7 +378,7 @@ def phase_k2():
     # Longformer-base query/memory encoder layer: CLS as the one global
     lf = (8, 12, 512, 64, 256, 1, [512, 500, 430, 300, 257, 200, 130, 100],
           [1] * 8)
-    served = _k2_case("led_base", led, torch.bfloat16)
+    served = _k2_case("led_base", led, torch.bfloat16, library=True)
     _k2_case("led_base", led, torch.float32)
     _k2_case("longformer_base", lf, torch.bfloat16)
     _k2_case("longformer_base", lf, torch.float32)
@@ -375,7 +408,7 @@ def _compare(what: str, got, ref, tol: float) -> float:
     return err
 
 
-def _k3_case(name, shape, dtype, *, timed=True):
+def _k3_case(name, shape, dtype, *, timed=True, library=False):
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -387,7 +420,7 @@ def _k3_case(name, shape, dtype, *, timed=True):
         sliding_backward_plain,
     )
 
-    args, _ = _k2_inputs(*shape, dtype=dtype, seed=11)
+    args, _, is_global = _k2_inputs(*shape, dtype=dtype, seed=11)
     *tensors, w = args
     flops = 10 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
@@ -399,18 +432,28 @@ def _k3_case(name, shape, dtype, *, timed=True):
     torch.cuda.synchronize()
     tol = _grad_tol(dtype)
     err = _compare(f"K3 {name} {dtype}", got, ref, tol)
-    ms = plain_ms = None
+    ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: flash_sliding_backward(*bwd, window=w))
         plain_ms = cuda_ms(lambda: sliding_backward_plain(*bwd, w))
+    if library:
+        # the backward of one SDPA call under the equivalent mask
+        q2, k2, v2 = (x.detach().requires_grad_() for x in tensors[:3])
+        mask = _band_global_mask(tensors[3], is_global, w, dtype)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(q2, k2, v2,
+                                                                   attn_mask=mask)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (q2, k2, v2), do,
+                                                     retain_graph=True))
     bound = roofline(nbytes(*bwd, *got), flops, dtype == torch.float32)
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (dq, dk, dv, dkg, dvg "
           f"on every row, fully masked ones included, within {tol} x max|ref|: "
           f"max abs err {err:.3e})"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
-             if timed else ""))
-    return result(err, ms, plain_ms, bound)
+             if timed else "")
+          + (f"; SDPA backward with the band + global mask {lib_ms:.3f} ms"
+             if library else ""))
+    return result(err, ms, plain_ms, bound, lib_ms)
 
 
 def phase_k3():
@@ -421,7 +464,7 @@ def phase_k3():
     led = (4, 12, 2048, 64, 512, 64, [2048, 1800, 1000, 512], [64, 10, 3, 0])
     query = (4, 12, 512, 64, 256, 1, [512, 500, 300, 130], [1] * 4)
     memory = (8, 12, 512, 64, 256, 1, [512, 500, 430, 300, 257, 200, 130, 100], [1] * 8)
-    served = _k3_case("led_base", led, torch.bfloat16)
+    served = _k3_case("led_base", led, torch.bfloat16, library=True)
     _k3_case("led_base", led, torch.float32)
     _k3_case("longformer_query", query, torch.bfloat16)
     _k3_case("longformer_memory", memory, torch.bfloat16)
@@ -640,6 +683,105 @@ def phase_k8() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: K9, the 8-bit AdamW superleaf update
+# ---------------------------------------------------------------------------
+
+# f32 operations per element of the update (dequantise, EMA, step, the two
+# requantisations); two more with weight decay
+K9_OPS = 35
+
+
+def capacity_superleaf() -> list[int]:
+    """The sizes of the capacity slice's trainable leaves in superleaf
+    order (the led_base RAG model of `train_slice_config`, on the meta
+    device: shapes only)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.models.retriever_generator import RAG
+    from retrieval_augmented_mds_tpu_torch.train.adam8bit import jax_leaf_order
+
+    cfg = train_slice_config()
+    with torch.device("meta"):
+        params = dict(RAG(cfg.model).named_parameters())
+    frozen = set(cfg.train.frozen_groups) | set(cfg.model.frozen_groups())
+    return [params[n].numel() for n in jax_leaf_order(params)
+            if n.split(".", 1)[0] not in frozen]
+
+
+def _k9_case(name, sizes, wd, clip, *, timed):
+    """K9 against its plain version from a warm state (one plain update from
+    zero moments): update within rtol 1e-6 + atol 1e-9, codes within 1, mu
+    scales rtol 1e-6, the nu range rtol = atol = 1e-5 (the JAX package's
+    kernel test)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
+        adam8bit_superleaf_update,
+        adam8bit_superleaf_update_plain,
+    )
+    from retrieval_augmented_mds_tpu_torch.train import adam8bit as t8
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    sizes, nbs, _, nb = t8._layout(sizes)
+    state = t8.init_state(sizes, "cuda")
+    mask = torch.arange(t8.BLOCK, device="cuda")[None, :] < state.nvalid
+
+    def rand(scale):
+        x = torch.randn((nb, t8.BLOCK), generator=gen, device="cuda")
+        return x.mul_(scale).mul_(mask)
+
+    adam = dict(b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    p2 = rand(0.02) if wd else None
+    scal0 = torch.tensor([[0.1, 0.001, 0.0, 1.0]], device="cuda")
+    _, mq, ms, nq, nlo, nhi = adam8bit_superleaf_update_plain(
+        rand(1e-3), state.mu_q, state.mu_scale, state.nu_q, state.nu_lo, state.nu_hi,
+        state.nvalid, p2, scal0, **adam)
+    scal = torch.tensor([[1 - 0.9 ** 2, 1 - 0.999 ** 2, 3e-5, clip]], device="cuda")
+    args = (rand(1e-3), mq, ms, nq, nlo, nhi, state.nvalid, p2, scal)
+    got = adam8bit_superleaf_update(*args, **adam)
+    ref = adam8bit_superleaf_update_plain(*args, **adam)
+    torch.cuda.synchronize()
+    err = (got[0] - ref[0]).abs().max().item()
+    check(torch.allclose(got[0], ref[0], rtol=1e-6, atol=1e-9),
+          f"K9 {name}: update differs (max abs err {err})")
+    flips = []
+    for k, what in ((1, "mu_q"), (3, "nu_q")):
+        d = (got[k].int() - ref[k].int()).abs()
+        check(got[k].dtype == ref[k].dtype and d.max().item() <= 1,
+              f"K9 {name}: {what} differs by more than 1")
+        flips.append(int((d > 0).sum()))
+    check(torch.allclose(got[2], ref[2], rtol=1e-6, atol=0), f"K9 {name}: mu_scale differs")
+    for k in (4, 5):
+        check(torch.allclose(got[k], ref[k], rtol=1e-5, atol=1e-5), f"K9 {name}: nu range")
+    ms_k = plain_ms = None
+    if timed:
+        ms_k = cuda_ms(lambda: adam8bit_superleaf_update(*args, **adam))
+        plain_ms = cuda_ms(lambda: adam8bit_superleaf_update_plain(*args, **adam))
+    n = nb * t8.BLOCK
+    bound = roofline(nbytes(*[a for a in args if a is not None], *got),
+                     (K9_OPS + (2 if wd else 0)) * n, True)
+    print(f"[K9] {name}: {len(sizes)} leaves, {sum(sizes)} parameters, NB={nb}, wd={wd}, "
+          f"clip scale {clip}: PASS (update rtol 1e-6 atol 1e-9: max abs err {err:.3e}; "
+          f"codes within 1: {flips[0]} mu and {flips[1]} nu codes differ by 1; scales)"
+          + (f"; kernel {ms_k:.3f} ms, plain {plain_ms:.3f} ms, bound "
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
+             f"{bound['bound_ms'] / ms_k:.1%} of it); library: none (no PyTorch call "
+             f"computes blockwise 8-bit AdamW)" if timed else ""))
+    return result(err, ms_k, plain_ms, bound)
+
+
+def phase_k9() -> dict:
+    import torch
+
+    # the capacity slice's superleaf (wd 0 and clip as the config's run);
+    # then tails, padding rows, weight decay and a clip below 1
+    measured = _k9_case("led_base", capacity_superleaf(), 0.0, 0.25, timed=True)
+    torch.cuda.empty_cache()
+    _k9_case("tails", [16384 + 70, 300, 5, 1000, 129], 0.02, 0.5, timed=False)
+    return measured
+
+
+# ---------------------------------------------------------------------------
 # phases 7 to 9: the small configs on the card and the CPU; the serving slice
 # ---------------------------------------------------------------------------
 
@@ -712,7 +854,8 @@ def phase_small_fit() -> None:
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(cfg, device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
-    check(all(n > 0 for name, n in launches.items() if name != "ivf_probe_topk"),
+    check(all(n > 0 for name, n in launches.items()
+              if name not in ("ivf_probe_topk", "adam8bit_superleaf_update")),
           f"small fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1, "small fit: no store refresh")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
@@ -722,6 +865,62 @@ def phase_small_fit() -> None:
     print(f"[small] configs/smoke.yaml fit, 3 steps + 1 refresh, card vs CPU: losses "
           f"{[f'{x:.6f}' for x in lg.tolist()]} vs {[f'{x:.6f}' for x in lc.tolist()]}, "
           f"max rel err {rel:.3e} (rtol 1e-3): PASS; card launches {launches}")
+
+
+def phase_small_fit_8bit() -> None:
+    """``fit`` on ``configs/smoke.yaml`` with ``train.adam_8bit`` for 3
+    steps with a refresh, on the card (K9 once per step) and on the CPU
+    (its plain version): the losses agree to rtol 1e-3, as in
+    `phase_small_fit`. Then the card's checkpoint loads back on the card
+    into a fresh train state: parameters and 8-bit state bit for bit."""
+    import shutil
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.train.adam8bit import _ARRAYS
+    from retrieval_augmented_mds_tpu_torch.train.trainer import TrainState
+    from retrieval_augmented_mds_tpu_torch.utils.checkpoint import load_train_state
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
+    cfg = dataclasses.replace(
+        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
+        train=dataclasses.replace(cfg.train, adam_8bit=True),
+        index=dataclasses.replace(cfg.index, rebuild_every=2),
+        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, "small_8bit")))
+    ckpt = os.path.join(OUT_DIR, "small_8bit_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gpu, cpu = {}, {}
+    _, launches = run_counted(lambda: cli.run_fit(dataclasses.replace(cfg, ckpt_dir=ckpt),
+                                                  device="cuda", report=gpu))
+    cli.run_fit(cfg, device="cpu", report=cpu)
+    check(launches["adam8bit_superleaf_update"] == 3, f"small 8-bit fit: K9 {launches}")
+    check(all(n > 0 for name, n in launches.items() if name != "ivf_probe_topk"),
+          f"small 8-bit fit: a kernel not launched {launches}")
+    lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
+    check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small 8-bit fit losses {lg}")
+    rel = ((lg - lc).abs() / lc.abs()).max().item()
+    check(rel <= 1e-3, f"small 8-bit fit: card losses {lg.tolist()} vs CPU {lc.tolist()}")
+
+    params = cli.build_params(cfg, torch.device("cuda"))
+    tx = cli.build_tx(cfg, params)
+    state, step = load_train_state(ckpt, TrainState.create(params, tx), tx)
+    saved = gpu["state"]
+    check(step == 3 and state.opt_state.count == saved.opt_state.count == 3,
+          f"small 8-bit checkpoint: step {step}")
+    for k in _ARRAYS:
+        a, b = getattr(state.opt_state, k), getattr(saved.opt_state, k)
+        check(a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b),
+              f"small 8-bit checkpoint: {k} differs")
+    for (n, a), (_, b) in zip(state.params.named_parameters(),
+                              saved.params.named_parameters()):
+        check(torch.equal(a, b), f"small 8-bit checkpoint: {n} differs")
+    print(f"[small-8bit] configs/smoke.yaml fit with adam_8bit, 3 steps + 1 refresh, card "
+          f"vs CPU: losses {[f'{x:.6f}' for x in lg.tolist()]} vs "
+          f"{[f'{x:.6f}' for x in lc.tolist()]}, max rel err {rel:.3e} (rtol 1e-3): PASS; "
+          f"checkpoint (int8/uint8 moments, NB={saved.opt_state.mu_q.shape[0]}) saved and "
+          f"loaded back on the card bit for bit: PASS; card launches {launches}")
 
 
 SMALL_IVF = {"factory": "IVF16,SQ8", "nprobe": 2}  # C = 15 > B * nprobe = 8
@@ -768,8 +967,8 @@ def phase_small_ivf() -> None:
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(fcfg, device="cuda", report=gpu))
     cli.run_fit(fcfg, device="cpu", report=cpu)
-    check(all(n > 0 for n in launches.values()), f"small IVF fit: a kernel not launched "
-          f"{launches}")
+    check(all(n > 0 for name, n in launches.items() if name != "adam8bit_superleaf_update"),
+          f"small IVF fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1 and isinstance(gpu["store"].index, IVFIndex),
           "small IVF fit: no IVF refresh")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
@@ -886,7 +1085,7 @@ def phase_slice() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the training slice
+# phases 10 and 11: the training slice, and with the capacity knobs on
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 4
@@ -914,13 +1113,17 @@ def train_slice_config():
     return config_from_dict(d)
 
 
-def phase_train_slice() -> dict:
+def _train_run(cfg, tag: str, optimizer_kernel: bool) -> tuple[dict, dict]:
+    """``cli.run_fit`` of ``cfg`` on the card with the launch counts read
+    around it and the peak device memory → (launches, summary)."""
+    import gc
+
     import torch
 
     from retrieval_augmented_mds_tpu_torch import cli
 
-    cfg = train_slice_config()
     report: dict = {}
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -930,37 +1133,74 @@ def phase_train_slice() -> dict:
 
     losses = report["losses"]
     check(out["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
-          f"train slice ran {out['steps']} steps")
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+          f"{tag} slice ran {out['steps']} steps")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
     check(math.isfinite(out["grad_norm"]) and out["grad_norm"] > 0,
-          f"grad_norm {out['grad_norm']}")
-    check(len(report["refresh_s"]) == 1, f"{len(report['refresh_s'])} store refreshes")
-    check(all(n > 0 for n in launches.values()), f"kernel not launched: {launches}")
+          f"{tag}: grad_norm {out['grad_norm']}")
+    check(len(report["refresh_s"]) == 1, f"{tag}: {len(report['refresh_s'])} store refreshes")
+    check(all(n > 0 for name, n in launches.items()
+              if optimizer_kernel or name != "adam8bit_superleaf_update"),
+          f"{tag}: kernel not launched: {launches}")
+    check(launches["adam8bit_superleaf_update"] == (TRAIN_STEPS if optimizer_kernel else 0),
+          f"{tag}: K9 launches {launches}")
     store = report["store"]
     check(type(store.index).__name__ == "IVFIndex" and store.nprobe == cfg.index.nprobe,
-          "the train slice's store is not the config's IVF index")
+          f"the {tag} slice's store is not the config's IVF index")
     params = report["state"].params
     check(all(bool(torch.isfinite(p).all()) for p in params.parameters()),
-          "non-finite parameters after the steps")
-    d = cfg.data
-    print(f"[train] led_base fit, B={d.batch_size}, max_length {d.max_length}, decoder "
+          f"{tag}: non-finite parameters after the steps")
+    d, t = cfg.data, cfg.train
+    print(f"[{tag}] led_base fit, B={d.batch_size}, max_length {d.max_length}, decoder "
           f"{d.decoder_max_length}, query {d.query_max_length}, memory {d.memory_len} "
           f"x top-{cfg.model.mips_topk}, {cfg.precision} compute, f32 master weights, "
           f"memory_model_fixed={cfg.model.memory_model_fixed}, corpus rows "
           f"{store.index.n}, index {cfg.index.factory} ({store.index.n_clusters} clusters, "
           f"nprobe {store.nprobe}), {sum(p.numel() for p in params.parameters())} "
-          f"parameters")
-    print(f"[train] losses {[f'{x:.5f}' for x in losses]}; last metrics "
+          f"parameters; optimizer {'8-bit AdamW' if t.adam_8bit else 'AdamW, bf16 mu'}, "
+          f"remat {t.remat!r}")
+    print(f"[{tag}] losses {[f'{x:.5f}' for x in losses]}; last metrics "
           f"{json.dumps({k: round(v, 6) for k, v in out.items()})}")
-    print(f"[train] step wall s {[f'{x:.3f}' for x in report['step_s']]} (each phase "
+    print(f"[{tag}] step wall s {[f'{x:.3f}' for x in report['step_s']]} (each phase "
           f"synchronised)")
     for i, ph in enumerate(report["phase_s"]):
-        print(f"[train]   step {i}: forward {ph['forward']:.3f} s, backward "
+        print(f"[{tag}]   step {i}: forward {ph['forward']:.3f} s, backward "
               f"{ph['backward']:.3f} s, optimizer {ph['optimizer']:.3f} s")
-    print(f"[train] store build {report['store_s']:.3f} s, refresh "
+    print(f"[{tag}] store build {report['store_s']:.3f} s, refresh "
           f"{report['refresh_s'][0]:.3f} s, run_fit total {wall:.3f} s (data and "
           f"init included); peak device memory {peak / 2**30:.2f} GiB")
-    print(f"[train] launches during the run: {launches}")
+    print(f"[{tag}] launches during the run: {launches}")
+    # the steady steps: the last two (the first pays the kernels' first
+    # calls, the third follows the store refresh)
+    steady = report["step_s"][-2:]
+    summary = {"peak_gib": peak / 2**30, "step_s": sum(steady) / len(steady),
+               **{k: sum(ph[k] for ph in report["phase_s"][-2:]) / 2
+                  for k in ("forward", "backward", "optimizer")}}
+    return launches, summary
+
+
+def phase_train_slice() -> tuple[dict, dict]:
+    return _train_run(train_slice_config(), "train", optimizer_kernel=False)
+
+
+def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
+    """The train slice with the capacity knobs on: ``train.adam_8bit``
+    (kernel K9, one launch per step) and ``train.remat: true`` (every layer
+    of every encoder and of the decoder recomputed in the backward, so the
+    forward kernels K2 and K4 launch again there). Its peak memory and
+    steady step beside the standing slice's, from this call."""
+    cfg = train_slice_config()
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, adam_8bit=True, remat=True),
+        logging=dataclasses.replace(cfg.logging, run_name="led_base_capacity"))
+    launches, cap = _train_run(cfg, "capacity", optimizer_kernel=True)
+    base_launches, base = standing
+    for name in ("flash_sliding_attention", "flash_dense_attention"):
+        check(launches[name] > base_launches[name],
+              f"capacity: {name} not recomputed ({launches[name]} vs {base_launches[name]})")
+    print("[capacity] against the standing train slice of this call (steady = mean of "
+          "the last two steps): " + "; ".join(
+              f"{k} {base[k]:.3f} -> {cap[k]:.3f}" + (" GiB" if k == "peak_gib" else " s")
+              for k in ("peak_gib", "step_s", "forward", "backward", "optimizer")))
     return launches
 
 
@@ -984,11 +1224,14 @@ def main() -> int:
                     "flash_sliding_backward": phase_k3()}
         measured["flash_dense_attention"], measured["flash_dense_backward"] = phase_k45()
         measured["ivf_probe_topk"] = phase_k8()
+        measured["adam8bit_superleaf_update"] = phase_k9()
         phase_small_reference()
         phase_small_fit()
+        phase_small_fit_8bit()
         phase_small_ivf()
         served = phase_slice()
-        trained = phase_train_slice()
+        standing = phase_train_slice()
+        capacity = phase_capacity_slice(standing)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1000,11 +1243,13 @@ def main() -> int:
         ("flash_dense_attention", "flash_dense_fwd.cu", "ops/flash_dense.py:75"),
         ("flash_dense_backward", "flash_dense_bwd.cu", "ops/flash_dense.py:88"),
         ("ivf_probe_topk", "ivf_probe_topk.cu", "index/ivf_serving.py:36"),
+        ("adam8bit_superleaf_update", "adam8bit_update.cu", "ops/adam8bit_update.py:68"),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",
                 "replaces": f"retrieval_augmented_mds_tpu/{tpu}",
-                "launches": served[name] + trained[name], **measured[name]}
+                "launches": served[name] + standing[0][name] + capacity[name],
+                **measured[name]}
                for name, src, tpu in sources]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,13 @@ PyTorch version that CPU tensors take.
 
 Layout:
   ops/       CUDA kernel wrappers (MIPS top-k, sliding-window and dense
-             attention)
+             attention, the 8-bit AdamW update)
   csrc/      the CUDA C++ sources, built with nvcc at first use
   index/     the flat and IVF MIPS indexes (the IVF probe kernel's wrapper
              in index/ivf_serving.py), their files and the factory
   models/    Longformer, LED, copy heads, the RAG model, generation
-  train/     loss, optimizer, train step, corpus embedding and store build
+  train/     loss, optimizers (AdamW, 8-bit AdamW), train step, corpus
+             embedding and store build
   data/      corpus, tokenizer and batch pipeline (pandas)
   eval/      ROUGE
   obs/       the JSONL metrics logger

@@ -3,7 +3,9 @@
 The port's modules name their parameters after the JAX param tree
 (``led.encoder.0.attn.q.kernel`` is ``params["led"]["encoder"][0]["attn"]
 ["q"]["kernel"]``) and keep its layouts, so loading a tree is a copy with
-no renames. An index built by the JAX package comes over as its arrays
+no renames. An 8-bit Adam state comes over array for array
+(`adam8bit_state_from_jax`): both packages lay it out in the same
+superleaf order. An index built by the JAX package comes over as its arrays
 and static fields (`ivf_index_from_arrays`, `flat_index_from_arrays`), so
 one index can be searched by both packages whatever k-means drew. Works on
 numpy-convertible leaves (numpy arrays, or JAX arrays through
@@ -61,6 +63,15 @@ def _tensor(a: Any, device=None) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def adam8bit_state_from_jax(state: Any, device=None):
+    """A JAX ``Adam8bitState`` (its fields numpy-convertible) → the port's
+    `train.adam8bit.Adam8bitState`, with the int8/uint8 codes kept."""
+    from .train.adam8bit import _ARRAYS, Adam8bitState
+
+    arrays = {k: _tensor(getattr(state, k), device).contiguous() for k in _ARRAYS}
+    return Adam8bitState(count=int(np.asarray(state.count)), **arrays)
 
 
 def flat_index_from_arrays(arrays: dict[str, Any], *, n: int, metric: str,

@@ -14,6 +14,7 @@ NEG_INF = -1e9 (never -inf), so fully masked rows stay finite.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -97,10 +98,42 @@ def init_params_(module: nn.Module, generator: torch.Generator,
 # forward primitives
 # ---------------------------------------------------------------------------
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x [..., d_in] @ w [d_in, d_out] of one low-precision dtype with an
+    f32 result (one cuBLAS GEMM, f32 accumulation, no rounding to the
+    inputs' dtype). The gradients come back in the inputs' dtype, each
+    rounded once, as JAX's transposed dot products give them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g2 = gy.reshape(-1, gy.shape[-1]).to(x.dtype)
+        dx = (g2 @ w.T).reshape(x.shape)
+        dw = x.reshape(-1, x.shape[-1]).T @ g2
+        return dx, dw
+
+
 def dense(p: Dense, x: torch.Tensor, dtype: torch.dtype | None = None):
+    """x @ kernel + bias in ``dtype`` (default x's), rounded once: the
+    product is accumulated in f32, the f32 bias added, then one cast, as
+    JAX's ``dot(..., preferred_element_type=f32) + bias`` does. Below f32
+    the card takes a GEMM with an f32 result; the CPU multiplies the
+    rounded operands in f32, where their products are exact."""
     dtype = dtype or x.dtype
-    y = torch.matmul(x.to(dtype), p.kernel.to(dtype))
-    return (y.float() + p.bias.float()).to(dtype)
+    xd, wd = x.to(dtype), p.kernel.to(dtype)
+    if dtype == torch.float32:
+        y = torch.matmul(xd, wd)
+    elif x.device.type == "cuda":
+        y = _MatmulF32Out.apply(xd, wd)
+    else:
+        y = torch.matmul(xd.float(), wd.float())
+    return (y + p.bias.float()).to(dtype)
 
 
 def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
@@ -228,14 +261,61 @@ def attention_train(
     return dense(p.o, _merge_heads(out))
 
 
-def check_remat(remat) -> None:
-    """Gradient checkpointing (``train.remat``) is not ported: raise on
-    anything but False."""
-    if remat:
-        raise NotImplementedError(
-            f"train.remat={remat!r}: gradient checkpointing is not ported yet "
-            "(ROADMAP queue 1: remat); use remat: false"
-        )
+REMAT_POLICIES = ("dots_with_no_batch_dims_saveable",)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots_with_no_batch_dims_saveable":
+    keep the outputs of products with no batch dimension (the layers'
+    weight matmuls, aten ``mm``), recompute the rest (attention's batched
+    products, the kernels, elementwise work)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(remat):
+    """Validate ``train.remat`` → None (off), "full", or the context
+    function of a selective checkpoint. Raises on a policy the port does
+    not have."""
+    if not remat:
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if remat in REMAT_POLICIES:
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_weight_matmuls)
+    raise ValueError(
+        f"train.remat={remat!r} is not supported by the port; choices: false, "
+        f"true, 'full', {', '.join(repr(p) for p in REMAT_POLICIES)}")
+
+
+def maybe_remat(fn, remat):
+    """Per-layer gradient checkpointing (JAX ``maybe_remat``): ``fn`` as
+    is when ``remat`` is off; else a function that runs ``fn`` under
+    ``torch.utils.checkpoint`` (non-reentrant), keeping only its inputs
+    (True/"full") or also its weight matmuls' outputs
+    ("dots_with_no_batch_dims_saveable") and recomputing the rest in the
+    backward, the kernels' forwards included."""
+    context = remat_context(remat)
+    if context is None:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    # the layers draw no random numbers: no RNG state to keep
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if context != "full":
+        kw["context_fn"] = context
+
+    def checkpointed(*args):
+        return checkpoint(fn, *args, **kw)
+
+    return checkpointed
 
 
 def ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:

@@ -23,11 +23,11 @@ from .core import (
     attention_train,
     build_module,
     causal_mask,
-    check_remat,
     embed,
     ffn,
     layernorm,
     make_cache,
+    maybe_remat,
     precompute_cross_kv,
 )
 
@@ -77,8 +77,10 @@ def led_encode(
     global_mask: torch.Tensor | None = None,
     *,
     dtype=torch.float32,
+    remat: bool | str = False,
 ) -> torch.Tensor:
-    """Encoder hidden states [B, S, H] (sequence parallelism not ported)."""
+    """Encoder hidden states [B, S, H] (sequence parallelism not ported);
+    ``remat`` checkpoints each layer (`core.maybe_remat`)."""
     b, s = ids.shape
     if global_mask is None:
         global_mask = torch.zeros_like(padding_mask)
@@ -87,13 +89,18 @@ def led_encode(
     pos = torch.arange(s, device=ids.device)[None, :]
     x = embed(params.shared_emb, ids, dtype) + embed(params.enc_pos, pos, dtype)
     x = layernorm(params.enc_emb_ln, x)
-    for lp in params.encoder:
+
+    def layer_fn(x, lp):
         a = sliding_global_attention(
             lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
             cfg.max_globals,
         )
         x = layernorm(lp.attn_ln, x + a)
-        x = layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
+        return layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
+
+    layer_fn = maybe_remat(layer_fn, remat)
+    for lp in params.encoder:
+        x = layer_fn(x, lp)
     return x
 
 
@@ -112,10 +119,9 @@ def led_decode(
     """Returns (hidden [B, T, H], caches). Without ``caches`` it runs
     teacher-forced over the whole target (the training path: causal
     self-attention and padded cross-attention through `attention_train`)
-    and returns caches None. With ``caches`` it runs incrementally:
-    dec_ids is the new chunk and each layer's cache is appended in
-    place."""
-    check_remat(remat)
+    and returns caches None, each layer checkpointed under ``remat``. With
+    ``caches`` it runs incrementally: dec_ids is the new chunk and each
+    layer's cache is appended in place (``remat`` does not apply)."""
     b, t = dec_ids.shape
     pos = torch.arange(t, device=dec_ids.device)[None, :] + pos_offset
     x = embed(params.shared_emb, dec_ids, dtype) + embed(params.dec_pos, pos, dtype)
@@ -123,13 +129,17 @@ def led_decode(
     enc = enc_hidden.to(x.dtype)
 
     if caches is None:
-        for lp in params.decoder:
+        def layer_fn(x, lp):
             a = attention_train(lp.self_attn, x, x, cfg.n_heads, causal=True)
             x = layernorm(lp.self_ln, x + a)
             c = attention_train(lp.cross_attn, x, enc, cfg.n_heads,
                                 key_padding_mask=enc_padding_mask)
             x = layernorm(lp.cross_ln, x + c)
-            x = layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
+            return layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
+
+        layer_fn = maybe_remat(layer_fn, remat)
+        for lp in params.decoder:
+            x = layer_fn(x, lp)
         return x, None
 
     cross_mask = (enc_padding_mask > 0)[:, None, None, :]

@@ -24,6 +24,7 @@ from .core import (
     embed,
     ffn,
     layernorm,
+    maybe_remat,
 )
 
 
@@ -67,8 +68,10 @@ def longformer_encode(
     global_mask: torch.Tensor | None = None,  # [B, T]; default: CLS only
     *,
     dtype=torch.float32,
+    remat: bool | str = False,
 ) -> torch.Tensor:
-    """Hidden states [B, T, H]; CLS pooling = out[:, 0]."""
+    """Hidden states [B, T, H]; CLS pooling = out[:, 0]. ``remat``
+    checkpoints each layer (`core.maybe_remat`)."""
     b, t = ids.shape
     if global_mask is None:
         # global attention on <s>
@@ -79,7 +82,8 @@ def longformer_encode(
     pos = torch.arange(t, device=ids.device)[None, :] + cfg.pos_offset
     x = embed(params.tok_emb, ids, dtype) + embed(params.pos_emb, pos, dtype)
     x = layernorm(params.emb_ln, x)
-    for lp in params.layers:
+
+    def layer_fn(x, lp):
         a = sliding_global_attention(
             lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
             cfg.max_globals,
@@ -89,7 +93,11 @@ def longformer_encode(
         if hasattr(lp, "adapter"):
             # adapter residual sits BEFORE the block LayerNorm
             f = f + dense(lp.adapter.up, F.relu(dense(lp.adapter.down, f)))
-        x = layernorm(lp.ffn_ln, x + f)
+        return layernorm(lp.ffn_ln, x + f)
+
+    layer_fn = maybe_remat(layer_fn, remat)
+    for lp in params.layers:
+        x = layer_fn(x, lp)
     return x
 
 

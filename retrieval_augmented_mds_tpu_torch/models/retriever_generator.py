@@ -175,12 +175,12 @@ def init_rag(cfg: RAGConfig, generator: torch.Generator, device=None) -> RAG:
     return build_module(lambda: RAG(cfg), generator, device)
 
 
-def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype):
+def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype, remat=False):
     """[B, slots, L] → hidden [B, slots, L, H] via the shared encoder."""
     b, s, l = ids.shape
     hid = longformer_encode(
         enc_params, enc_cfg, ids.reshape(b * s, l), mask.reshape(b * s, l),
-        dtype=dtype,
+        dtype=dtype, remat=remat,
     )
     return hid.reshape(b, s, l, -1)
 
@@ -192,10 +192,12 @@ def rag_encode(
     batch: dict[str, Any],
     *,
     dtype=torch.float32,
+    remat: bool | str = False,
 ) -> RAGEncoderOutput:
     """Retrieval + the main document encoder. batch keys: input_ids/
     attention_mask [B, S]; query_input_ids/query_attention_mask [B, Lq];
-    optional mips_ignore [B, I] (self-exclusion corpus ids)."""
+    optional mips_ignore [B, I] (self-exclusion corpus ids). ``remat``
+    checkpoints every layer of every encoder."""
     input_ids = batch["input_ids"]
     enc_mask = batch["attention_mask"]
 
@@ -210,7 +212,7 @@ def rag_encode(
             )
         q_hidden = longformer_encode(
             params.query_encoder, cfg.query_enc, batch["query_input_ids"],
-            batch["query_attention_mask"], dtype=dtype,
+            batch["query_attention_mask"], dtype=dtype, remat=remat,
         )
         query_cls = q_hidden[:, 0].float()
         b = query_cls.shape[0]
@@ -233,7 +235,8 @@ def rag_encode(
         # cosine rescoring of the retrieved rows, with the norms' gradient
         # stopped (as the reference's)
         mips_hid = _encode_memory_rows(
-            params.mips_encoder, cfg.mips_enc, mem_ids, mem_mask, dtype=dtype
+            params.mips_encoder, cfg.mips_enc, mem_ids, mem_mask, dtype=dtype,
+            remat=remat,
         )
         mips_cls = mips_hid[:, :, 0].float()  # [B, slots, H]
         raw = torch.einsum("bh,bsh->bs", query_cls, mips_cls)
@@ -246,7 +249,7 @@ def rag_encode(
         else:
             mem_hid = _encode_memory_rows(
                 params.memory_encoder, cfg.memory_enc, mem_ids, mem_mask,
-                dtype=dtype,
+                dtype=dtype, remat=remat,
             )
         h = mem_hid.shape[-1]
         L = mem_ids.shape[-1]
@@ -264,7 +267,7 @@ def rag_encode(
     global_mask = torch.where(input_ids == cfg.led.doc_sep_id,
                               torch.ones_like(global_mask), global_mask)
     enc_hidden = led_encode(params.led, cfg.led, input_ids, enc_mask, global_mask,
-                            dtype=dtype)
+                            dtype=dtype, remat=remat)
     return RAGEncoderOutput(
         enc_hidden=enc_hidden, enc_mask=enc_mask, memory=memory,
         memory_mask=memory_mask, memory_bias=memory_bias, copy_seq=copy_seq,
@@ -319,7 +322,7 @@ def rag_forward(params: RAG, cfg: RAGConfig, store: MemoryStore | None,
                 remat: bool | str = False):
     """The full teacher-forced forward, with gradients → (out, aux,
     enc_out)."""
-    enc_out = rag_encode(params, cfg, store, batch, dtype=dtype)
+    enc_out = rag_encode(params, cfg, store, batch, dtype=dtype, remat=remat)
     out, aux, _ = rag_decode(params, cfg, enc_out, batch["decoder_input_ids"],
                              dtype=dtype, remat=remat)
     return out, aux, enc_out

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
 
 # every kernel source of csrc/, by name
 KERNELS = ("mips_topk", "flash_sliding_fwd", "flash_sliding_bwd", "flash_dense_fwd",
-           "flash_dense_bwd", "ivf_probe_topk")
+           "flash_dense_bwd", "ivf_probe_topk", "adam8bit_update")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -26,7 +26,9 @@ The parameters are updated IN PLACE. The state keeps ``mu`` and ``nu``
 flat over the trainable parameters, so one step is a few passes over
 flat buffers, and converts to and from optax's state layout
 (`state_arrays`, `load_state_arrays`) for checkpoints that either package
-can read.
+can read. ``build_optimizer(state_8bit=True)`` returns `AdamW8bit`
+(``train/adam8bit.py``), which keeps this class's schedule, frozen groups
+and accumulation and replaces the moments and the inner update.
 """
 
 from __future__ import annotations
@@ -112,22 +114,23 @@ class AdamW:
         (f32, the parameter's shape). Updates ``params`` and ``state`` in
         place and returns ``state``."""
         names, train = self._layout(params)
-        if self.accumulate_steps > 1:
-            flat = torch.cat([grads[n].reshape(-1).float() for n in names])
-            state.acc += (flat - state.acc) / (state.mini_step + 1)
-            emit = state.mini_step == self.accumulate_steps - 1
-            state.mini_step = (state.mini_step + 1) % self.accumulate_steps
-            if not emit:
-                return state
+        if self.accumulate_steps <= 1:
+            self._inner(params, train, [grads[n] for n in train], state)
+            return state
+        flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+        state.acc += (flat - state.acc) / (state.mini_step + 1)
+        emit = state.mini_step == self.accumulate_steps - 1
+        state.mini_step = (state.mini_step + 1) % self.accumulate_steps
+        if emit:
             offs = _offsets(params, names)
-            g = torch.cat([state.acc[offs[n][0]:offs[n][1]] for n in train])
+            self._inner(params, train, [state.acc[slice(*offs[n])] for n in train], state)
             state.acc.zero_()
-        else:
-            g = torch.cat([grads[n].reshape(-1).float() for n in train])
-        self._inner(params, train, g, state)
         return state
 
-    def _inner(self, params, train, g, state):
+    def _inner(self, params, train, grads, state):
+        """One inner update from ``grads``, the trainable leaves' gradients
+        (in ``train`` order)."""
+        g = torch.cat([x.reshape(-1).float() for x in grads])
         if self.grad_clip:
             norm = torch.sqrt((g * g).sum())
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
@@ -154,19 +157,22 @@ class AdamW:
 
     # -- optax's state layout, for checkpoints ------------------------------
 
-    def _chain_prefix(self) -> str:
-        """Key prefix of the adamw chain's state in optax's state tree."""
+    def _wrapper_prefix(self) -> str:
+        """Key prefix of the optimizer chain's state in optax's state tree
+        (under ``MultiSteps`` and ``multi_transform`` where they apply)."""
         prefix = ".opt_state/"
         if self.accumulate_steps > 1:
             prefix += ".inner_opt_state/"
         if self.frozen:
             prefix += ".inner_states/train/.inner_state/"
-        return prefix + ("1/" if self.grad_clip else "0/")
+        return prefix
 
-    def state_arrays(self, params: nn.Module, state: OptState) -> dict[str, np.ndarray]:
-        """``state`` as optax's flattened key paths (``/``-joined) → arrays."""
-        names, train = self._layout(params)
-        chain = self._chain_prefix()
+    def _adam_prefix(self) -> str:
+        """Key prefix of the adamw chain (after the clip, when there is one)."""
+        return self._wrapper_prefix() + ("1/" if self.grad_clip else "0/")
+
+    def _inner_arrays(self, params, train, state) -> dict:
+        chain = self._adam_prefix()
         count = np.int32(state.count)
         out = {f"{chain}0/.count": count, f"{chain}2/.count": count}
         offs = _offsets(params, train)
@@ -176,9 +182,22 @@ class AdamW:
             path = n.replace(".", "/")
             out[f"{chain}0/.mu/{path}"] = state.mu[a:b].reshape(shapes[n])
             out[f"{chain}0/.nu/{path}"] = state.nu[a:b].reshape(shapes[n])
+        return out
+
+    def _load_inner(self, params, train, flat, state) -> None:
+        chain = self._adam_prefix()
+        state.count = int(flat[f"{chain}0/.count"])
+        state.mu = _cat(flat, chain + "0/.mu/{}", train, state.nu.device).to(self.mu_dtype)
+        state.nu = _cat(flat, chain + "0/.nu/{}", train, state.nu.device)
+
+    def state_arrays(self, params: nn.Module, state) -> dict[str, np.ndarray]:
+        """``state`` as optax's flattened key paths (``/``-joined) → arrays."""
+        names, train = self._layout(params)
+        out = self._inner_arrays(params, train, state)
         if state.acc is not None:
             out[".opt_state/.mini_step"] = np.int32(state.mini_step)
-            out[".opt_state/.gradient_step"] = count
+            out[".opt_state/.gradient_step"] = np.int32(state.count)
+            shapes = dict((n, tuple(x.shape)) for n, x in params.named_parameters())
             offs_all = _offsets(params, names)
             for n in names:
                 a, b = offs_all[n]
@@ -186,23 +205,25 @@ class AdamW:
                     state.acc[a:b].reshape(shapes[n])
         return out
 
-    def load_state_arrays(self, params: nn.Module, flat: dict) -> OptState:
+    def load_state_arrays(self, params: nn.Module, flat: dict):
         """The inverse of `state_arrays` (arrays may be numpy or torch)."""
         names, train = self._layout(params)
-        chain = self._chain_prefix()
         state = self.init(params)
-        dev = state.nu.device
-        t = lambda x: torch.as_tensor(  # noqa: E731
-            x if isinstance(x, torch.Tensor) else np.asarray(x)).to(dev)
-        cat = lambda key, ns: torch.cat(  # noqa: E731
-            [t(flat[key.format(n.replace(".", "/"))]).reshape(-1).float() for n in ns])
-        state.count = int(flat[f"{chain}0/.count"])
-        state.mu = cat(chain + "0/.mu/{}", train).to(self.mu_dtype)
-        state.nu = cat(chain + "0/.nu/{}", train)
+        self._load_inner(params, train, flat, state)
         if state.acc is not None:
             state.mini_step = int(flat[".opt_state/.mini_step"])
-            state.acc = cat(".opt_state/.acc_grads/{}", names)
+            state.acc = _cat(flat, ".opt_state/.acc_grads/{}", names, state.acc.device)
         return state
+
+
+def _cat(flat: dict, key: str, names, device) -> torch.Tensor:
+    """The leaves ``key.format(path)`` of ``names``, flattened and joined
+    as one f32 tensor on ``device``."""
+    def t(x):
+        return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x))
+
+    return torch.cat([t(flat[key.format(n.replace(".", "/"))]).reshape(-1).float()
+                      for n in names]).to(device)
 
 
 def _offsets(params: nn.Module, names: list[str]) -> dict[str, tuple[int, int]]:
@@ -225,13 +246,13 @@ def build_optimizer(
     mu_dtype: str | None = "bfloat16",
     state_8bit: bool = False,
 ) -> AdamW:
-    """The reference's `build_optimizer` knobs; ``state_8bit`` (8-bit
-    Adam) needs kernel K9 and raises until it is ported."""
+    """The reference's `build_optimizer` knobs. ``state_8bit`` returns the
+    blockwise 8-bit AdamW of `train.adam8bit` (``mu_dtype`` is then
+    unused), whose update is kernel K9 on the card."""
+    kw = dict(weight_decay=weight_decay, grad_clip=grad_clip,
+              frozen_groups=frozen_groups, accumulate_steps=accumulate_steps)
     if state_8bit:
-        raise NotImplementedError(
-            "adam_8bit needs the 8-bit Adam update kernel K9 "
-            "(ROADMAP queue 1: 8-bit Adam)"
-        )
-    return AdamW(lr, warmup_steps, total_steps, weight_decay=weight_decay,
-                 grad_clip=grad_clip, frozen_groups=frozen_groups,
-                 accumulate_steps=accumulate_steps, mu_dtype=mu_dtype)
+        from .adam8bit import AdamW8bit
+
+        return AdamW8bit(lr, warmup_steps, total_steps, **kw)
+    return AdamW(lr, warmup_steps, total_steps, mu_dtype=mu_dtype, **kw)

@@ -27,7 +27,7 @@ import torch
 
 from ..index import build_index_from_factory
 from ..index.ivf import IVFIndex
-from ..models.core import check_remat
+from ..models.core import remat_context
 from ..models.longformer import longformer_encode
 from ..models.retriever_generator import RAG, MemoryStore, RAGConfig, rag_forward
 from .loss import summarization_loss
@@ -64,10 +64,11 @@ def make_train_step(
     (state, metrics)``, metrics as 0-d tensors. With ``phase_times``, each
     step synchronises the device between its phases and appends
     ``{"forward", "backward", "optimizer"}`` wall seconds to the list."""
-    check_remat(remat)
+    remat_context(remat)  # an unsupported policy raises here, not mid-step
 
     def loss_fn(params, store, batch):
-        out, aux, enc_out = rag_forward(params, cfg, store, batch, dtype=dtype)
+        out, aux, enc_out = rag_forward(params, cfg, store, batch, dtype=dtype,
+                                        remat=remat)
         if cfg.mips_disabled or enc_out.memory is None:
             log_probs = torch.log_softmax(out, dim=-1)
         else:

@@ -3,7 +3,8 @@
 Counterpart of ``retrieval_augmented_mds_tpu/utils/checkpoint.py``: one
 ``step_<N>.npz`` of flattened key paths (``.params/led/encoder/0/attn/q/
 kernel``, the optimizer state under optax's own paths, ``.step``), bf16
-leaves stored as their uint16 bits and listed under ``__bf16_keys__``;
+leaves stored as their uint16 bits and listed under ``__bf16_keys__``,
+the 8-bit optimizer's int8/uint8 codes stored and loaded as such;
 ``latest.json`` points at the newest save and ``best.json`` marks the
 checkpoint to keep. A checkpoint written by either package loads in the
 other when both build the same optimizer.

@@ -20,8 +20,12 @@ from ..models.retriever_generator import RAGConfig
 @dataclasses.dataclass(frozen=True)
 class TrainHyper:
     """Training knobs of `train.trainer.make_train_step` and
-    `cli.build_tx`. ``remat`` and ``adam_8bit`` raise when set (not ported
-    yet); ``adam_8bit_fused`` has no effect without ``adam_8bit``."""
+    `cli.build_tx`. ``remat``: False, True/"full" or
+    "dots_with_no_batch_dims_saveable" (`models.core.maybe_remat`; other
+    policy names raise). ``adam_8bit``: the 8-bit AdamW of
+    `train.adam8bit`. ``adam_8bit_fused`` is accepted and has no effect:
+    the port routes the 8-bit update by device (kernel K9 on the card, its
+    plain version on the CPU), and both compute the same function."""
 
     lr: float = 3e-5
     warmup_steps: int = 1000

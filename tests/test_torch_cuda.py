@@ -38,6 +38,11 @@ from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
     mips_topk_plain,
     quantize_corpus_sq8,
 )
+from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
+    adam8bit_superleaf_update,
+    adam8bit_superleaf_update_plain,
+)
+from retrieval_augmented_mds_tpu_torch.train import adam8bit as t8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.cuda
@@ -311,3 +316,116 @@ def test_predict_runs_through_both_kernels(gen):
 
     cpu = cli.run_predict(cfg, device="cpu")
     assert len(cpu["predictions"]) == len(out["predictions"])
+
+
+# ---------------------------------------------------------------------------
+# K9: the 8-bit AdamW superleaf update
+# ---------------------------------------------------------------------------
+
+ADAM = dict(b1=0.9, b2=0.999, eps=1e-8)
+
+
+def _adam8bit_inputs(gen, sizes, wd, clip, pad_rows=3):
+    """A superleaf of leaves of ``sizes`` (tails) plus ``pad_rows`` blocks
+    of pure padding, with a warm state (one plain update from zero), the
+    step-2 bias corrections, lr 1e-3 and the clip scale."""
+    sizes, nbs, _, nb = t8._layout(sizes)
+    nb += pad_rows
+    nv = torch.from_numpy(t8._nvalid_for(sizes, nbs, nb)).cuda()
+    mask = torch.arange(t8.BLOCK, device="cuda")[None, :] < nv
+    rand = lambda s: torch.randn((nb, t8.BLOCK), generator=gen, device="cuda") * s * mask  # noqa: E731
+    p = rand(0.1) if wd else None
+    zeros = [torch.zeros((nb, t8.BLOCK), dtype=d, device="cuda") for d in (torch.int8, torch.uint8)]
+    cols = [torch.zeros((nb, 1), device="cuda")] + [
+        torch.full((nb, 1), t8._LOG_TINY, device="cuda") for _ in range(2)]
+    scal0 = torch.tensor([[0.1, 0.001, 1e-3, 1.0]], device="cuda")
+    _, mq, ms, nq, nlo, nhi = adam8bit_superleaf_update_plain(
+        rand(1e-2), zeros[0], cols[0], zeros[1], cols[1], cols[2], nv, p, scal0, wd=wd,
+        **ADAM)
+    scal = torch.tensor([[1 - 0.9 ** 2, 1 - 0.999 ** 2, 1e-3, clip]], device="cuda")
+    return rand(1e-2).contiguous(), mq, ms, nq, nlo, nhi, nv, p, scal
+
+
+def _adam8bit_close(got, ref):
+    """Tolerances of the JAX package's kernel test: update rtol 1e-6 atol
+    1e-9, codes within 1, mu scales rtol 1e-6, nu range rtol/atol 1e-5."""
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=1e-9)
+    for k, dtype in ((1, torch.int8), (3, torch.uint8)):
+        assert got[k].dtype == dtype
+        assert (got[k].int() - ref[k].int()).abs().max().item() <= 1
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+    for k in (4, 5):
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.02])
+@pytest.mark.parametrize("clip", [1.0, 0.3])
+@pytest.mark.parametrize("sizes", [[16384 + 70, 300], [5, 128, 1000, 129]])
+def test_adam8bit_kernel_matches_plain(gen, wd, clip, sizes):
+    """K9 against its plain version: leaf tails, 3 blocks of pure padding,
+    NB (135 and 15) not a multiple of the CTA's 8 rows, wd 0 and > 0, a
+    clip scale of 1 and below; one launch per call."""
+    args = _adam8bit_inputs(gen, sizes, wd, clip)
+    before = adam8bit_superleaf_update.launches
+    got = adam8bit_superleaf_update(*args, wd=wd, **ADAM)
+    torch.cuda.synchronize()
+    assert adam8bit_superleaf_update.launches == before + 1
+    _adam8bit_close(got, adam8bit_superleaf_update_plain(*args, wd=wd, **ADAM))
+    assert (got[1][-3:] == 0).all() and (got[3][-3:] == 0).all()
+    assert torch.equal(got[4][-3:], torch.full_like(got[4][-3:], t8._LOG_TINY))
+
+
+def test_adam8bit_kernel_writes_over_the_gradients(gen):
+    """``out=g2``: the update written over the gradients equals the update
+    written elsewhere."""
+    args = _adam8bit_inputs(gen, [3000, 77], 0.01, 0.5)
+    ref = adam8bit_superleaf_update(*args, wd=0.01, **ADAM)
+    g2 = args[0].clone()
+    got = adam8bit_superleaf_update(g2, *args[1:], wd=0.01, out=g2, **ADAM)
+    assert got[0] is g2
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_adam8bit_kernel_rejects_bad_inputs(gen):
+    args = list(_adam8bit_inputs(gen, [300], 0.0, 1.0))
+    args[1] = args[1].to(torch.uint8)
+    with pytest.raises(ValueError, match="mu_q"):
+        adam8bit_superleaf_update(*args, wd=0.0, **ADAM)
+    args = list(_adam8bit_inputs(gen, [300], 0.02, 1.0))
+    args[7] = None  # wd != 0 needs the parameters
+    with pytest.raises(ValueError, match="p2"):
+        adam8bit_superleaf_update(*args, wd=0.02, **ADAM)
+
+
+def test_8bit_optimizer_on_the_card_matches_the_cpu(gen):
+    """Three AdamW8bit steps with clip and weight decay on a two-group tree:
+    the card's parameters and state against the CPU's (plain version)."""
+    from torch import nn
+
+    from retrieval_augmented_mds_tpu_torch.train.optimizer import build_optimizer
+
+    def tree(dev):
+        m = nn.Module()
+        m.led = nn.Linear(130, 70).to(dev)
+        m.query_encoder = nn.Linear(40, 3).to(dev)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.linspace(-1, 1, p.numel()).reshape(p.shape))
+        return m
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model, g = tree(dev), torch.Generator().manual_seed(0)
+        tx = build_optimizer(1e-2, 1, 10, weight_decay=0.01, grad_clip=0.5, state_8bit=True)
+        state = tx.init(model)
+        for _ in range(3):
+            grads = {n: torch.randn(p.shape, generator=g).to(dev)
+                     for n, p in model.named_parameters()}
+            tx.update(model, grads, state)
+        runs[dev] = (model, state)
+    for (n, p), (_, q) in zip(runs["cuda"][0].named_parameters(),
+                              runs["cpu"][0].named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-6, msg=n)
+    assert runs["cuda"][1].count == 3
+    assert (runs["cuda"][1].mu_q.cpu().int() - runs["cpu"][1].mu_q.int()).abs().max() <= 1

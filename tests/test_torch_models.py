@@ -30,6 +30,7 @@ from retrieval_augmented_mds_tpu.models.retriever_generator import (
 )
 from retrieval_augmented_mds_tpu_torch.bridge import flatten_tree, load_jax_params
 from retrieval_augmented_mds_tpu_torch.models import copy_decoder as tcopy
+from retrieval_augmented_mds_tpu_torch.models import core as tcore
 from retrieval_augmented_mds_tpu_torch.models import led as tled
 from retrieval_augmented_mds_tpu_torch.models.core import Dense, causal_mask
 from retrieval_augmented_mds_tpu_torch.models.longformer import (
@@ -149,6 +150,32 @@ def test_small_helpers_match_jax(helper):
         np.testing.assert_array_equal(got.detach().numpy(), np.asarray(ref))
 
 
+def test_dense_rounds_once_like_jax():
+    """bf16 inputs and kernel, an f32 bias with fractional parts: the port's
+    `dense` accumulates in f32, adds the f32 bias and rounds once, as JAX's
+    does, and equals it on all but a tiny share of outputs (< 0.5%), which
+    sit on a bf16 rounding boundary that the two packages' f32 summation
+    orders put on either side (one bf16 ulp apart). Rounding the product to
+    bf16 first and again after the bias (the port's earlier form) misses
+    JAX on many more outputs."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 16, 64)).astype(np.float32)
+    jp = {"kernel": jnp.asarray(rng.standard_normal((64, 96)).astype(np.float32) * 0.1),
+          "bias": jnp.asarray((rng.standard_normal(96) * 0.37).astype(np.float32))}
+    mod = load_jax_params(Dense(64, 96), jp)
+    ref = np.asarray(jcore.dense(jp, jnp.asarray(x).astype(jnp.bfloat16)).astype(jnp.float32))
+    got = tcore.dense(mod, _t(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = _np(got)
+    with torch.no_grad():
+        twice = torch.matmul(_t(x).bfloat16(), mod.kernel.bfloat16()).float() + mod.bias
+    twice = _np(twice.bfloat16())
+    ulp = np.abs(ref) * 2.0 ** -7  # the bf16 spacing at each |ref| (upper bound)
+    assert (got != ref).mean() < 0.005
+    assert (np.abs(got - ref) <= ulp).all()
+    assert (twice != ref).mean() > 10 * max((got != ref).mean(), 1e-3)
+
+
 def _led_inputs(cfg, seed=0, b=2, s=128):
     rng = np.random.default_rng(seed)
     ids = rng.integers(4, cfg.led.vocab_size - 2, (b, s)).astype(np.int32)
@@ -198,16 +225,20 @@ def test_cached_led_decode_matches_jax_over_steps(tiny):
 
 def test_teacher_forced_decode_is_pending(tiny):
     """The teacher-forced decoder runs (its parity is in
-    test_torch_train.py); what stays pending on it is gradient
-    checkpointing, which raises."""
+    test_torch_train.py), with gradient checkpointing too (the same hidden
+    states; tests/test_torch_remat.py holds its gradients); what stays
+    pending is a checkpoint policy the port does not have, which raises."""
     cfg, _, model = tiny
     x = torch.zeros((1, 4), dtype=torch.int32)
     hid, caches = tled.led_decode(model.led, cfg.led, x, torch.zeros(1, 64, 64),
                                   torch.ones(1, 64))
     assert hid.shape == (1, 4, cfg.led.d_model) and caches is None
-    with pytest.raises(NotImplementedError, match="remat"):
+    again, _ = tled.led_decode(model.led, cfg.led, x, torch.zeros(1, 64, 64),
+                               torch.ones(1, 64), remat="full")
+    assert torch.equal(again, hid)
+    with pytest.raises(ValueError, match="remat"):
         tled.led_decode(model.led, cfg.led, x, torch.zeros(1, 64, 64),
-                        torch.ones(1, 64), remat="full")
+                        torch.ones(1, 64), remat="everything_saveable")
 
 
 def _memory(cfg, b, seed=3, m=128):

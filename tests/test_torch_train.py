@@ -199,13 +199,19 @@ def test_teacher_forced_led_decode_matches_jax():
 
 
 def test_remat_and_8bit_adam_raise():
+    """Both are ported (tests/test_torch_remat.py, test_torch_adam8bit.py);
+    what still raises: a remat policy the port does not have, and an 8-bit
+    state whose superleaf does not fit the parameters."""
     cfg, _, _, model = _setup()
-    with pytest.raises(NotImplementedError, match="remat"):
+    with pytest.raises(ValueError, match="remat"):
         tled.led_decode(model.led, cfg.led, torch.zeros((1, 4), dtype=torch.int32),
                         torch.zeros((1, 8, cfg.led.d_model)), torch.ones((1, 8)),
-                        remat=True)
-    with pytest.raises(NotImplementedError, match="K9"):
-        toptim.build_optimizer(1e-3, state_8bit=True)
+                        remat="nothing_saveable")
+    tx = toptim.build_optimizer(1e-3, state_8bit=True)
+    state = tx.init(model.led.decoder)
+    grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    with pytest.raises(ValueError, match="superleaf row count"):
+        tx.update(model, grads, state)
 
 
 # ---------------------------------------------------------------------------
