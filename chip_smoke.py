@@ -12,8 +12,13 @@ Phases, in order; any failure exits non-zero:
   4. kernel K3 (its backward) against the plain backward, at the LED and
      Longformer shapes of the train step;
   5. kernels K4/K5 (dense attention rows, forward and backward) against
-     their plain versions, at the decoder's self and cross shapes and at
-     S = 8192;
+     their plain versions, at the decoder's self and cross shapes; then
+     K6/K7 (the same rows over a long source, with one log-sum-exp per
+     row) at the long-source slice's cross shape (S = 16384, a source of
+     length 0 among them) and at S = 8192 in f32, and K2/K3 at the LED
+     shape of that slice (T = 16384);
+  5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
+     version at K1's serving shape, its top-k against K1's;
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
      the same probe ids, on IVF indexes (C = 1024, SQ8 and bf16) built by
      the port over 1,048,576 rows of the ``bench-index`` Gaussian mixture
@@ -40,12 +45,16 @@ Phases, in order; any failure exits non-zero:
      no pretrained weights, the hash tokenizer, the same fixture) for 4
      steps with one store refresh, with the launch counts read around it;
  11. the capacity training slice: the same with ``train.adam_8bit`` and
-     ``train.remat`` on, its peak memory and step time beside 10's.
+     ``train.remat`` on, its peak memory and step time beside 10's;
+ 12. the long-source training slice: 10's config with ``data.max_length``
+     16384 (the LED's ``max_src_len``), the decoder's cross-attention on
+     K6/K7.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the three slices; ms, plain_ms and library_ms measured here with CUDA
-events; bound_ms the least time for the same work on an H100 SXM from
-these inputs); the last line is ``{"ok": true, "device": {...}}``.
+over the four slices, K10's from its own phase, as no path calls it; ms,
+plain_ms and library_ms measured here with CUDA events; bound_ms the least
+time for the same work on an H100 SXM from these inputs); the last line is
+``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port's package beside this file, it exits
 non-zero and prints no result.
 """
@@ -68,6 +77,7 @@ FIXTURE = os.path.join(
 )
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # fit logs, saved indexes
 WARMUP, REPS = 2, 10
+PLAIN_LONG_REPS = 3  # the plain versions at 16384 keys or rows: ~0.1 s a call
 # H100 SXM (NVIDIA data sheet, dense): HBM bytes/s; peak operations/s of
 # the f32 CUDA cores and the bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -83,6 +93,8 @@ def _counters() -> dict:
     from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
         flash_dense_attention,
         flash_dense_backward,
+        flash_dense_blocked,
+        flash_dense_blocked_backward,
     )
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
         flash_sliding_attention,
@@ -94,12 +106,18 @@ def _counters() -> dict:
     from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
         adam8bit_superleaf_update,
     )
-    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_chunkmax, mips_topk
 
     return {f.__name__: f for f in (mips_topk, flash_sliding_attention,
                                     flash_sliding_backward, flash_dense_attention,
                                     flash_dense_backward, ivf_probe_topk,
-                                    adam8bit_superleaf_update)}
+                                    adam8bit_superleaf_update, flash_dense_blocked,
+                                    flash_dense_blocked_backward, mips_chunkmax)}
+
+
+# kernels that only the long-source slice runs, and K10, which no path runs
+LONG_ONLY = ("flash_dense_blocked", "flash_dense_blocked_backward")
+NO_PATH = ("mips_chunkmax",)
 
 
 def run_counted(fn):
@@ -117,13 +135,13 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
+def cuda_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
     """Mean device time of fn() in ms over ``reps`` launches (CUDA events).
     The launches queue behind ~10 ms of device sleep, so the host's launch
     overhead shows only where fn() itself waits for the device."""
     import torch
 
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(20_000_000)  # clock cycles
@@ -321,7 +339,10 @@ def _sliding_pairs(key_bias, g_bias, w, nh) -> float:
     return float(nh * (window + t * (g_bias == 0).sum()))
 
 
-def _k2_case(name, shape, dtype, *, timed=True, library=False):
+def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
+    """K2 against `local_rows_plain`; with ``plain_b`` the plain version
+    runs (and is timed) on the first ``plain_b`` batches only, against the
+    kernel's rows of those batches (each batch is independent)."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -332,35 +353,43 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False):
     args, rows_ok, is_global = _k2_inputs(*shape, dtype=dtype, seed=7)
     *tensors, w = args
     flops = 4 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
+    pb = plain_b or shape[0]
+    cut = [x[:pb] for x in tensors]
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
-    ref, ref_m, ref_l = local_rows_plain(*tensors, w, return_stats=True)
+    ref, ref_m, ref_l = local_rows_plain(*cut, w, return_stats=True)
     torch.cuda.synchronize()
+    full_out = out
+    out, m, l = out[:pb], m[: pb * shape[1]], l[: pb * shape[1]]
     b, nh, t, dh = out.shape
-    sel = rows_ok[:, None, :].expand(b, nh, t)
+    sel = rows_ok[:pb, None, :].expand(b, nh, t)
     err = (out.float() - ref.float()).abs()[sel].max().item()
+    ref_max = ref.float().abs()[sel].max().item()
     m_err = (m - ref_m).abs().max().item()
     l_rel = ((l - ref_l).abs() / ref_l).max().item()
     if dtype == torch.float32:
         tol_out, tol_m, tol_l = 1e-4, 1e-4, 1e-4
     else:
         tol_out, tol_m, tol_l = 2e-2, 1e-3, 1e-3
-    check(err <= tol_out, f"K2 {name}: out max abs err {err} > {tol_out}")
+    check(err <= tol_out * ref_max,
+          f"K2 {name}: out max abs err {err} > {tol_out} x max|ref| {ref_max}")
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=tol_m), f"K2 {name}: m err {m_err}")
     check(l_rel <= tol_l, f"K2 {name}: l max rel err {l_rel} > {tol_l}")
     check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite output")
     ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: flash_sliding_attention(*tensors, window=w))
-        plain_ms = cuda_ms(lambda: local_rows_plain(*tensors, w))
+        reps = PLAIN_LONG_REPS if shape[2] > 4096 else REPS
+        plain_ms = cuda_ms(lambda: local_rows_plain(*cut, w), reps, min(reps, WARMUP))
     if library:
         q, k, v = tensors[:3]
         mask = _band_global_mask(tensors[3], is_global, w, dtype)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask))
-    bound = roofline(nbytes(*tensors, out), flops, dtype == torch.float32)
+    bound = roofline(nbytes(*tensors, full_out), flops, dtype == torch.float32)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (out on non-padded "
-          f"rows atol {tol_out}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
+          f"rows within {tol_out} x max|ref| {ref_max:.3e}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
           f"l rtol {tol_l}: {l_rel:.3e})"
+          + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
              if timed else "")
@@ -382,12 +411,19 @@ def phase_k2():
     _k2_case("led_base", led, torch.float32)
     _k2_case("longformer_base", lf, torch.bfloat16)
     _k2_case("longformer_base", lf, torch.float32)
+    # the LED encoder layer of the long-source slice (the plain version on 2
+    # of the 4 batches: its [B, nh, T/w, w, 3w] f32 band tensors)
+    _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2)
     return served
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the backward of K2 (K3); dense attention rows (K4, K5)
 # ---------------------------------------------------------------------------
+
+# LED-base encoder layer over the long-source slice's 16384-token sources
+LED_16K = (4, 12, 16384, 64, 512, 64, [16384, 12000, 6000, 2048], [64, 10, 3, 0])
+
 
 def _grad_tol(dtype) -> float:
     """Relative to the largest magnitude of each reference: f32 summation
@@ -398,17 +434,20 @@ def _grad_tol(dtype) -> float:
 
 
 def _compare(what: str, got, ref, tol: float) -> float:
-    """max |got - ref| over the tensors, each within tol x max(1, |ref|)."""
+    """max |got - ref| over the tensors, each within tol x its own max|ref|
+    (no floor: gradients of long rows are far below 1)."""
     err = 0.0
     for g, r in zip(got, ref):
         e = (g.float() - r.float()).abs().max().item()
-        bound = tol * max(1.0, r.float().abs().max().item())
+        bound = tol * r.float().abs().max().item()
         check(e <= bound and math.isfinite(e), f"{what}: max abs err {e} > {bound}")
         err = max(err, e)
     return err
 
 
-def _k3_case(name, shape, dtype, *, timed=True, library=False):
+def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
+    """K3 against `sliding_backward_plain` from the same m, l, delta; with
+    ``plain_b`` as in `_k2_case`."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -427,15 +466,18 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False):
     g = torch.Generator(device="cuda").manual_seed(12)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     bwd = (*tensors, do, m, l, row_delta(do, out))
+    pb, nh = plain_b or shape[0], shape[1]
+    cut = [x[: pb * nh] if x.shape[0] == shape[0] * nh else x[:pb] for x in bwd]
     got = flash_sliding_backward(*bwd, window=w)
-    ref = sliding_backward_plain(*bwd, w)
+    ref = sliding_backward_plain(*cut, w)
     torch.cuda.synchronize()
     tol = _grad_tol(dtype)
-    err = _compare(f"K3 {name} {dtype}", got, ref, tol)
+    err = _compare(f"K3 {name} {dtype}", [x[:pb] for x in got], ref, tol)
     ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: flash_sliding_backward(*bwd, window=w))
-        plain_ms = cuda_ms(lambda: sliding_backward_plain(*bwd, w))
+        reps = PLAIN_LONG_REPS if shape[2] > 4096 else REPS
+        plain_ms = cuda_ms(lambda: sliding_backward_plain(*cut, w), reps, min(reps, WARMUP))
     if library:
         # the backward of one SDPA call under the equivalent mask
         q2, k2, v2 = (x.detach().requires_grad_() for x in tensors[:3])
@@ -448,6 +490,7 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False):
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (dq, dk, dv, dkg, dvg "
           f"on every row, fully masked ones included, within {tol} x max|ref|: "
           f"max abs err {err:.3e})"
+          + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
              if timed else "")
@@ -468,7 +511,57 @@ def phase_k3():
     _k3_case("led_base", led, torch.float32)
     _k3_case("longformer_query", query, torch.bfloat16)
     _k3_case("longformer_memory", memory, torch.bfloat16)
+    _k3_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2)
     return served
+
+
+def _dense_inputs(b, t, s, lengths, dtype, seed):
+    """(generator, q, k, v, key_bias) of the decoder's attention, nh = 12,
+    dh = 64; batch i's source is lengths[i] long (0: all padding)."""
+    import torch
+
+    nh, dh = 12, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, nh, t, dh), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nh, s, dh), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    pos = torch.arange(s, device="cuda")
+    kb = torch.where(pos[None, :] < torch.tensor(lengths, device="cuda")[:, None],
+                     0.0, -1e9).float()
+    return g, q, k, v, kb
+
+
+def _dense_pairs(b, nh, t, s, causal, lengths) -> float:
+    """Visible (query, key) pairs: keys inside the source, and not after the
+    query when causal; 4 (forward) and 10 (backward) x dh operations each."""
+    import torch
+
+    j = torch.arange(s, device="cuda")
+    vis = j[None, None, :] < torch.tensor(lengths, device="cuda")[:, None, None]
+    if causal:
+        vis = vis & (j[None, None, :] <= torch.arange(t, device="cuda")[None, :, None])
+    return float(nh * vis.expand(b, t, s).sum())
+
+
+def _sdpa_ms(q, k, v, kb, do, causal) -> list[float]:
+    """The library's yardstick: one scaled_dot_product_attention call with
+    the same additive key mask, and its backward (ms)."""
+    import torch
+
+    b, _, t, _ = q.shape
+    s = k.shape[2]
+    mask = kb[:, None, None, :].expand(b, 1, t, s)
+    if causal:
+        later = (torch.arange(s, device="cuda")[None, :]
+                 > torch.arange(t, device="cuda")[:, None])
+        mask = mask + torch.where(later, -1e9, 0.0)
+    mask = mask.to(q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q2, k2, v2 = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = sdpa(q2, k2, v2, attn_mask=mask)
+    return [cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, (q2, k2, v2), do,
+                                                retain_graph=True))]
 
 
 def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
@@ -486,13 +579,7 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import row_delta
 
     nh, dh = 12, 64
-    g = torch.Generator(device="cuda").manual_seed(21)
-    q = torch.randn((b, nh, t, dh), generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn((b, nh, s, dh), generator=g, device="cuda").to(dtype)
-            for _ in range(2))
-    pos = torch.arange(s, device="cuda")
-    kb = torch.where(pos[None, :] < torch.tensor(lengths, device="cuda")[:, None],
-                     0.0, -1e9).float()
+    g, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=21)
     out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
     ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
@@ -506,35 +593,17 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=1e-3), f"K4 {what}: m differs")
     check(bool(((l - ref_l).abs() / ref_l).max() <= 1e-3), f"K4 {what}: l differs")
     err5 = _compare(f"K5 {what}", got, ref_g, tol)
-    # visible (query, key) pairs: keys inside the source, and not after the
-    # query when causal; 4 (forward) and 10 (backward) x dh operations each
-    j = torch.arange(s, device="cuda")
-    vis = j[None, None, :] < torch.tensor(lengths, device="cuda")[:, None, None]
-    if causal:
-        vis = vis & (j[None, None, :] <= torch.arange(t, device="cuda")[None, :, None])
-    pairs = float(nh * vis.expand(b, t, s).sum())
+    pairs = _dense_pairs(b, nh, t, s, causal, lengths)
     f32 = dtype == torch.float32
     bound4 = roofline(nbytes(q, k, v, kb, out, m, l), 4 * dh * pairs, f32)
     bound5 = roofline(nbytes(*bwd, *got), 10 * dh * pairs, f32)
     times = [None] * 6
     if timed:
-        # the library's yardstick: one scaled_dot_product_attention call with
-        # the same additive key mask, and its backward
-        mask = kb[:, None, None, :].expand(b, 1, t, s)
-        if causal:
-            later = j[None, :] > torch.arange(t, device="cuda")[:, None]
-            mask = mask + torch.where(later, -1e9, 0.0)
-        mask = mask.to(dtype)
-        q2, k2, v2 = (x.detach().requires_grad_() for x in (q, k, v))
-        lib_out = torch.nn.functional.scaled_dot_product_attention(q2, k2, v2, attn_mask=mask)
         times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
                  cuda_ms(lambda: dense_rows_plain(q, k, v, kb, causal)),
                  cuda_ms(lambda: flash_dense_backward(*bwd, causal=causal)),
                  cuda_ms(lambda: dense_backward_plain(*bwd, causal)),
-                 cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                     q, k, v, attn_mask=mask)),
-                 cuda_ms(lambda: torch.autograd.grad(lib_out, (q2, k2, v2), do,
-                                                     retain_graph=True))]
+                 *_sdpa_ms(q, k, v, kb, do, causal)]
     shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
     print(f"[K4] {what}: {shape}: PASS (out within {tol} x max|ref|: {err4:.3e}; "
           f"m atol 1e-3, l rtol 1e-3)"
@@ -553,16 +622,161 @@ def phase_k45():
     import torch
 
     # decoder self-attention (causal) and cross-attention over the padded
-    # 2048-token source of the train step, B=4; then S = 8192 (the long-S
-    # computation of the TPU's blocked kernels)
+    # 2048-token source of the train step, B=4 (longer sources: phase_k67)
     _dense_case("decoder_self", 4, 512, 512, True, [512] * 4, torch.bfloat16)
     cross = _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0],
                         torch.bfloat16)
     _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0],
                 torch.float32, timed=False)
-    _dense_case("long_source", 4, 256, 8192, False, [8192, 6000, 3000, 100],
-                torch.bfloat16)
     return cross
+
+
+def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
+    """K6 against `dense_rows_blocked_plain` (out, lse) and K7 against
+    `dense_blocked_backward_plain` (dq, dk, dv from the same out, lse, g).
+    A source of length 0 is all padding: its LSE rounds to -1e9, and K7
+    must give its rows the uniform p = 1/S of the composite (dv of every
+    key = the rows' mean of g), not the p = 1 of exp(s - lse)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
+        LSE_DEGENERATE,
+        dense_blocked_backward_plain,
+        dense_rows_blocked_plain,
+        flash_dense_blocked,
+        flash_dense_blocked_backward,
+    )
+
+    nh, dh = 12, 64
+    gen, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=23)
+    out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
+    ref, ref_lse = dense_rows_blocked_plain(q, k, v, kb, causal)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = flash_dense_blocked_backward(q, k, v, kb, out, lse, do, causal=causal)
+    ref_g = dense_blocked_backward_plain(q, k, v, kb, out, lse, do, causal)
+    torch.cuda.synchronize()
+    tol = _grad_tol(dtype)
+    what = f"{name} {dtype}"
+    err6 = _compare(f"K6 {what}", [out], [ref], tol)
+    check(torch.allclose(lse, ref_lse, rtol=1e-6, atol=1e-3), f"K6 {what}: lse differs")
+    err7 = _compare(f"K7 {what}", got, ref_g, tol)
+    empty = [i for i, n in enumerate(lengths) if n == 0]
+    pad = ""
+    for i in empty:
+        check(bool((lse[i * nh:(i + 1) * nh] <= LSE_DEGENERATE).all()),
+              f"K6 {what}: batch {i} (all padding) has an LSE above -1e8")
+        uniform = do[i].float().sum(1, keepdim=True).expand(-1, s, -1) / s
+        pad_err = _compare(f"K7 {what}: dv of the all-padding batch {i}", [got[2][i]],
+                           [uniform], tol)
+        pad = (f"; the all-padding batch's dv uniform over the S keys within {tol} x "
+               f"its max {uniform.abs().max().item():.3e}: {pad_err:.3e}")
+    pairs = _dense_pairs(b, nh, t, s, causal, lengths)
+    f32 = dtype == torch.float32
+    bound6 = roofline(nbytes(q, k, v, kb, out, lse), 4 * dh * pairs, f32)
+    bound7 = roofline(nbytes(q, k, v, kb, out, lse, do, *got), 10 * dh * pairs, f32)
+    times = [None] * 6
+    if timed:
+        times = [cuda_ms(lambda: flash_dense_blocked(q, k, v, kb, causal=causal)),
+                 cuda_ms(lambda: dense_rows_blocked_plain(q, k, v, kb, causal),
+                         PLAIN_LONG_REPS, 1),
+                 cuda_ms(lambda: flash_dense_blocked_backward(q, k, v, kb, out, lse, do,
+                                                              causal=causal)),
+                 cuda_ms(lambda: dense_blocked_backward_plain(q, k, v, kb, out, lse, do,
+                                                              causal),
+                         PLAIN_LONG_REPS, 1),
+                 *_sdpa_ms(q, k, v, kb, do, causal)]
+    shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
+    print(f"[K6] {what}: {shape}: PASS (out within {tol} x max|ref|: {err6:.3e}; lse atol "
+          f"1e-3" + (", the all-padding batch's lse <= -1e8)" if empty else ")")
+          + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
+             f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']})" if timed else ""))
+    print(f"[K7] {what}: {shape}: PASS (dq, dk, dv each within {tol} x its max|ref|: "
+          f"{err7:.3e}{pad})"
+          + (f"; kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms, sdpa backward "
+             f"{times[5]:.3f} ms, bound {bound7['bound_ms']:.3f} ms ({bound7['bound_by']})"
+             if timed else ""))
+    return (result(err6, times[0], times[1], bound6, times[4]),
+            result(err7, times[2], times[3], bound7, times[5]))
+
+
+def phase_k67():
+    import torch
+
+    # the decoder's cross-attention of the long-source slice: B=4 sources
+    # padded to 16384 tokens, one of them empty; then f32 at S = 8192
+    cross = _blocked_case("decoder_cross_16k", 4, 512, 16384, False,
+                          [16384, 11000, 3000, 0], torch.bfloat16)
+    _blocked_case("decoder_cross_8k", 2, 256, 8192, False, [8192, 0], torch.float32,
+                  timed=False)
+    _blocked_case("causal_ragged", 2, 4500, 4500, True, [4500, 4500], torch.bfloat16,
+                  timed=False)
+    return cross
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: K10, phase 1 of the two-phase MIPS top-k
+# ---------------------------------------------------------------------------
+
+def _k10_case(name, b, n, d, k, dtype, *, timed=False):
+    """K10 against `mips_chunkmax_plain`: the same masked cells (-3e38),
+    scores and chunk maxima within 1e-4 x max|score| (f32 sums of the same
+    products in another order); the two-phase top-k against K1's (random
+    data: no equal scores, so K1's distinct-value rule and the all-hits
+    rule agree): equal ids, values within rtol 1e-5 + atol 1e-4. Returns
+    (result, launches of the top-k call)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
+        mips_chunkmax,
+        mips_chunkmax_plain,
+        mips_topk,
+        mips_topk_blocked,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2000 + n)
+    q = torch.randn((b, d), generator=g, device="cuda")
+    e = torch.randn((n, d), generator=g, device="cuda").to(dtype)
+    rb = torch.randn(n, generator=g, device="cuda")
+    ign = torch.randint(-1, n, (b, 8), generator=g, device="cuda", dtype=torch.int32)
+    scores, cmax = mips_chunkmax(q, e, rb, ign)
+    ref, ref_cmax = mips_chunkmax_plain(q, e, rb, ign)
+    (vals, ids), launches = run_counted(lambda: mips_topk_blocked(q, e, k, rb, ign))
+    k1_vals, k1_ids = mips_topk(q, e, k, rb, ign)
+    torch.cuda.synchronize()
+    masked = ref < -1e38
+    check(torch.equal(scores < -1e38, masked) and bool((scores[masked] == -3e38).all()),
+          f"K10 {name}: masked cells differ")
+    tol = 1e-4 * ref[~masked].abs().max().item()
+    err = max((scores[~masked] - ref[~masked]).abs().max().item(),
+              (cmax - ref_cmax).abs().max().item())
+    check(err <= tol, f"K10 {name}: max abs err {err} > {tol}")
+    check(torch.equal(ids, k1_ids), f"K10 {name}: top-{k} ids differ from K1's")
+    check(torch.allclose(vals, k1_vals, rtol=1e-5, atol=1e-4), f"K10 {name}: values")
+    ms = plain_ms = lib_ms = None
+    if timed:
+        ms = cuda_ms(lambda: mips_chunkmax(q, e, rb, ign))
+        plain_ms = cuda_ms(lambda: mips_chunkmax_plain(q, e, rb, ign))
+        # the yardstick: the same f32 scores from one bf16 GEMM (no single
+        # PyTorch call also gives the chunk maxima or the masks)
+        lib_ms = cuda_ms(lambda: torch.mm(q.to(dtype), e.T, out_dtype=torch.float32))
+    bound = roofline(nbytes(q.to(dtype), e, rb, ign, scores, cmax), 2.0 * b * n * d,
+                     dtype == torch.float32)
+    print(f"[K10] {name}: B={b} N={n} D={d} k={k} {dtype}, bias, 8 ignored ids: PASS "
+          f"(scores and chunk maxima within {tol:.3e}: max abs err {err:.3e}; masked "
+          f"cells equal; top-{k} ids equal to K1's)"
+          + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.mm of the scores "
+             f"{lib_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})"
+             if timed else ""))
+    return result(err, ms, plain_ms, bound, lib_ms), launches["mips_chunkmax"]
+
+
+def phase_k10():
+    import torch
+
+    measured, launches = _k10_case("serving", 256, 131072, 768, 10, torch.bfloat16,
+                                   timed=True)
+    _k10_case("ragged_f32", 37, 777, 50, 7, torch.float32)
+    return measured, launches
 
 
 # ---------------------------------------------------------------------------
@@ -855,7 +1069,8 @@ def phase_small_fit() -> None:
     _, launches = run_counted(lambda: cli.run_fit(cfg, device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
     check(all(n > 0 for name, n in launches.items()
-              if name not in ("ivf_probe_topk", "adam8bit_superleaf_update")),
+              if name not in ("ivf_probe_topk", "adam8bit_superleaf_update", *LONG_ONLY,
+                              *NO_PATH)),
           f"small fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1, "small fit: no store refresh")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
@@ -896,7 +1111,8 @@ def phase_small_fit_8bit() -> None:
                                                   device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
     check(launches["adam8bit_superleaf_update"] == 3, f"small 8-bit fit: K9 {launches}")
-    check(all(n > 0 for name, n in launches.items() if name != "ivf_probe_topk"),
+    check(all(n > 0 for name, n in launches.items()
+              if name not in ("ivf_probe_topk", *LONG_ONLY, *NO_PATH)),
           f"small 8-bit fit: a kernel not launched {launches}")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
     check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small 8-bit fit losses {lg}")
@@ -967,7 +1183,8 @@ def phase_small_ivf() -> None:
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(fcfg, device="cuda", report=gpu))
     cli.run_fit(fcfg, device="cpu", report=cpu)
-    check(all(n > 0 for name, n in launches.items() if name != "adam8bit_superleaf_update"),
+    check(all(n > 0 for name, n in launches.items()
+              if name not in ("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH)),
           f"small IVF fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1 and isinstance(gpu["store"].index, IVFIndex),
           "small IVF fit: no IVF refresh")
@@ -1113,9 +1330,10 @@ def train_slice_config():
     return config_from_dict(d)
 
 
-def _train_run(cfg, tag: str, optimizer_kernel: bool) -> tuple[dict, dict]:
+def _train_run(cfg, tag: str, off_path: tuple[str, ...]) -> tuple[dict, dict]:
     """``cli.run_fit`` of ``cfg`` on the card with the launch counts read
-    around it and the peak device memory → (launches, summary)."""
+    around it and the peak device memory → (launches, summary). Every
+    kernel launches, but those in ``off_path``, which must not."""
     import gc
 
     import torch
@@ -1138,11 +1356,13 @@ def _train_run(cfg, tag: str, optimizer_kernel: bool) -> tuple[dict, dict]:
     check(math.isfinite(out["grad_norm"]) and out["grad_norm"] > 0,
           f"{tag}: grad_norm {out['grad_norm']}")
     check(len(report["refresh_s"]) == 1, f"{tag}: {len(report['refresh_s'])} store refreshes")
-    check(all(n > 0 for name, n in launches.items()
-              if optimizer_kernel or name != "adam8bit_superleaf_update"),
+    check(all(n > 0 for name, n in launches.items() if name not in off_path),
           f"{tag}: kernel not launched: {launches}")
-    check(launches["adam8bit_superleaf_update"] == (TRAIN_STEPS if optimizer_kernel else 0),
-          f"{tag}: K9 launches {launches}")
+    check(all(launches[name] == 0 for name in off_path),
+          f"{tag}: a kernel off this path launched: {launches}")
+    if "adam8bit_superleaf_update" not in off_path:
+        check(launches["adam8bit_superleaf_update"] == TRAIN_STEPS,
+              f"{tag}: K9 launches {launches}")
     store = report["store"]
     check(type(store.index).__name__ == "IVFIndex" and store.nprobe == cfg.index.nprobe,
           f"the {tag} slice's store is not the config's IVF index")
@@ -1172,14 +1392,19 @@ def _train_run(cfg, tag: str, optimizer_kernel: bool) -> tuple[dict, dict]:
     # the steady steps: the last two (the first pays the kernels' first
     # calls, the third follows the store refresh)
     steady = report["step_s"][-2:]
-    summary = {"peak_gib": peak / 2**30, "step_s": sum(steady) / len(steady),
+    summary = {"peak_gib": peak / 2**30, "step_s": sum(steady) / len(steady), "losses": losses,
                **{k: sum(ph[k] for ph in report["phase_s"][-2:]) / 2
                   for k in ("forward", "backward", "optimizer")}}
+    print(f"[{tag}] steady (mean of the last two steps): step {summary['step_s']:.3f} s "
+          f"({cfg.data.batch_size / summary['step_s']:.2f} examples/s), forward "
+          f"{summary['forward']:.3f} s, backward {summary['backward']:.3f} s, optimizer "
+          f"{summary['optimizer']:.3f} s")
     return launches, summary
 
 
 def phase_train_slice() -> tuple[dict, dict]:
-    return _train_run(train_slice_config(), "train", optimizer_kernel=False)
+    return _train_run(train_slice_config(), "train",
+                      off_path=("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH))
 
 
 def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
@@ -1192,7 +1417,7 @@ def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, adam_8bit=True, remat=True),
         logging=dataclasses.replace(cfg.logging, run_name="led_base_capacity"))
-    launches, cap = _train_run(cfg, "capacity", optimizer_kernel=True)
+    launches, cap = _train_run(cfg, "capacity", off_path=(*LONG_ONLY, *NO_PATH))
     base_launches, base = standing
     for name in ("flash_sliding_attention", "flash_dense_attention"):
         check(launches[name] > base_launches[name],
@@ -1201,6 +1426,60 @@ def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
           "the last two steps): " + "; ".join(
               f"{k} {base[k]:.3f} -> {cap[k]:.3f}" + (" GiB" if k == "peak_gib" else " s")
               for k in ("peak_gib", "step_s", "forward", "backward", "optimizer")))
+    return launches
+
+
+LONG_SOURCE = 16384  # the LED's max_src_len (models/config.py)
+
+
+def phase_long_slice(standing: tuple[dict, dict]) -> dict:
+    """The train slice on long sources: ``data.max_length`` 16384, the
+    rest of the config as `train_slice_config`. The sources are padded to
+    16384 tokens, so every kernel does the full-length work: K2/K3 over
+    16384 rows per LED encoder layer, K6/K7 over 16384 keys per decoder
+    layer's cross-attention (once per layer and step each), K4/K5 only for
+    the decoder's causal self-attention. When no source of its steps is cut
+    at the standing slice's 2048 tokens, both slices see the same tokens,
+    and its losses must equal the standing slice's to rtol 1e-4 (bf16
+    roundings differ: K7 recomputes p from one LSE, K5 from m and l)."""
+    import numpy as np
+
+    from retrieval_augmented_mds_tpu_torch import cli
+
+    cfg = train_slice_config()
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, max_length=LONG_SOURCE),
+        logging=dataclasses.replace(cfg.logging, run_name="led_base_long"))
+    check(cfg.model.led.max_src_len == LONG_SOURCE, "the LED's max_src_len is not 16384")
+    dm, _ = cli.build_data(cfg)
+    batches = dm.batches(cfg.data.batch_size, seed=cfg.seed, split="train")
+    lengths = [int(n) for _, bt in zip(range(TRAIN_STEPS), batches)
+               for n in bt["attention_mask"].sum(1)]
+    print(f"[long] sources padded to {LONG_SOURCE} tokens; valid source tokens of the "
+          f"{len(lengths)} examples of the {TRAIN_STEPS} steps: mean "
+          f"{np.mean(lengths):.1f}, min {min(lengths)}, max {max(lengths)} (the rest is "
+          f"padding, which every kernel computes)")
+    launches, summary = _train_run(cfg, "long",
+                                   off_path=("adam8bit_superleaf_update", *NO_PATH))
+    per_step = cfg.model.led.dec_layers * TRAIN_STEPS
+    for name in (*LONG_ONLY, "flash_dense_attention", "flash_dense_backward"):
+        check(launches[name] == per_step,
+              f"long: {name} launched {launches[name]} times, not {per_step} (one per "
+              f"decoder layer and step)")
+    print(f"[long] K6/K7 launched {per_step} times each (the decoder's cross-attention, "
+          f"{cfg.model.led.dec_layers} layers x {TRAIN_STEPS} steps), K4/K5 {per_step} "
+          f"times each (its causal self-attention only)")
+    base = standing[1]
+    if max(lengths) <= train_slice_config().data.max_length:
+        ref, got = np.asarray(base["losses"]), np.asarray(summary["losses"])
+        rel = float(np.abs(got - ref).max() / np.abs(ref).min())
+        check(rel <= 1e-4, f"long: losses {got.tolist()} differ from the standing slice's "
+                           f"{ref.tolist()} on the same tokens (max rel {rel:.3e})")
+        print(f"[long] the same tokens as the standing train slice (no source passes its "
+              f"2048): losses equal to rtol 1e-4, max rel diff {rel:.3e}: PASS")
+    print("[long] against the standing train slice of this call: " + "; ".join(
+        f"{k} {base[k]:.3f} -> {summary[k]:.3f}" + (" GiB" if k == "peak_gib" else " s")
+        for k in ("peak_gib", "step_s", "forward", "backward", "optimizer")))
     return launches
 
 
@@ -1223,6 +1502,8 @@ def main() -> int:
         measured = {"mips_topk": phase_k1(), "flash_sliding_attention": phase_k2(),
                     "flash_sliding_backward": phase_k3()}
         measured["flash_dense_attention"], measured["flash_dense_backward"] = phase_k45()
+        measured["flash_dense_blocked"], measured["flash_dense_blocked_backward"] = phase_k67()
+        measured["mips_chunkmax"], k10_launches = phase_k10()
         measured["ivf_probe_topk"] = phase_k8()
         measured["adam8bit_superleaf_update"] = phase_k9()
         phase_small_reference()
@@ -1232,6 +1513,7 @@ def main() -> int:
         served = phase_slice()
         standing = phase_train_slice()
         capacity = phase_capacity_slice(standing)
+        long = phase_long_slice(standing)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1244,13 +1526,36 @@ def main() -> int:
         ("flash_dense_backward", "flash_dense_bwd.cu", "ops/flash_dense.py:88"),
         ("ivf_probe_topk", "ivf_probe_topk.cu", "index/ivf_serving.py:36"),
         ("adam8bit_superleaf_update", "adam8bit_update.cu", "ops/adam8bit_update.py:68"),
+        ("flash_dense_blocked", "flash_dense_fwd.cu", "ops/flash_dense.py:259"),
+        ("flash_dense_blocked_backward", "flash_dense_bwd.cu",
+         "ops/flash_dense.py:300 (and :371, :410)"),
+        ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
+    # launches on the paths; K10's paths launch it 0 times (checked), so its
+    # count is that of its own phase
+    launches = {name: served[name] + standing[0][name] + capacity[name] + long[name]
+                for name, _, _ in sources}
+    launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",
                 "replaces": f"retrieval_augmented_mds_tpu/{tpu}",
-                "launches": served[name] + standing[0][name] + capacity[name],
-                **measured[name]}
+                "launches": launches[name], **measured[name]}
                for name, src, tpu in sources]
+    # why a row has no library call, or what its yardstick leaves out
+    notes = {
+        "mips_topk": "library_ms null: no single PyTorch call gives the distinct-value "
+                     "top-k of masked scores (torch.topk needs the [B, N] scores first)",
+        "ivf_probe_topk": "library_ms null: no PyTorch call searches the probed clusters",
+        "adam8bit_superleaf_update": "library_ms null: no PyTorch call computes blockwise "
+                                     "8-bit AdamW (torch._fused_adamw_ keeps f32/bf16 moments)",
+        "mips_chunkmax": "no path calls mips_topk_blocked (as in the JAX package): launches "
+                         "are its phase's one mips_topk_blocked call, 0 on every slice; "
+                         "library_ms: torch.mm of the same f32 scores, without the masks "
+                         "and the chunk maxima",
+    }
+    for row in kernels:
+        if row["name"] in notes:
+            row["note"] = notes[row["name"]]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

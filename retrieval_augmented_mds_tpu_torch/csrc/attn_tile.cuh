@@ -24,6 +24,8 @@ constexpr int kWarps = 4;
 constexpr int kBK = 32;        // keys (or queries) per staged tile: one per lane
 // a row whose max is within this of -1e9 saw no unmasked column
 constexpr float kDegenerate = kMaskVal + 1000.f;
+// the same for a row's log-sum-exp: -1e9 + log S rounds to -1e9 in f32
+constexpr float kLseDegenerate = -1e8f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -170,7 +172,8 @@ __device__ void add_masked_columns(Rows<DH>& st, float count, const float* vsum)
   }
 }
 
-// out = acc / l for the warp's rows (those below t_len), with m and l.
+// out = acc / l for the warp's rows (those below t_len), with m and l; with
+// l == nullptr, m receives the log-sum-exp m + log l instead.
 template <int DH, typename T>
 __device__ void write_rows(const Rows<DH>& st, T* __restrict__ out, float* __restrict__ m,
                            float* __restrict__ l, int row0, int t_len) {
@@ -182,7 +185,9 @@ __device__ void write_rows(const Rows<DH>& st, T* __restrict__ out, float* __res
 #pragma unroll
     for (int dd = 0; dd < Tile<DH>::DV; ++dd)
       store(&out[(long)qp * DH + lane + 32 * dd], st.acc[r][dd] / st.l[r]);
-    if (lane == 0) {
+    if (lane == 0 && l == nullptr) {
+      m[qp] = st.m[r] + logf(st.l[r]);
+    } else if (lane == 0) {
       m[qp] = st.m[r];
       l[qp] = st.l[r];
     }
@@ -229,16 +234,40 @@ struct RowStats {
   float m[Tile<DH>::R], l[Tile<DH>::R], delta[Tile<DH>::R];
 };
 
-template <int DH>
-__device__ void load_stats(RowStats<DH>& rs, const float* __restrict__ m,
-                           const float* __restrict__ l, const float* __restrict__ delta,
+// How a backward reads the forward's statistics of a query row, as the pair
+// (m, l) of p = exp(s - m) / l. MLStats: the row max and the denominator
+// (K2, K4 keep them apart).
+struct MLStats {
+  const float* m;
+  const float* l;
+  __device__ MLStats shifted(long o) const { return {m + o, l + o}; }
+  __device__ float2 operator[](int i) const { return make_float2(m[i], l[i]); }
+};
+
+// LseStats: one log-sum-exp per row (K6). A row with an open key reads
+// (lse, 1). A fully masked row has every logit at exactly -1e9, so its
+// lse = -1e9 + log S rounds to -1e9 and exp(s - lse) would give each key
+// 1, not 1/S; it reads the closed form (-1e9, S): uniform over the S keys.
+struct LseStats {
+  const float* lse;
+  float s_len;
+  __device__ LseStats shifted(long o) const { return {lse + o, s_len}; }
+  __device__ float2 operator[](int i) const {
+    const float x = lse[i];
+    return x <= kLseDegenerate ? make_float2(kMaskVal, s_len) : make_float2(x, 1.f);
+  }
+};
+
+template <int DH, typename Stats>
+__device__ void load_stats(RowStats<DH>& rs, const Stats& st, const float* __restrict__ delta,
                            int row0, int t_len) {
 #pragma unroll
   for (int r = 0; r < Tile<DH>::R; ++r) {
     const int qp = row0 + r;
     const bool ok = qp < t_len;
-    rs.m[r] = ok ? m[qp] : 0.f;
-    rs.l[r] = ok ? l[qp] : 1.f;
+    const float2 ml = ok ? st[qp] : make_float2(0.f, 1.f);
+    rs.m[r] = ml.x;
+    rs.l[r] = ml.y;
     rs.delta[r] = ok ? delta[qp] : 0.f;
   }
 }
@@ -298,18 +327,19 @@ struct DkvSmem {
 };
 
 // Stage the query tile pos0.. (32 rows, valid below t_len) and its stats.
-template <int DH, typename T>
+template <int DH, typename T, typename Stats>
 __device__ void stage_queries(DkvSmem<DH>& sm, const T* __restrict__ q,
-                              const T* __restrict__ dout, const float* __restrict__ m,
-                              const float* __restrict__ l, const float* __restrict__ delta,
-                              int pos0, int t_len, float scale) {
+                              const T* __restrict__ dout, const Stats& st,
+                              const float* __restrict__ delta, int pos0, int t_len,
+                              float scale) {
   stage_t<DH>(sm.q, q, pos0, t_len, scale);
   stage_t<DH>(sm.dout, dout, pos0, t_len, 1.f);
   for (int j = threadIdx.x; j < kBK; j += kThreads) {
     const int pos = pos0 + j;
     const bool ok = pos < t_len;
-    sm.m[j] = ok ? m[pos] : 0.f;
-    sm.l[j] = ok ? l[pos] : 1.f;
+    const float2 ml = ok ? st[pos] : make_float2(0.f, 1.f);
+    sm.m[j] = ml.x;
+    sm.l[j] = ml.y;
     sm.delta[j] = ok ? delta[pos] : 0.f;
   }
 }

@@ -1,20 +1,29 @@
 // Dense attention rows, forward, for sm_90a (the decoder's self- and
-// cross-attention at training time).
+// cross-attention at training time). Two entry points share one kernel:
 //
-// Replaces the TPU kernel `_fwd_kernel` of retrieval_augmented_mds_tpu/ops/
-// flash_dense.py (called from `flash_dense_attention`), and computes what
-// `_blocked_fwd_kernel` (`flash_dense_blocked`) computes for S > 4096 too:
-// for every query row i of every (batch, head), one softmax over the S keys,
-// scored q.k/sqrt(dh) + key_bias[k] (0 or -1e9: source padding), with keys
-// k > i set to exactly -1e9 when causal; out = softmax . v, plus the row max
-// m and the denominator l = sum exp(s - m), kept separate for the backward
-// (folded into one LSE, a fully masked row's m = -1e9 would swallow log l).
+// K4, `dense_fwd_launch`, replaces the TPU kernel `_fwd_kernel` of
+// retrieval_augmented_mds_tpu/ops/flash_dense.py (`flash_dense_attention`,
+// S <= 4096): for every query row i of every (batch, head), one softmax over
+// the S keys, scored q.k/sqrt(dh) + key_bias[k] (0 or -1e9: source padding),
+// with keys k > i set to exactly -1e9 when causal; out = softmax . v, plus
+// the row max m and the denominator l = sum exp(s - m), kept separate for
+// the backward.
 //
-// What bounds it on an H100: the TPU kernel holds a whole [wq, S] score row
-// in VMEM; shared memory cannot at S = 2048 in f32, so this is an online
-// softmax over 32-key tiles and S has no cap. Per row it does 4*S*dh flops
-// on the f32 CUDA cores (no wgmma yet) and reads K/V once per CTA, so it is
-// bound by FMA and shared-memory issue, not HBM.
+// K6, `dense_blocked_fwd_launch`, replaces `_blocked_fwd_kernel`
+// (`flash_dense_blocked`, S > 4096: the decoder's cross-attention over a
+// source of up to 16384 tokens): the same rows, with one log-sum-exp
+// lse = m + log l per row in place of (m, l), the JAX package's residual.
+// On a fully masked row lse rounds to -1e9 (log S vanishes under the
+// 64-unit ULP of 1e9); the backward (flash_dense_bwd.cu) detects that row
+// and takes it as uniform over the S keys.
+//
+// What bounds it on an H100: the TPU's single-pass kernel holds a whole
+// [wq, S] score row in VMEM and its blocked kernel streams 512-key blocks
+// through a sequential grid axis; here one CTA walks all key tiles itself,
+// an online softmax over 32-key tiles, so S has no cap and the LSE comes
+// out of the CTA's own loop. Per row it does 4*S*dh flops on the f32 CUDA
+// cores (no wgmma yet) and reads K/V once per CTA, so it is bound by FMA
+// and shared-memory issue, not HBM.
 //
 // Design: one CTA (4 warps) per (batch*head, tile of BQ query rows); the
 // tile routines are those of the sliding-window kernel (attn_tile.cuh).
@@ -30,7 +39,8 @@ namespace {
 
 using namespace attn;
 
-template <int DH, typename T>
+// kLse: write lse = m + log l into m_out (K6) instead of m and l (K4)
+template <int DH, typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_bias,
@@ -79,52 +89,72 @@ dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       add_masked_columns<DH>(st, static_cast<float>(S_len - hi), sm.v[0]);
     }
   }
-  write_rows<DH>(st, out + qbase, m_out + (long)bh * T_len, l_out + (long)bh * T_len,
-                 q0 + r0, T_len);
+  write_rows<DH>(st, out + qbase, m_out + (long)bh * T_len,
+                 kLse ? nullptr : l_out + (long)bh * T_len, q0 + r0, T_len);
 }
 
-template <int DH, typename T>
+template <int DH, typename T, bool kLse>
 int launch(const void* q, const void* k, const void* v, const void* kb, void* out,
            void* m, void* l, int BH, int nh, int T_len, int S_len, int causal,
            float scale, cudaStream_t s) {
   const dim3 grid((T_len + Tile<DH>::BQ - 1) / Tile<DH>::BQ, BH);
-  dense_fwd_kernel<DH, T><<<grid, kThreads, 0, s>>>(
+  dense_fwd_kernel<DH, T, kLse><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(kb), static_cast<T*>(out), static_cast<float*>(m),
       static_cast<float*>(l), nh, T_len, S_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kLse>
 int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
               void* out, void* m, void* l, int BH, int nh, int T_len, int S_len,
               int causal, float scale, cudaStream_t s) {
   switch (dh) {
     case 32:
-      return launch<32, T>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s);
+      return launch<32, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
+                                 scale, s);
     case 64:
-      return launch<64, T>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s);
+      return launch<64, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
+                                 scale, s);
     case 128:
-      return launch<128, T>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s);
+      return launch<128, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
+                                  scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool kLse>
+int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
+                 const void* kb, void* out, void* m, void* l, int BH, int nh, int T_len,
+                 int S_len, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dh<float, kLse>(dh, q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
+                                  scale, s);
+  if (dtype == 1)
+    return launch_dh<__nv_bfloat16, kLse>(dh, q, k, v, kb, out, m, l, BH, nh, T_len, S_len,
+                                          causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. q/out [B*nh, T, dh]; k/v [B*nh, S, dh];
+// K4. dtype: 0 = f32, 1 = bf16. q/out [B*nh, T, dh]; k/v [B*nh, S, dh];
 // key_bias [B, S] f32; m/l [B*nh, T] f32. Any T, S >= 1.
 extern "C" int dense_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* key_bias, void* out, void* m, void* l,
                                 int dtype, int B, int nh, int T_len, int S_len, int dh,
                                 int causal, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float>(dh, q, k, v, key_bias, out, m, l, B * nh, nh, T_len, S_len,
-                            causal, scale, s);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, key_bias, out, m, l, B * nh, nh, T_len,
-                                    S_len, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<false>(dtype, dh, q, k, v, key_bias, out, m, l, B * nh, nh, T_len,
+                             S_len, causal, scale, stream);
+}
+
+// K6. As K4, with lse [B*nh, T] f32 in place of m and l.
+extern "C" int dense_blocked_fwd_launch(const void* q, const void* k, const void* v,
+                                        const void* key_bias, void* out, void* lse, int dtype,
+                                        int B, int nh, int T_len, int S_len, int dh,
+                                        int causal, float scale, void* stream) {
+  return launch_dtype<true>(dtype, dh, q, k, v, key_bias, out, lse, nullptr, B * nh, nh,
+                            T_len, S_len, causal, scale, stream);
 }

@@ -58,7 +58,7 @@ sliding_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   stage_block<DH>(sm.q, q + base, q0, T_len, scale);
   stage_block<DH>(sm.dout, dout + base, q0, T_len, 1.f);
   RowStats<DH> rs;
-  load_stats<DH>(rs, m + (long)bh * T_len, l + (long)bh * T_len,
+  load_stats<DH>(rs, MLStats{m + (long)bh * T_len, l + (long)bh * T_len},
                  delta + (long)bh * T_len, q0 + r0, T_len);
   float acc[R][DV] = {};
 
@@ -130,7 +130,7 @@ sliding_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       if (!__syncthreads_or(deg)) continue;
     }
     __syncthreads();
-    stage_queries<DH>(sm, q + base, dout + base, mr, l + (long)bh * T_len,
+    stage_queries<DH>(sm, q + base, dout + base, MLStats{mr, l + (long)bh * T_len},
                       delta + (long)bh * T_len, qt, T_len, scale);
     __syncthreads();
     const int row = qt + lane;
@@ -171,8 +171,9 @@ sliding_dkvg_kernel(const T* __restrict__ q, const T* __restrict__ kg,
   float gk[R][DV] = {}, gv[R][DV] = {};
   for (int qt = 0; qt < T_len; qt += kBK) {
     __syncthreads();
-    stage_queries<DH>(sm, q + base, dout + base, m + (long)bh * T_len,
-                      l + (long)bh * T_len, delta + (long)bh * T_len, qt, T_len, scale);
+    stage_queries<DH>(sm, q + base, dout + base,
+                      MLStats{m + (long)bh * T_len, l + (long)bh * T_len},
+                      delta + (long)bh * T_len, qt, T_len, scale);
     __syncthreads();
     const auto mask = [&](int r, float s) { return Logit{s + gbias[r], true}; };
     dkv_tile<DH>(sm, r0, true, mask, gk, gv);

@@ -7,13 +7,29 @@ q·k/sqrt(dh) + key_bias (0 or -1e9), with keys after the row set to -1e9
 when causal. A fully masked row (an all-padding source) comes out uniform
 over its S keys, as the reference composite `_dense_xla` makes it.
 
-`dense_rows` is the differentiable entry point (`DenseRows`): its
+`dense_rows` is the differentiable entry point (`DenseRows`). Up to
+``MAX_S`` = 4096 keys, as the JAX package's single-pass kernels, its
 forward saves the row max ``m`` and denominator ``l`` ([B*nh, 1, T] f32)
 and its backward recomputes the probabilities from them with
-delta = rowsum(dO * out). Routing is by device: CPU tensors take
-`dense_rows_plain` and `dense_backward_plain`; CUDA tensors the kernels
-in ``csrc/flash_dense_fwd.cu`` (K4) and ``csrc/flash_dense_bwd.cu`` (K5),
-which take any T and S; no fallback. ``key_bias`` gets a zero gradient.
+delta = rowsum(dO * out): `flash_dense_attention` (K4) and
+`flash_dense_backward` (K5). Above it, as the JAX package's blocked
+kernels, the forward saves ``out`` and one log-sum-exp per row, and the
+backward starts from them: `flash_dense_blocked` (K6) and
+`flash_dense_blocked_backward` (K7). The only such call on a path is the
+decoder's cross-attention over a source longer than 4096 tokens (the LED
+takes 16384).
+
+A fully masked row's LSE rounds to -1e9 in f32 (log S vanishes under the
+ULP of 1e9), so exp(s - lse) would give each of its keys 1, not 1/S: the
+JAX package's blocked backward does so. The port's blocked backward reads
+such a row (lse <= -1e8) as the uniform row the composite's VJP gives.
+
+Routing is by device: CPU tensors take the plain versions
+(`dense_rows_plain`/`dense_backward_plain`,
+`dense_rows_blocked_plain`/`dense_blocked_backward_plain`); CUDA tensors
+the kernels in ``csrc/flash_dense_fwd.cu`` (K4, K6) and
+``csrc/flash_dense_bwd.cu`` (K5, K7), which take any T and S; no
+fallback. ``key_bias`` gets a zero gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +39,11 @@ import ctypes
 import torch
 
 from .flash_sliding import _DTYPE_CODE, NEG_INF, _scale, device_route, row_delta
+
+# above this many keys the JAX package takes its blocked kernels
+MAX_S = 4096
+# a row whose LSE is at most this saw only -1e9 logits (csrc/attn_tile.cuh)
+LSE_DEGENERATE = -1e8
 
 
 def _logits(q, k, key_bias, causal):
@@ -70,6 +91,31 @@ def dense_backward_plain(q, k, v, key_bias, do, m, l, delta, causal: bool):
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float() * scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def dense_rows_blocked_plain(q, k, v, key_bias, causal: bool):
+    """Plain version of the long-S forward: (out, lse [B*nh, 1, T] f32),
+    lse = m + log l as the JAX package's `flash_dense_blocked` emits it."""
+    out, m, l = dense_rows_plain(q, k, v, key_bias, causal, return_stats=True)
+    return out, m + torch.log(l)
+
+
+def _stats_from_lse(lse, s: int):
+    """The (m, l) with exp(logit - m) / l = exp(logit - lse): (lse, 1) on a
+    row with an open key; (-1e9, S) on a fully masked row, whose S logits
+    are all exactly -1e9 (the uniform row; csrc/attn_tile.cuh `LseStats`)."""
+    degenerate = lse <= LSE_DEGENERATE
+    m = torch.where(degenerate, torch.full_like(lse, NEG_INF), lse)
+    l = torch.where(degenerate, torch.full_like(lse, float(s)), torch.ones_like(lse))
+    return m, l
+
+
+def dense_blocked_backward_plain(q, k, v, key_bias, out, lse, g, causal: bool):
+    """Plain version of the long-S backward from the forward's out and lse,
+    with delta = rowsum(g * out) as the JAX package computes it:
+    (dq, dk, dv) in the inputs' dtypes."""
+    m, l = _stats_from_lse(lse, k.shape[2])
+    return dense_backward_plain(q, k, v, key_bias, g, m, l, row_delta(g, out), causal)
 
 
 def _check_inputs(name, q, k, v, key_bias):
@@ -150,27 +196,104 @@ def flash_dense_backward(q, k, v, key_bias, do, m, l, delta, *, causal: bool):
 flash_dense_backward.launches = 0
 
 
+def flash_dense_blocked(q, k, v, key_bias, *, causal: bool):
+    """Kernel K6: (out, lse), as `dense_rows_blocked_plain`."""
+    from .cuda_build import check, load
+
+    _check_inputs("flash_dense_blocked", q, k, v, key_bias)
+    b, nh, t, dh = q.shape
+    s = k.shape[2]
+    dev = q.device
+    q, k, v, key_bias = (x.contiguous() for x in (q, k, v, key_bias))
+    out = torch.empty_like(q)
+    lse = torch.empty((b * nh, 1, t), dtype=torch.float32, device=dev)
+    fn = load("flash_dense_fwd").dense_blocked_fwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, nh, t, s, dh, int(causal), _scale(dh),
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "flash_dense_blocked")
+    flash_dense_blocked.launches += 1
+    return out, lse
+
+
+flash_dense_blocked.launches = 0
+
+
+def flash_dense_blocked_backward(q, k, v, key_bias, out, lse, g, *, causal: bool):
+    """Kernel K7: (dq, dk, dv), as `dense_blocked_backward_plain`; delta =
+    rowsum(g * out) is computed here, as the JAX package does outside its
+    kernels."""
+    from .cuda_build import check, load
+
+    _check_inputs("flash_dense_blocked_backward", q, k, v, key_bias)
+    b, nh, t, dh = q.shape
+    s = k.shape[2]
+    dev = q.device
+    for nm, x in (("out", out), ("g", g)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != dev:
+            raise ValueError(f"{nm} must be {q.dtype} {tuple(q.shape)} on {dev}")
+    if lse.shape != (b * nh, 1, t) or lse.dtype != torch.float32 or lse.device != dev:
+        raise ValueError(f"lse must be f32 [{b * nh}, 1, {t}] on {dev}")
+    delta = row_delta(g, out)
+    q, k, v, key_bias, g, lse = (x.contiguous() for x in (q, k, v, key_bias, g, lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = load("flash_dense_bwd").dense_blocked_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _DTYPE_CODE[q.dtype], b, nh, t, s, dh, int(causal), _scale(dh),
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "flash_dense_blocked_backward")
+    flash_dense_blocked_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_dense_blocked_backward.launches = 0
+
+
 class DenseRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_bias, causal):
+        ctx.causal = causal
+        ctx.blocked = k.shape[2] > MAX_S
+        if ctx.blocked:  # the backward starts from out and one LSE per row
+            if device_route(q):
+                out, lse = flash_dense_blocked(q, k, v, key_bias, causal=causal)
+            else:
+                out, lse = dense_rows_blocked_plain(q, k, v, key_bias, causal)
+            ctx.save_for_backward(q, k, v, key_bias, out, lse)
+            return out
         if device_route(q):
             out, m, l = flash_dense_attention(q, k, v, key_bias, causal=causal)
         else:
             out, m, l = dense_rows_plain(q, k, v, key_bias, causal, return_stats=True)
-        ctx.causal = causal
         ctx.save_for_backward(q, k, v, key_bias, out, m, l)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_bias, out, m, l = ctx.saved_tensors
-        delta = row_delta(do, out)
-        if device_route(q):
-            dq, dk, dv = flash_dense_backward(q, k, v, key_bias, do, m, l, delta,
-                                              causal=ctx.causal)
+        if ctx.blocked:
+            q, k, v, key_bias, out, lse = ctx.saved_tensors
+            if device_route(q):
+                dq, dk, dv = flash_dense_blocked_backward(q, k, v, key_bias, out, lse, do,
+                                                          causal=ctx.causal)
+            else:
+                dq, dk, dv = dense_blocked_backward_plain(q, k, v, key_bias, out, lse, do,
+                                                          ctx.causal)
         else:
-            dq, dk, dv = dense_backward_plain(q, k, v, key_bias, do, m, l, delta,
-                                              ctx.causal)
+            q, k, v, key_bias, out, m, l = ctx.saved_tensors
+            delta = row_delta(do, out)
+            if device_route(q):
+                dq, dk, dv = flash_dense_backward(q, k, v, key_bias, do, m, l, delta,
+                                                  causal=ctx.causal)
+            else:
+                dq, dk, dv = dense_backward_plain(q, k, v, key_bias, do, m, l, delta,
+                                                  ctx.causal)
         # key_bias is a padding mask: zero gradient on every path
         return dq, dk, dv, torch.zeros_like(key_bias), None
 

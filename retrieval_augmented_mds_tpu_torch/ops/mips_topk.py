@@ -9,6 +9,13 @@ one hit). Leftover slots are (-3e38, -1).
 
 Routing is by device: a CPU tensor goes to `mips_topk_plain`, a CUDA
 tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback.
+
+`mips_topk_blocked` is the JAX package's two-phase exact top-k, which no
+path calls (there as here): phase 1 writes every score and the maximum
+of every 128-column chunk (`mips_chunkmax`, kernel K10 in
+``csrc/mips_chunkmax.cu``, or `mips_chunkmax_plain` on the CPU); phase 2,
+plain PyTorch on both devices, keeps the top-k chunks and selects among
+their columns. Unlike `mips_topk` it does not collapse equal scores.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 
 NEG_INF = float(-3.0e38)
 MAX_K = 128
+CHUNK = 128  # columns per chunk maximum of `mips_topk_blocked`
 _ROW_TILE = 256  # csrc/mips_topk.cu kRT
 _QUERY_GROUP = 16  # csrc/mips_topk.cu kQB
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -165,3 +173,113 @@ def quantize_corpus_sq8(corpus: torch.Tensor):
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+# ---------------------------------------------------------------------------
+# the two-phase (chunk-max) exact top-k
+# ---------------------------------------------------------------------------
+
+def _chunked(n: int) -> int:
+    """N rounded up to whole chunks."""
+    return -(-n // CHUNK) * CHUNK
+
+
+def mips_chunkmax_plain(
+    queries: torch.Tensor,  # [B, D]
+    corpus: torch.Tensor,  # [N, D] f32 / bf16
+    row_bias: torch.Tensor | None = None,  # [N] f32
+    ignore: torch.Tensor | None = None,  # [B, I] int32, -1 = none
+):
+    """Plain version of phase 1: (scores [B, N_pad], chunk maxima
+    [B, N_pad / 128]) in f32, N_pad = N rounded up to 128; columns >= N and
+    the ignored ids are -3e38."""
+    b = queries.shape[0]
+    n = corpus.shape[0]
+    scores = torch.full((b, _chunked(n)), NEG_INF, dtype=torch.float32,
+                        device=queries.device)
+    s = queries.to(corpus.dtype).float() @ corpus.float().T
+    if row_bias is not None:
+        s = s + row_bias.float()[None, :]
+    scores[:, :n] = s
+    if ignore is not None:
+        ign = ignore.long()
+        hit = (ign >= 0) & (ign < n)
+        rows = torch.arange(b, device=ign.device)[:, None].expand_as(ign)
+        scores[rows[hit], ign[hit]] = NEG_INF
+    return scores, scores.reshape(b, -1, CHUNK).amax(dim=-1)
+
+
+def mips_chunkmax(queries, corpus, row_bias=None, ignore=None):
+    """Kernel K10: (scores, chunk maxima), as `mips_chunkmax_plain`."""
+    from .cuda_build import check, load
+
+    if corpus.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"corpus dtype {corpus.dtype} is not f32/bf16")
+    b, d = queries.shape
+    n, d2 = corpus.shape
+    dev = queries.device
+    if dev.type != "cuda" or corpus.device != dev:
+        raise ValueError(f"mips_chunkmax needs CUDA tensors on one device, got {dev}")
+    if d != d2:
+        raise ValueError(f"query dim {d} != corpus dim {d2}")
+    if not corpus.is_contiguous():
+        raise ValueError("corpus must be contiguous")
+    if row_bias is not None and (row_bias.dtype != torch.float32 or row_bias.shape != (n,)
+                                 or row_bias.device != dev or not row_bias.is_contiguous()):
+        raise ValueError(f"row_bias must be a contiguous f32 [{n}] on {dev}")
+    if ignore is not None and (ignore.dtype != torch.int32 or ignore.dim() != 2
+                               or ignore.shape[0] != b or ignore.device != dev
+                               or not ignore.is_contiguous()):
+        raise ValueError(f"ignore must be a contiguous int32 [{b}, I] on {dev}")
+    n_pad = _chunked(n)
+    q = queries.to(corpus.dtype).float().contiguous()
+    scores = torch.empty((b, n_pad), dtype=torch.float32, device=dev)
+    cmax = torch.empty((b, n_pad // CHUNK), dtype=torch.float32, device=dev)
+    fn = load("mips_chunkmax").mips_chunkmax_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(q.data_ptr(), corpus.data_ptr(), 0 if corpus.dtype == torch.float32 else 1,
+             ptr(row_bias), ptr(ignore), 0 if ignore is None else ignore.shape[1], b, n, d,
+             n_pad, scores.data_ptr(), cmax.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "mips_chunkmax")
+    mips_chunkmax.launches += 1
+    return scores, cmax
+
+
+mips_chunkmax.launches = 0
+
+
+def chunk_topk(scores: torch.Tensor, cmax: torch.Tensor, k: int):
+    """Phase 2: the top-k chunks by their maxima, then the top-k of their
+    columns → (vals f32 [B, k], ids int32 [B, k]). Exact: at most k chunks
+    hold a top-k score. Equal scores stay separate hits and ties go to the
+    lowest column (stable descending sorts over columns in index order);
+    slots of -3e38 get id -1."""
+    b, n_chunks = cmax.shape
+    kc = min(k, n_chunks)
+    if kc * CHUNK < k:
+        raise ValueError(f"k={k} exceeds the {kc * CHUNK} columns of the corpus")
+    top = torch.sort(cmax, dim=1, descending=True, stable=True).indices[:, :kc]
+    chunks = torch.sort(top, dim=1).values  # columns in index order
+    cols = (chunks[:, :, None] * CHUNK
+            + torch.arange(CHUNK, device=cmax.device)).reshape(b, kc * CHUNK)
+    vals, pos = torch.sort(torch.gather(scores, 1, cols), dim=1, descending=True,
+                           stable=True)
+    vals = vals[:, :k]
+    ids = torch.gather(cols, 1, pos[:, :k]).to(torch.int32)
+    return vals, torch.where(vals <= NEG_INF / 2, torch.full_like(ids, -1), ids)
+
+
+def mips_topk_blocked(queries, corpus, k: int = 10, row_bias=None, ignore=None):
+    """Exact top-k by the two-phase algorithm → (vals f32 [B, k], ids int32
+    [B, k]), sorted by descending score. Phase 1 takes `mips_chunkmax_plain`
+    for CPU tensors and the kernel (``mips_chunkmax.launches``) for CUDA
+    tensors; phase 2 is `chunk_topk` on both."""
+    if queries.device.type == "cpu":
+        scores, cmax = mips_chunkmax_plain(queries, corpus, row_bias, ignore)
+    else:
+        scores, cmax = mips_chunkmax(queries, corpus, row_bias, ignore)
+    return chunk_topk(scores, cmax, k)

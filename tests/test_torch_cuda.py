@@ -12,11 +12,16 @@ import pytest
 import torch
 
 from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
+    MAX_S,
     dense_backward_plain,
+    dense_blocked_backward_plain,
     dense_rows,
+    dense_rows_blocked_plain,
     dense_rows_plain,
     flash_dense_attention,
     flash_dense_backward,
+    flash_dense_blocked,
+    flash_dense_blocked_backward,
 )
 from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
     flash_sliding_attention,
@@ -34,7 +39,10 @@ from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
     ivf_probe_topk_plain,
 )
 from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
+    mips_chunkmax,
+    mips_chunkmax_plain,
     mips_topk,
+    mips_topk_blocked,
     mips_topk_plain,
     quantize_corpus_sq8,
 )
@@ -216,10 +224,11 @@ def test_sliding_kernel_rejects_untiled_window(gen):
 
 
 def _close(got, ref, tol):
-    """rtol = tol, atol = tol x the reference's largest magnitude (at least
-    1): f32 summation order, or one bf16 rounding of the result."""
+    """rtol = tol, atol = tol x each reference's own largest magnitude (no
+    floor: gradients are far below 1): f32 summation order, or one bf16
+    rounding of the result."""
     for a, r in zip(got, ref):
-        atol = tol * max(1.0, r.float().abs().max().item())
+        atol = tol * r.float().abs().max().item()
         torch.testing.assert_close(a.float(), r.float(), rtol=tol, atol=atol)
 
 
@@ -302,6 +311,98 @@ def test_autograd_functions_launch_the_kernels(gen):
     _close(cuda_grads, grads, 1e-4)
     assert (flash_dense_attention.launches, flash_dense_backward.launches) == (1, 1)
     assert (flash_sliding_attention.launches, flash_sliding_backward.launches) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# K6/K7: dense attention rows over long sources, with one LSE per row
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,t,s", [(False, 77, 300), (False, 32, 4500),
+                                        (True, 100, 100), (True, 64, 200)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_blocked_dense_kernels_match_plain(gen, causal, t, s, dh, dtype, tol):
+    """K6 (out, lse) and K7 (dq, dk, dv from the same out, lse, g) against
+    the plain versions, at ragged T and S (S not a multiple of the 32-key
+    tile). Batch 0 is an all-padding source: its LSE rounds to -1e9 and
+    K7 still gives the uniform row's gradients (the plain version's, which
+    the CPU tests hold against the composite's VJP)."""
+    q, k, v, kb = _dense_inputs(gen, getattr(torch, dtype), t, s, dh)
+    out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
+    ref, ref_lse = dense_rows_blocked_plain(q, k, v, kb, causal)
+    _close([out], [ref], tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-3)
+    if not causal:
+        assert bool((lse[: q.shape[1]] <= -1e8).all())  # batch 0: fully masked
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = flash_dense_blocked_backward(q, k, v, kb, out, lse, g, causal=causal)
+    want = dense_blocked_backward_plain(q, k, v, kb, out, lse, g, causal)
+    assert [x.dtype for x in got] == [x.dtype for x in want]
+    _close(got, want, tol)
+    # the all-padding batch's dv: p = 1/S on every key, so each key gets
+    # the mean over the rows of g (causal rows see it too: uniform over S)
+    if not causal:
+        dv0 = g[0].float().sum(1, keepdim=True).expand(-1, s, -1) / s
+        _close([got[2][0]], [dv0], tol)
+
+
+def test_dense_rows_routes_long_sources_to_k6_k7(gen):
+    """dense_rows on CUDA tensors at S = MAX_S + 1 launches K6 and K7 (not
+    K4/K5), with gradients equal to the CPU path's."""
+    q, k, v, kb = _dense_inputs(gen, torch.float32, 40, MAX_S + 1, 32, nh=2)
+    counters = (flash_dense_attention, flash_dense_backward, flash_dense_blocked,
+                flash_dense_blocked_backward)
+    for c in counters:
+        c.launches = 0
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        x = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        (dense_rows(*x, kb.to(dev), False) ** 2).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in x]
+    _close(grads["cuda"], grads["cpu"], 1e-4)
+    assert [c.launches for c in counters] == [0, 0, 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# K10: phase 1 of the two-phase MIPS top-k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,b", [(4096, 64, 8), (777, 50, 3), (20000, 768, 40)])
+def test_chunkmax_kernel_matches_plain(gen, dtype, n, d, b):
+    """K10's scores and chunk maxima against `mips_chunkmax_plain`
+    (ragged N and D, bias, ignored ids), within 1e-4 x max|score| (f32 sums
+    in another order); columns >= N and the ignored ids exactly -3e38."""
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    e = torch.randn((n, d), generator=gen, device="cuda").to(getattr(torch, dtype))
+    rb = torch.randn(n, generator=gen, device="cuda")
+    ign = torch.randint(-1, n, (b, 5), generator=gen, device="cuda", dtype=torch.int32)
+    scores, cmax = mips_chunkmax(q, e, rb, ign)
+    ref, ref_cmax = mips_chunkmax_plain(q, e, rb, ign)
+    masked = ref < -1e38
+    assert torch.equal(scores < -1e38, masked) and bool((scores[masked] == -3e38).all())
+    tol = 1e-4 * ref[~masked].abs().max().item()
+    torch.testing.assert_close(scores[~masked], ref[~masked], rtol=0, atol=tol)
+    torch.testing.assert_close(cmax, ref_cmax, rtol=0, atol=tol)
+
+
+def test_blocked_topk_on_the_card_matches_k1(gen):
+    """`mips_topk_blocked` through K10 against K1 and against the plain
+    phase 1 (random data, so no ties: the distinct-value rule of K1 and
+    the all-hits rule of the blocked top-k agree)."""
+    q = torch.randn((64, 256), generator=gen, device="cuda")
+    e = torch.randn((30000, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    rb = torch.randn(30000, generator=gen, device="cuda")
+    ign = torch.randint(0, 30000, (64, 4), generator=gen, device="cuda", dtype=torch.int32)
+    mips_chunkmax.launches = 0
+    vals, ids = mips_topk_blocked(q, e, 10, rb, ign)
+    assert mips_chunkmax.launches == 1
+    k1_vals, k1_ids = mips_topk(q, e, 10, rb, ign)
+    assert torch.equal(ids, k1_ids)
+    torch.testing.assert_close(vals, k1_vals, rtol=1e-5, atol=1e-4)
+    cpu_vals, cpu_ids = mips_topk_blocked(q.cpu(), e.cpu(), 10, rb.cpu(), ign.cpu())
+    assert torch.equal(ids.cpu(), cpu_ids)
+    torch.testing.assert_close(vals.cpu(), cpu_vals, rtol=1e-5, atol=1e-4)
 
 
 def test_predict_runs_through_both_kernels(gen):
