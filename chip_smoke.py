@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
      K6/K7 (the same rows over a long source, with one log-sum-exp per
      row) at the long-source slice's cross shape (S = 16384, a source of
      length 0 among them) and at S = 8192 in f32, and K2/K3 at the LED
-     shape of that slice (T = 16384);
+     shape of that slice (T = 16384); K4-K7 also at the fixture's own
+     padding (sources of 306-743 tokens in S = 2048 and 16384), where the
+     bf16 backward skips the key tiles the bias masks whole;
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
      version at K1's serving shape, its top-k against K1's;
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
@@ -515,6 +517,11 @@ def phase_k3():
     return served
 
 
+# valid source tokens of four fixture examples (mean 451.7, 306-743 over
+# the long-source slice's steps): the padding the slices' kernels see
+FIXTURE_LENGTHS = [743, 451, 306, 520]
+
+
 def _dense_inputs(b, t, s, lengths, dtype, seed):
     """(generator, q, k, v, key_bias) of the decoder's attention, nh = 12,
     dh = 64; batch i's source is lengths[i] long (0: all padding)."""
@@ -628,6 +635,9 @@ def phase_k45():
                         torch.bfloat16)
     _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0],
                 torch.float32, timed=False)
+    # the fixture's own padding: sources of its order of length, none empty
+    _dense_case("decoder_cross_fixture", 4, 512, 2048, False, FIXTURE_LENGTHS,
+                torch.bfloat16)
     return cross
 
 
@@ -710,6 +720,8 @@ def phase_k67():
                   timed=False)
     _blocked_case("causal_ragged", 2, 4500, 4500, True, [4500, 4500], torch.bfloat16,
                   timed=False)
+    _blocked_case("decoder_cross_16k_fixture", 4, 512, 16384, False, FIXTURE_LENGTHS,
+                  torch.bfloat16)
     return cross
 
 

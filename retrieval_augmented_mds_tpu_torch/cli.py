@@ -12,7 +12,10 @@ and ``run_predict`` do, on one device:
   take ``max_steps`` train steps, refreshing the store every
   ``index.rebuild_every`` steps, evaluating every ``eval_every`` steps and
   checkpointing as the reference does. Metrics go to
-  ``<log_dir>/<run_name>.metrics.jsonl``.
+  ``<log_dir>/<run_name>.metrics.jsonl``, the resolved config to
+  ``<log_dir>/config_resolved.yaml``. A config that sets ``baseline``, a
+  ``mesh`` over more than one device or ``logging.teams_webhook`` raises:
+  those parts are not ported yet.
 * ``validate`` / ``test``: generate over the whole val / test split and
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one.
@@ -184,16 +187,40 @@ def build_tx(cfg, params):
     )
 
 
+def check_fit_config(cfg) -> None:
+    """Raise on what ``fit`` does not run yet, rather than train something
+    else without a word."""
+    if cfg.baseline:
+        raise NotImplementedError(
+            f"baseline {cfg.baseline!r}: the baselines (models/bart.py, models/t5.py, "
+            "run_fit_baseline) are not ported yet (ROADMAP queue 1, item 8)"
+        )
+    if max(cfg.mesh.data or 0, cfg.mesh.shard or 0) > 1:
+        raise NotImplementedError(
+            f"mesh data={cfg.mesh.data} shard={cfg.mesh.shard}: training over several "
+            "devices is not ported yet (ROADMAP queue 1, item 9); leave both unset or "
+            "at most 1"
+        )
+    if cfg.logging.teams_webhook:
+        raise NotImplementedError(
+            "logging.teams_webhook: TeamsNotifier is not ported yet (ROADMAP queue 1, "
+            "item 10); unset it"
+        )
+
+
 def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
             ) -> dict[str, Any]:
     """Train for ``cfg.max_steps`` steps → the last step's metrics and
     ``steps``. With ``report``, also fills in per-step wall times (seconds,
     synchronised) and phase times, the losses, the store builds' and
-    refreshes' times, and the objects the run made."""
+    refreshes' times, and the objects the run made. The resolved config
+    goes to ``<log_dir>/config_resolved.yaml``."""
     from .obs import MetricsLogger
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
+    from .utils.config import save_config
 
+    check_fit_config(cfg)
     dev = resolve_device(device)
     dm, tok = build_data(cfg)
     params = build_params(cfg, dev)
@@ -218,6 +245,7 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name,
                         tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
     log.log_hyperparams(dataclasses.asdict(cfg))
+    save_config(cfg, os.path.join(cfg.logging.log_dir, "config_resolved.yaml"))
     step, metrics, best_rouge1 = start_step, {}, -1.0
     # a resumed run starts "saved" at start_step
     last_saved = start_step if start_step else -1

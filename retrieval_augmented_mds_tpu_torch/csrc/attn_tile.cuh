@@ -1,6 +1,7 @@
 // Tile routines shared by the attention kernels (forward and backward).
 //
-// All of them work on f32 CUDA cores (no wgmma yet) in CTAs of 4 warps.
+// All of them work on f32 CUDA cores in CTAs of 4 warps (the bf16 dense
+// backward runs on tensor cores instead: attn_mma.cuh).
 // A forward CTA owns BQ query rows (R per warp) and walks key tiles of 32
 // (lane = key for the scores, lane = head dim for the accumulator), with an
 // online softmax in f32. A backward CTA either owns query rows and walks
@@ -236,11 +237,16 @@ struct RowStats {
 
 // How a backward reads the forward's statistics of a query row, as the pair
 // (m, l) of p = exp(s - m) / l. MLStats: the row max and the denominator
-// (K2, K4 keep them apart).
+// (K2, K4 keep them apart). `kRaw` arrays hold them per row; `decode`
+// turns a row's raw values into (m, l), so a kernel may stage the raw
+// arrays in shared memory.
 struct MLStats {
+  static constexpr int kRaw = 2;
   const float* m;
   const float* l;
   __device__ MLStats shifted(long o) const { return {m + o, l + o}; }
+  __device__ const float* raw(int a) const { return a == 0 ? m : l; }
+  __device__ float2 decode(float a, float b) const { return make_float2(a, b); }
   __device__ float2 operator[](int i) const { return make_float2(m[i], l[i]); }
 };
 
@@ -249,13 +255,15 @@ struct MLStats {
 // lse = -1e9 + log S rounds to -1e9 and exp(s - lse) would give each key
 // 1, not 1/S; it reads the closed form (-1e9, S): uniform over the S keys.
 struct LseStats {
+  static constexpr int kRaw = 1;
   const float* lse;
   float s_len;
   __device__ LseStats shifted(long o) const { return {lse + o, s_len}; }
-  __device__ float2 operator[](int i) const {
-    const float x = lse[i];
+  __device__ const float* raw(int) const { return lse; }
+  __device__ float2 decode(float x, float) const {
     return x <= kLseDegenerate ? make_float2(kMaskVal, s_len) : make_float2(x, 1.f);
   }
+  __device__ float2 operator[](int i) const { return decode(lse[i], 0.f); }
 };
 
 template <int DH, typename Stats>

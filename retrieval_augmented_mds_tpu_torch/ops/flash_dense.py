@@ -29,7 +29,9 @@ Routing is by device: CPU tensors take the plain versions
 `dense_rows_blocked_plain`/`dense_blocked_backward_plain`); CUDA tensors
 the kernels in ``csrc/flash_dense_fwd.cu`` (K4, K6) and
 ``csrc/flash_dense_bwd.cu`` (K5, K7), which take any T and S; no
-fallback. ``key_bias`` gets a zero gradient.
+fallback. In bf16 the backward runs on the tensor cores and skips the key
+tiles that the bias masks whole (exactly: they add nothing); in f32 it
+runs on the CUDA cores. ``key_bias`` gets a zero gradient.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Counterpart of ``retrieval_augmented_mds_tpu/utils/config.py``, which
 imports JAX through its RAGConfig, GenerationOptions and TrainHyper. This
 module reads the SAME schema (field names, presets, defaults) into the
 port's own dataclasses, so one YAML file drives either package. PyYAML is
-imported only by `load_config`.
+imported only by `load_config` and `save_config`.
 """
 
 from __future__ import annotations
@@ -188,3 +188,10 @@ def load_config(path: str) -> ExperimentConfig:
 
     with open(path) as f:
         return config_from_dict(yaml.safe_load(f) or {})
+
+
+def save_config(cfg: ExperimentConfig, path: str) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)

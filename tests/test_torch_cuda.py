@@ -346,6 +346,58 @@ def test_blocked_dense_kernels_match_plain(gen, causal, t, s, dh, dtype, tol):
         _close([got[2][0]], [dv0], tol)
 
 
+def _padded_bias(s, b=3):
+    """Batch 0 all padding; batch 1 open but for a 64-key tile in the
+    middle of S and a tail of whole 64-key tiles at its end; batch 2 open
+    but for scattered keys (no tile masked whole)."""
+    kb = torch.zeros((b, s), device="cuda")
+    kb[0] = -1e9
+    kb[1, 64:128] = -1e9
+    kb[1, max(192, (s * 3 // 5) // 64 * 64):] = -1e9
+    kb[2, 5::17] = -1e9
+    return kb
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K7"])
+@pytest.mark.parametrize("causal,t,s", [(False, 40, 300), (False, 130, 4500),
+                                        (True, 100, 100), (True, 4500, 4500)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_dense_backward_on_tensor_cores(gen, kernel, causal, t, s, dh):
+    """bf16 K5/K7 (tensor-core tiles that skip key tiles the bias masks
+    whole) against their plain versions from the same statistics: each of
+    dq, dk, dv within 2e-2 x its own max|ref| (P and dS are rounded to bf16
+    as operands); T < 64 and S not a multiple of 64; masked-whole tiles in
+    the middle of S and at its end; the all-padding batch's dv uniform over
+    S; dk = dv = 0 exactly at the masked keys of rows that each have an
+    open key; and the same bits on a second run (no atomics)."""
+    b, nh = 3, 2
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kb = _padded_bias(s, b)
+    g = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    if kernel == "K5":
+        out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
+        args = (q, k, v, kb, g, m, l, row_delta(g, out))
+        run = lambda: flash_dense_backward(*args, causal=causal)  # noqa: E731
+        want = dense_backward_plain(*args, causal)
+    else:
+        out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
+        run = lambda: flash_dense_blocked_backward(q, k, v, kb, out, lse, g,  # noqa: E731
+                                                   causal=causal)
+        want = dense_blocked_backward_plain(q, k, v, kb, out, lse, g, causal)
+    got = run()
+    assert [x.dtype for x in got] == [torch.bfloat16] * 3
+    for a, r in zip(got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()
+    dv0 = g[0].float().sum(1, keepdim=True).expand(-1, s, -1) / s
+    _close([got[2][0]], [dv0], 2e-2)
+    masked = kb[1] < 0
+    assert not got[1][1][:, masked].any() and not got[2][1][:, masked].any()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, run()))
+
+
 def test_dense_rows_routes_long_sources_to_k6_k7(gen):
     """dense_rows on CUDA tensors at S = MAX_S + 1 launches K6 and K7 (not
     K4/K5), with gradients equal to the CPU path's."""
