@@ -328,17 +328,55 @@ def _band_global_mask(key_bias, is_global, w, dtype):
     return torch.where(open_, 0.0, -1e9).to(dtype)[:, None]
 
 
-def _sliding_pairs(key_bias, g_bias, w, nh) -> float:
-    """Visible (query, key) pairs of the sliding rows: for every row, the
-    unmasked keys within w of it plus the valid globals, times the heads."""
+def _sliding_pairs(key_bias, g_bias, w, nh, rows=None) -> float:
+    """Visible (query, key) pairs of the sliding rows: for every row (of
+    ``rows`` [B, T] bool, all by default), the unmasked keys within w of it
+    plus the valid globals, times the heads."""
     import torch
 
     b, t = key_bias.shape
+    rows = torch.ones((b, t), dtype=torch.bool, device=key_bias.device) if rows is None \
+        else rows
     ok = torch.nn.functional.pad((key_bias == 0).long().cumsum(1), (1, 0))
     i = torch.arange(t, device=key_bias.device)
     hi, lo = torch.clamp(i + w + 1, max=t), torch.clamp(i - w, min=0)
-    window = (ok[:, hi] - ok[:, lo]).sum()
-    return float(nh * (window + t * (g_bias == 0).sum()))
+    window = ((ok[:, hi] - ok[:, lo]) * rows).sum()
+    return float(nh * (window + (rows.sum(1) * (g_bias == 0).sum(1)).sum()))
+
+
+def _sliding_reads(key_bias, g_bias, w, live) -> tuple[int, int, int]:
+    """(query rows, open keys, window keys) per head that the sliding rows
+    of ``live`` [B, T] bool must read: the live rows' queries; the keys
+    open to a live row (key_bias 0, within w of it); and the other keys in
+    the window of a live row with no open column (its own w-block and the
+    two beside it), over which such a row is uniform: the forward reads
+    their V, the backward their K and V. T is a multiple of w."""
+    import torch
+
+    b, t = key_bias.shape
+    i = torch.arange(t, device=key_bias.device)
+    hi, lo = torch.clamp(i + w + 1, max=t), torch.clamp(i - w, min=0)
+
+    def near(x):  # [B, T]: some x within w of each position
+        c = torch.nn.functional.pad(x.long().cumsum(1), (1, 0))
+        return (c[:, hi] - c[:, lo]) > 0
+
+    open_ = key_bias == 0
+    blind = live & ~(near(open_) | (g_bias == 0).any(1, keepdim=True))
+    blocks = blind.view(b, t // w, w).any(2).long()
+    blocks = blocks + torch.nn.functional.pad(blocks[:, 1:], (0, 1)) \
+        + torch.nn.functional.pad(blocks[:, :-1], (1, 0))
+    keys = open_ & near(live)
+    window = (blocks > 0).repeat_interleave(w, 1) & ~keys
+    return int(live.sum()), int(keys.sum()), int(window.sum())
+
+
+def _dense_reads(key_bias) -> tuple[int, int]:
+    """(open keys, keys of sources with no open key) over the batches: the
+    forward reads K of the first and V of both (a row with no open key is
+    the mean of V over all S keys); the backward K and V of both."""
+    open_ = key_bias == 0
+    return int(open_.sum()), int((~open_.any(1)).sum()) * key_bias.shape[1]
 
 
 def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
@@ -387,7 +425,12 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
         mask = _band_global_mask(tensors[3], is_global, w, dtype)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask))
-    bound = roofline(nbytes(*tensors, full_out), flops, dtype == torch.float32)
+    # bytes: every query and output row; the keys some row needs
+    rows, keys, window = _sliding_reads(tensors[3], tensors[6], w,
+                                        torch.ones_like(rows_ok))
+    per_row = shape[1] * shape[3] * tensors[0].element_size()
+    n_bytes = per_row * (rows + 2 * keys + window) + nbytes(*tensors[3:7], full_out)
+    bound = roofline(n_bytes, flops, dtype == torch.float32)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (out on non-padded "
           f"rows within {tol_out} x max|ref| {ref_max:.3e}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
           f"l rtol {tol_l}: {l_rel:.3e})"
@@ -415,7 +458,7 @@ def phase_k2():
     _k2_case("longformer_base", lf, torch.float32)
     # the LED encoder layer of the long-source slice (the plain version on 2
     # of the 4 batches: its [B, nh, T/w, w, 3w] f32 band tensors)
-    _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2)
+    _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
     return served
 
 
@@ -425,6 +468,13 @@ def phase_k2():
 
 # LED-base encoder layer over the long-source slice's 16384-token sources
 LED_16K = (4, 12, 16384, 64, 512, 64, [16384, 12000, 6000, 2048], [64, 10, 3, 0])
+# valid source tokens of four fixture examples (mean 451.7, 306-743 over
+# the long-source slice's steps): the padding the slices' kernels see
+FIXTURE_LENGTHS = [743, 451, 306, 520]
+# the LED's valid globals on such sources: token 0 and each <DOC_SEP>
+FIXTURE_GLOBALS = [6, 4, 3, 5]
+LED_FIXTURE = (4, 12, 2048, 64, 512, 64, FIXTURE_LENGTHS, FIXTURE_GLOBALS)
+LED_16K_FIXTURE = (4, 12, 16384, 64, 512, 64, FIXTURE_LENGTHS, FIXTURE_GLOBALS)
 
 
 def _grad_tol(dtype) -> float:
@@ -447,9 +497,13 @@ def _compare(what: str, got, ref, tol: float) -> float:
     return err
 
 
-def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
+def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None,
+             model_do=False):
     """K3 against `sliding_backward_plain` from the same m, l, delta; with
-    ``plain_b`` as in `_k2_case`."""
+    ``plain_b`` as in `_k2_case`. With ``model_do`` the cotangent is zero on
+    the padded rows and on the valid global rows, as the encoder hands it
+    to the backward (their outputs are zeroed or overwritten); otherwise
+    random everywhere. A second call must give the same bits."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -461,20 +515,28 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
         sliding_backward_plain,
     )
 
-    args, _, is_global = _k2_inputs(*shape, dtype=dtype, seed=11)
+    args, rows_ok, is_global = _k2_inputs(*shape, dtype=dtype, seed=11)
     *tensors, w = args
-    flops = 10 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1])
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
     g = torch.Generator(device="cuda").manual_seed(12)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    live = torch.ones_like(rows_ok)
+    if model_do:
+        live = rows_ok & ~is_global
+        do = do.masked_fill(~live[:, None, :, None], 0.0)
+    # the work these inputs need: rows with a zero cotangent add nothing
+    flops = 10 * shape[3] * _sliding_pairs(tensors[3], tensors[6], w, shape[1], live)
     bwd = (*tensors, do, m, l, row_delta(do, out))
     pb, nh = plain_b or shape[0], shape[1]
     cut = [x[: pb * nh] if x.shape[0] == shape[0] * nh else x[:pb] for x in bwd]
     got = flash_sliding_backward(*bwd, window=w)
     ref = sliding_backward_plain(*cut, w)
+    again = flash_sliding_backward(*bwd, window=w)
     torch.cuda.synchronize()
     tol = _grad_tol(dtype)
     err = _compare(f"K3 {name} {dtype}", [x[:pb] for x in got], ref, tol)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K3 {name} {dtype}: a second run gave other bits")
     ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: flash_sliding_backward(*bwd, window=w))
@@ -488,10 +550,17 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
                                                                    attn_mask=mask)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (q2, k2, v2), do,
                                                      retain_graph=True))
-    bound = roofline(nbytes(*bwd, *got), flops, dtype == torch.float32)
-    print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (dq, dk, dv, dkg, dvg "
-          f"on every row, fully masked ones included, within {tol} x max|ref|: "
-          f"max abs err {err:.3e})"
+    # bytes: dO, the outputs and the small inputs in full; the stats and
+    # queries of live rows; the keys these rows need
+    rows, keys, window = _sliding_reads(tensors[3], tensors[6], w, live)
+    per_row = shape[1] * shape[3] * tensors[0].element_size()
+    n_bytes = (per_row * (rows + 2 * (keys + window)) + rows * shape[1] * 3 * m.element_size()
+               + nbytes(*tensors[3:7], do, *got))
+    bound = roofline(n_bytes, flops, dtype == torch.float32)
+    print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
+          f"globals {shape[7]}, dO {'zero on padded and global rows' if model_do else 'random'}"
+          f": PASS (dq, dk, dv, dkg, dvg on every row, fully masked ones included, within "
+          f"{tol} x max|ref|: max abs err {err:.3e}; a second run bit-equal)"
           + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
@@ -511,15 +580,15 @@ def phase_k3():
     memory = (8, 12, 512, 64, 256, 1, [512, 500, 430, 300, 257, 200, 130, 100], [1] * 8)
     served = _k3_case("led_base", led, torch.bfloat16, library=True)
     _k3_case("led_base", led, torch.float32)
-    _k3_case("longformer_query", query, torch.bfloat16)
-    _k3_case("longformer_memory", memory, torch.bfloat16)
-    _k3_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2)
+    _k3_case("longformer_query", query, torch.bfloat16, library=True)
+    _k3_case("longformer_memory", memory, torch.bfloat16, library=True)
+    _k3_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
+    # the fixture's padding, its globals and the model's zero cotangents, at
+    # the standing and the long-source slices' lengths
+    _k3_case("led_base_fixture", LED_FIXTURE, torch.bfloat16, model_do=True, library=True)
+    _k3_case("led_base_16k_fixture", LED_16K_FIXTURE, torch.bfloat16, plain_b=2,
+             model_do=True, library=True)
     return served
-
-
-# valid source tokens of four fixture examples (mean 451.7, 306-743 over
-# the long-source slice's steps): the padding the slices' kernels see
-FIXTURE_LENGTHS = [743, 451, 306, 520]
 
 
 def _dense_inputs(b, t, s, lengths, dtype, seed):
@@ -602,8 +671,13 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     err5 = _compare(f"K5 {what}", got, ref_g, tol)
     pairs = _dense_pairs(b, nh, t, s, causal, lengths)
     f32 = dtype == torch.float32
-    bound4 = roofline(nbytes(q, k, v, kb, out, m, l), 4 * dh * pairs, f32)
-    bound5 = roofline(nbytes(*bwd, *got), 10 * dh * pairs, f32)
+    # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
+    open_keys, blind_keys = _dense_reads(kb)
+    per_key = nh * dh * k.element_size()
+    bound4 = roofline(nbytes(q, kb, out, m, l) + per_key * (2 * open_keys + blind_keys),
+                      4 * dh * pairs, f32)
+    bound5 = roofline(nbytes(q, *bwd[3:], *got) + per_key * 2 * (open_keys + blind_keys),
+                      10 * dh * pairs, f32)
     times = [None] * 6
     if timed:
         times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
@@ -661,6 +735,9 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     gen, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=23)
     out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
     ref, ref_lse = dense_rows_blocked_plain(q, k, v, kb, causal)
+    again = flash_dense_blocked(q, k, v, kb, causal=causal)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"K6 {name} {dtype}: a second run gave other bits")
     do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     got = flash_dense_blocked_backward(q, k, v, kb, out, lse, do, causal=causal)
     ref_g = dense_blocked_backward_plain(q, k, v, kb, out, lse, do, causal)
@@ -682,8 +759,13 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
                f"its max {uniform.abs().max().item():.3e}: {pad_err:.3e}")
     pairs = _dense_pairs(b, nh, t, s, causal, lengths)
     f32 = dtype == torch.float32
-    bound6 = roofline(nbytes(q, k, v, kb, out, lse), 4 * dh * pairs, f32)
-    bound7 = roofline(nbytes(q, k, v, kb, out, lse, do, *got), 10 * dh * pairs, f32)
+    # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
+    open_keys, blind_keys = _dense_reads(kb)
+    per_key = nh * dh * k.element_size()
+    bound6 = roofline(nbytes(q, kb, out, lse) + per_key * (2 * open_keys + blind_keys),
+                      4 * dh * pairs, f32)
+    bound7 = roofline(nbytes(q, kb, out, lse, do, *got)
+                      + per_key * 2 * (open_keys + blind_keys), 10 * dh * pairs, f32)
     times = [None] * 6
     if timed:
         times = [cuda_ms(lambda: flash_dense_blocked(q, k, v, kb, causal=causal)),
@@ -697,7 +779,8 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
                  *_sdpa_ms(q, k, v, kb, do, causal)]
     shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
     print(f"[K6] {what}: {shape}: PASS (out within {tol} x max|ref|: {err6:.3e}; lse atol "
-          f"1e-3" + (", the all-padding batch's lse <= -1e8)" if empty else ")")
+          f"1e-3" + (", the all-padding batch's lse <= -1e8" if empty else "")
+          + "; a second run bit-equal)"
           + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
              f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']})" if timed else ""))
     print(f"[K7] {what}: {shape}: PASS (dq, dk, dv each within {tol} x its max|ref|: "
@@ -1405,6 +1488,7 @@ def _train_run(cfg, tag: str, off_path: tuple[str, ...]) -> tuple[dict, dict]:
     # calls, the third follows the store refresh)
     steady = report["step_s"][-2:]
     summary = {"peak_gib": peak / 2**30, "step_s": sum(steady) / len(steady), "losses": losses,
+               "retrieved": [r.cpu() for r in report["retrieved"]],
                **{k: sum(ph[k] for ph in report["phase_s"][-2:]) / 2
                   for k in ("forward", "backward", "optimizer")}}
     print(f"[{tag}] steady (mean of the last two steps): step {summary['step_s']:.3f} s "
@@ -1442,6 +1526,12 @@ def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
 
 
 LONG_SOURCE = 16384  # the LED's max_src_len (models/config.py)
+# a step whose search retrieved another row for an example than the
+# standing slice's. On an H100 the refresh swapped the second row of every
+# example (554 for 556), which moved the loss by 6.9e-4 and 1.24e-3,
+# against 4.3e-5 and 5.3e-5 at the steps that retrieved the same rows:
+# held at 4x the larger swap
+RETRIEVAL_FLIP_RTOL = 5e-3
 
 
 def phase_long_slice(standing: tuple[dict, dict]) -> dict:
@@ -1452,8 +1542,13 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
     layer's cross-attention (once per layer and step each), K4/K5 only for
     the decoder's causal self-attention. When no source of its steps is cut
     at the standing slice's 2048 tokens, both slices see the same tokens,
-    and its losses must equal the standing slice's to rtol 1e-4 (bf16
-    roundings differ: K7 recomputes p from one LSE, K5 from m and l)."""
+    and each step's loss is held to the standing slice's. A step that
+    retrieved the same rows in both must agree to rtol 1e-4 (bf16 roundings
+    differ: K6 rounds p to bf16 as an operand where K4 keeps it in f32, K7
+    recomputes p from one LSE, K5 from m and l). Those roundings also move
+    the parameters a little, so after a store refresh a nearly tied search
+    (random weights) may retrieve another row for an example; the memory
+    then differs, and such a step is held to `RETRIEVAL_FLIP_RTOL`."""
     import numpy as np
 
     from retrieval_augmented_mds_tpu_torch import cli
@@ -1484,11 +1579,21 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
     base = standing[1]
     if max(lengths) <= train_slice_config().data.max_length:
         ref, got = np.asarray(base["losses"]), np.asarray(summary["losses"])
-        rel = float(np.abs(got - ref).max() / np.abs(ref).min())
-        check(rel <= 1e-4, f"long: losses {got.tolist()} differ from the standing slice's "
-                           f"{ref.tolist()} on the same tokens (max rel {rel:.3e})")
-        print(f"[long] the same tokens as the standing train slice (no source passes its "
-              f"2048): losses equal to rtol 1e-4, max rel diff {rel:.3e}: PASS")
+        rel = np.abs(got - ref) / np.abs(ref)
+        check(len(base["retrieved"]) == len(summary["retrieved"]) == TRAIN_STEPS,
+              "long: a step searched no store")
+        for i, (a, b) in enumerate(zip(base["retrieved"], summary["retrieved"])):
+            swapped = (a != b).any(1).nonzero().flatten().tolist()
+            tol = RETRIEVAL_FLIP_RTOL if swapped else 1e-4
+            check(rel[i] <= tol, f"long: step {i} loss {got[i]} differs from the standing "
+                  f"slice's {ref[i]} on the same tokens by rel {rel[i]:.3e} > {tol}")
+            print(f"[long] step {i}: the same tokens as the standing train slice (no source "
+                  f"passes its 2048), " + (
+                      f"other rows retrieved for example(s) {swapped} (standing "
+                      f"{a[swapped].tolist()}, long {b[swapped].tolist()}): loss within "
+                      f"rtol {tol}" if swapped else
+                      f"the same rows retrieved: loss within rtol {tol}")
+                  + f", rel diff {rel[i]:.3e}: PASS")
     print("[long] against the standing train slice of this call: " + "; ".join(
         f"{k} {base[k]:.3f} -> {summary[k]:.3f}" + (" GiB" if k == "peak_gib" else " s")
         for k in ("peak_gib", "step_s", "forward", "backward", "optimizer")))

@@ -212,9 +212,9 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
             ) -> dict[str, Any]:
     """Train for ``cfg.max_steps`` steps → the last step's metrics and
     ``steps``. With ``report``, also fills in per-step wall times (seconds,
-    synchronised) and phase times, the losses, the store builds' and
-    refreshes' times, and the objects the run made. The resolved config
-    goes to ``<log_dir>/config_resolved.yaml``."""
+    synchronised) and phase times, the losses, each step's retrieved row
+    ids, the store builds' and refreshes' times, and the objects the run
+    made. The resolved config goes to ``<log_dir>/config_resolved.yaml``."""
     from .obs import MetricsLogger
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
@@ -237,10 +237,11 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     _sync(dev)
     rep = report if report is not None else {}
     rep.update(store_s=time.perf_counter() - t0, step_s=[], phase_s=[], losses=[],
-               refresh_s=[])
+               refresh_s=[], retrieved=[])
     step_fn = make_train_step(cfg.model, tx, cfg.train, dtype=dtype,
                               remat=cfg.train.remat,
-                              phase_times=rep["phase_s"] if report is not None else None)
+                              phase_times=rep["phase_s"] if report is not None else None,
+                              retrieved=rep["retrieved"] if report is not None else None)
 
     log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name,
                         tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)

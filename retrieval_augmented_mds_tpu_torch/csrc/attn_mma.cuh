@@ -8,7 +8,7 @@
 //   mma_xyt: acc += X Y^T  (X the warp's 16 rows, Y the walked tile's rows,
 //            both row-major [*, DH]): the scores Q K^T and dO V^T;
 //   mma_py:  acc += P Y    (P a 16 x N operand held in registers, Y read
-//            transposed by `ldmatrix.trans`): P dO, dS Q, dS K.
+//            transposed by `ldmatrix.trans`): P V, P dO, dS Q, dS K.
 //
 // The C fragment of a 16 x N product is, pair of n-tiles by pair, the A
 // fragment of the same 16 x N matrix as an operand (`to_a`): probabilities
@@ -20,6 +20,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "attn_tile.cuh"
@@ -170,12 +171,20 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&c)[
   }
 }
 
-// Store the warp's 16 x DH accumulator times `mul` to rows row0.. of a
-// row-major [*, DH] bf16 matrix, the rows below `end`. Lane (g, t) holds
-// rows g and g + 8, head dims 8 jd + 2 t and + 1.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], bf16* __restrict__ dst,
-                                           int row0, int end, float mul) {
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Store the warp's 16 x DH accumulator to rows row0.. of a row-major
+// [*, DH] matrix (bf16 or f32), the rows below `end`, row g times mul[0]
+// and row g + 8 times mul[1]. Lane (g, t) holds rows g and g + 8, head
+// dims 8 jd + 2 t and + 1.
+template <int DH, typename Out>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], Out* __restrict__ dst,
+                                           int row0, int end, const float (&mul)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -183,9 +192,28 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], bf16* 
     if (r >= end) continue;
 #pragma unroll
     for (int jd = 0; jd < DH / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)r * DH + 8 * jd + 2 * t) =
-          __floats2bfloat162_rn(acc[jd][2 * h] * mul, acc[jd][2 * h + 1] * mul);
+      store_pair(dst + (long)r * DH + 8 * jd + 2 * t, acc[jd][2 * h] * mul[h],
+                 acc[jd][2 * h + 1] * mul[h]);
   }
+}
+
+// The same with one multiplier for every row.
+template <int DH, typename Out>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], Out* __restrict__ dst,
+                                           int row0, int end, float mul) {
+  const float both[2] = {mul, mul};
+  store_rows<DH>(acc, dst, row0, end, both);
+}
+
+// Max and sum over the 4 lanes of a quad, which together hold a row of a
+// 16 x N C fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The first tile at or after `kt` (of n tiles of TILE positions) that
@@ -216,6 +244,18 @@ __device__ __forceinline__ int next_marked_tile(int kt, int n, const Marked& mar
   }
   return n;
 }
+
+// Shared tiles of the forward: the CTA's 64 query rows, two buffers of the
+// walked key tile (keys, values, key bias), and the sum of the values of
+// the keys a causal block skips (a fully masked row's closed form).
+template <int DH>
+struct FwdTiles {
+  bf16 q[kRows][DH + kPad];
+  bf16 k[2][kTile][DH + kPad], v[2][kTile][DH + kPad];
+  float bias[2][kTile];
+  float vsum[DH];
+  unsigned probe[2][kWarps];
+};
 
 // Shared tiles of the dq pass: the CTA's 64 query rows and dO rows, and
 // two buffers of the walked key tile (keys, values, key bias).

@@ -1,7 +1,7 @@
 // Tile routines shared by the attention kernels (forward and backward).
 //
-// All of them work on f32 CUDA cores in CTAs of 4 warps (the bf16 dense
-// backward runs on tensor cores instead: attn_mma.cuh).
+// All of them work on f32 CUDA cores in CTAs of 4 warps (bf16 K3, K5, K6
+// and K7 run on tensor cores instead: attn_mma.cuh).
 // A forward CTA owns BQ query rows (R per warp) and walks key tiles of 32
 // (lane = key for the scores, lane = head dim for the accumulator), with an
 // online softmax in f32. A backward CTA either owns query rows and walks

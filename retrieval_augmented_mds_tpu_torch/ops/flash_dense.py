@@ -29,9 +29,12 @@ Routing is by device: CPU tensors take the plain versions
 `dense_rows_blocked_plain`/`dense_blocked_backward_plain`); CUDA tensors
 the kernels in ``csrc/flash_dense_fwd.cu`` (K4, K6) and
 ``csrc/flash_dense_bwd.cu`` (K5, K7), which take any T and S; no
-fallback. In bf16 the backward runs on the tensor cores and skips the key
-tiles that the bias masks whole (exactly: they add nothing); in f32 it
-runs on the CUDA cores. ``key_bias`` gets a zero gradient.
+fallback. By dtype: in bf16, K5, K6 and K7 run on the tensor cores and
+skip the 64-key tiles that the bias masks whole for a block of rows that
+each have an open key (exactly: such a tile adds nothing to their sums;
+a block with a fully masked row walks every tile, as its uniform row
+needs); K4 runs on the CUDA cores and computes every key. In f32 all four
+run on the CUDA cores. ``key_bias`` gets a zero gradient.
 """
 
 from __future__ import annotations

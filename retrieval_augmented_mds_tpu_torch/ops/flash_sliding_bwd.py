@@ -18,7 +18,16 @@ columns pass gradients to all of q, kg and vg. This is the VJP of the
 reference composite `_local_rows_xla`.
 
 `sliding_backward_plain` is what CPU tensors take; `flash_sliding_backward`
-is kernel K3 (``csrc/flash_sliding_bwd.cu``) for CUDA tensors.
+is kernel K3 (``csrc/flash_sliding_bwd.cu``) for CUDA tensors, three
+passes that each own their outputs (dq; dk, dv; dkg, dvg), so two runs
+give the same bits. In f32 they run on the CUDA cores and compute every
+tile. In bf16 they run on the tensor cores and skip what adds exactly
+nothing: a 64-row tile whose dO is all zero (the model's padded rows and
+its valid global rows, whose outputs the encoder zeroes or overwrites;
+the test is on dO itself, a NaN counts and -0.0 does not) gets dq = 0 and
+is skipped by the other two passes; and a band key tile that the key bias
+masks whole is skipped for rows that each have an open column (only a
+fully masked row, uniform over its window, still reaches it).
 """
 
 from __future__ import annotations
@@ -126,15 +135,18 @@ def flash_sliding_backward(q, k, v, key_bias, kg, vg, g_bias, do, m, l, delta, *
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dkg = torch.empty(kg.shape, dtype=torch.float32, device=dev)
     dvg = torch.empty(vg.shape, dtype=torch.float32, device=dev)
+    # one flag per 64-row tile: does its dO hold a nonzero (bf16 passes)
+    live = torch.empty((b * nh, -(-t // 64)), dtype=torch.int32, device=dev)
     fn = load("flash_sliding_bwd").sliding_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_void_p]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), kg.data_ptr(),
         vg.data_ptr(), g_bias.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkg.data_ptr(),
-        dvg.data_ptr(), _DTYPE_CODE[q.dtype], b, nh, t, dh, window, g, _scale(dh),
+        dvg.data_ptr(), live.data_ptr(), _DTYPE_CODE[q.dtype], b, nh, t, dh, window, g,
+        _scale(dh),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "flash_sliding_backward")

@@ -59,11 +59,14 @@ def make_train_step(
     dtype=torch.float32,
     remat: bool | str = False,
     phase_times: list[dict[str, float]] | None = None,
+    retrieved: list[torch.Tensor] | None = None,
 ) -> Callable:
     """Returns ``train_step(state, store, batch, copy_force=None) →
     (state, metrics)``, metrics as 0-d tensors. With ``phase_times``, each
     step synchronises the device between its phases and appends
-    ``{"forward", "backward", "optimizer"}`` wall seconds to the list."""
+    ``{"forward", "backward", "optimizer"}`` wall seconds to the list. With
+    ``retrieved``, each step that searches the store appends its retrieved
+    row ids [B, k] (on the device) to that list."""
     remat_context(remat)  # an unsupported policy raises here, not mid-step
 
     def loss_fn(params, store, batch):
@@ -76,6 +79,8 @@ def make_train_step(
         loss = summarization_loss(log_probs, batch["labels"],
                                   hyper.label_smoothing_eps, cfg.led.pad_id)
         metrics: dict[str, Any] = {"loss": loss.detach()}
+        if retrieved is not None and enc_out.retrieved_idx is not None:
+            retrieved.append(enc_out.retrieved_idx.detach())
         with torch.no_grad():
             if aux.get("copy_gate") is not None:
                 mask = (batch["labels"] != cfg.led.pad_id)[..., None]

@@ -398,6 +398,95 @@ def test_bf16_dense_backward_on_tensor_cores(gen, kernel, causal, t, s, dh):
     assert all(torch.equal(a, b_) for a, b_ in zip(got, run()))
 
 
+@pytest.mark.parametrize("causal,t,s", [(False, 77, 4500), (False, 130, 16384),
+                                        (True, 100, 100), (True, 4500, 4500)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_blocked_forward_on_tensor_cores(gen, causal, t, s, dh):
+    """bf16 K6 (tensor-core tiles that skip key tiles the bias masks whole)
+    against its plain version: out within 2e-2 x max|ref| (P is rounded to
+    bf16 as an operand), lse to 1e-3; T not a multiple of 64 and S not
+    either; masked-whole tiles in the middle of S and at its end; the
+    all-padding batch's rows uniform over the S keys (out = the mean of v,
+    lse <= -1e8); the same bits on a second run."""
+    b, nh = 3, 2
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kb = _padded_bias(s, b)
+    out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
+    ref, ref_lse = dense_rows_blocked_plain(q, k, v, kb, causal)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-3)
+    if not causal:
+        assert bool((lse[:nh] <= -1e8).all())
+        _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], 2e-2)
+    again = flash_dense_blocked(q, k, v, kb, causal=causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def _led_inputs(gen, t, dh, w, nh=2, g=8):
+    """Sliding-window inputs as the LED makes them: batch 0 open, batch 1
+    a padded source, batch 2 a padded source with no valid global (its
+    padded rows are fully masked), batch 3 all padding; the valid globals
+    are token 0 and a few positions inside each source, masked out of the
+    band. Returns (args, padded rows, valid global rows)."""
+    lengths = [t, t * 3 // 5, t * 3 // 10, 0]
+    n_valid = [g, 3, 0, 0]
+    b = len(lengths)
+    q, k, v = (torch.randn((b, nh, t, dh), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    padded = torch.arange(t, device="cuda")[None, :] >= torch.tensor(lengths,
+                                                                      device="cuda")[:, None]
+    g_idx = torch.zeros((b, g), dtype=torch.long, device="cuda")
+    for i, n in enumerate(lengths):
+        if n > g:
+            g_idx[i, 1:] = 1 + torch.randperm(n - 1, generator=gen, device="cuda")[: g - 1]
+    g_valid = torch.arange(g, device="cuda")[None, :] < torch.tensor(n_valid,
+                                                                     device="cuda")[:, None]
+    is_global = torch.zeros((b, t), dtype=torch.bool, device="cuda")
+    is_global.scatter_(1, g_idx, g_valid)
+    key_bias = torch.where(padded | is_global, -1e9, 0.0).float()
+    g_bias = torch.where(g_valid, 0.0, -1e9).float()
+    take = lambda x: torch.gather(  # noqa: E731
+        x, 2, g_idx[:, None, :, None].expand(b, nh, g, dh))
+    return (q, k, v, key_bias, take(k), take(v), g_bias), padded, is_global
+
+
+@pytest.mark.parametrize("t,w", [(96, 32), (224, 32), (480, 96), (1536, 512)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("model_do", [True, False])
+def test_bf16_sliding_backward_on_tensor_cores(gen, t, w, dh, model_do):
+    """bf16 K3 (tensor-core passes that skip zero-dO row tiles and band key
+    tiles the bias masks whole) against its plain version from the same m,
+    l, delta: each of dq, dk, dv, dkg, dvg within 2e-2 x its own max|ref|;
+    T a multiple of 32 and not of 64 (a 64-key tile spans two w-blocks at w
+    = 32); a batch with no valid global and an all-padding one (fully
+    masked rows, uniform over their window); dO zero on the padded and
+    valid global rows as the encoder makes it, or random everywhere. dq = 0
+    exactly on zero-dO rows, dk = dv = 0 exactly at the masked keys of
+    batches whose every row has an open column, and the same bits on a
+    second run (no atomics)."""
+    args, padded, is_global = _led_inputs(gen, t, dh, w)
+    out, m, l = flash_sliding_attention(*args, window=w, return_stats=True)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    if model_do:
+        do = do.masked_fill((padded | is_global)[:, None, :, None], 0.0)
+    bwd = (*args, do, m, l, row_delta(do, out))
+    got = flash_sliding_backward(*bwd, window=w)
+    want = sliding_backward_plain(*bwd, w)
+    assert [x.dtype for x in got] == [torch.bfloat16] * 5
+    for a, r in zip(got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()
+    if model_do:
+        assert not got[0].masked_select((padded | is_global)[:, None, :, None]).any()
+    for i in (0, 1):  # every row has an open column (a valid global)
+        masked = args[3][i] < 0
+        assert not got[1][i][:, masked].any() and not got[2][i][:, masked].any()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, flash_sliding_backward(*bwd, window=w)))
+
+
 def test_dense_rows_routes_long_sources_to_k6_k7(gen):
     """dense_rows on CUDA tensors at S = MAX_S + 1 launches K6 and K7 (not
     K4/K5), with gradients equal to the CPU path's."""

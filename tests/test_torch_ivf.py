@@ -491,6 +491,7 @@ def test_fit_with_ivf_store_refreshes_and_keeps_nprobe(tmp_path):
     out = cli.run_fit(cfg, device="cpu", report=report)
     assert out["steps"] == 3 and len(report["refresh_s"]) == 1
     assert all(np.isfinite(report["losses"]))
+    assert [tuple(r.shape) for r in report["retrieved"]] == [(cfg.data.batch_size, 2)] * 3
     store = report["store"]
     assert isinstance(store.index, tivf.IVFIndex) and store.nprobe == 2
     assert store.index.clustered.dtype == torch.int8
