@@ -16,9 +16,9 @@ Phases, in order; any failure exits non-zero:
      K6/K7 (the same rows over a long source, with one log-sum-exp per
      row) at the long-source slice's cross shape (S = 16384, a source of
      length 0 among them) and at S = 8192 in f32, and K2/K3 at the LED
-     shape of that slice (T = 16384); K4-K7 also at the fixture's own
-     padding (sources of 306-743 tokens in S = 2048 and 16384), where the
-     bf16 backward skips the key tiles the bias masks whole;
+     shape of that slice (T = 16384); K2-K7 also at the fixture's own
+     padding (sources of 306-743 tokens in T or S = 2048 and 16384), where
+     the bf16 kernels skip the key tiles the bias masks whole;
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
      version at K1's serving shape, its top-k against K1's;
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
@@ -382,7 +382,11 @@ def _dense_reads(key_bias) -> tuple[int, int]:
 def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
     """K2 against `local_rows_plain`; with ``plain_b`` the plain version
     runs (and is timed) on the first ``plain_b`` batches only, against the
-    kernel's rows of those batches (each batch is independent)."""
+    kernel's rows of those batches (each batch is independent). out is
+    held on every row, in three sets apart (non-padded rows; padded rows of
+    a batch with a valid global; the other padded rows), each within tol x
+    its own max|ref|; m and l on every row. A second call must give the
+    same bits."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
@@ -397,21 +401,37 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
     cut = [x[:pb] for x in tensors]
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
     ref, ref_m, ref_l = local_rows_plain(*cut, w, return_stats=True)
+    again = flash_sliding_attention(*tensors, window=w, return_stats=True)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again)),
+          f"K2 {name} {dtype}: a second run gave other bits")
     full_out = out
     out, m, l = out[:pb], m[: pb * shape[1]], l[: pb * shape[1]]
     b, nh, t, dh = out.shape
-    sel = rows_ok[:pb, None, :].expand(b, nh, t)
-    err = (out.float() - ref.float()).abs()[sel].max().item()
-    ref_max = ref.float().abs()[sel].max().item()
     m_err = (m - ref_m).abs().max().item()
     l_rel = ((l - ref_l).abs() / ref_l).max().item()
     if dtype == torch.float32:
         tol_out, tol_m, tol_l = 1e-4, 1e-4, 1e-4
     else:
         tol_out, tol_m, tol_l = 2e-2, 1e-3, 1e-3
-    check(err <= tol_out * ref_max,
-          f"K2 {name}: out max abs err {err} > {tol_out} x max|ref| {ref_max}")
+    # out on each row set apart, within tol x its own max|ref|: the
+    # non-padded rows (up to 2w + 1 keys, small outputs), the padded rows
+    # of a batch with a valid global (a few globals, large outputs), the
+    # other padded rows
+    with_global = (tensors[6] == 0).any(1, keepdim=True)
+    sets = {"non-padded": rows_ok, "padded, global": ~rows_ok & with_global,
+            "padded, no global": ~rows_ok & ~with_global}
+    err, said = 0.0, []
+    for set_name, rows in sets.items():
+        sel = rows[:pb, None, :].expand(b, nh, t)
+        if not bool(sel.any()):
+            continue
+        e = (out.float() - ref.float()).abs()[sel].max().item()
+        ref_max = ref.float().abs()[sel].max().item()
+        check(e <= tol_out * ref_max, f"K2 {name} {dtype}: out on the {set_name} rows: "
+              f"max abs err {e} > {tol_out} x max|ref| {ref_max}")
+        err = max(err, e)
+        said.append(f"{set_name} {e:.3e} of max|ref| {ref_max:.3e}")
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=tol_m), f"K2 {name}: m err {m_err}")
     check(l_rel <= tol_l, f"K2 {name}: l max rel err {l_rel} > {tol_l}")
     check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite output")
@@ -431,9 +451,10 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = per_row * (rows + 2 * keys + window) + nbytes(*tensors[3:7], full_out)
     bound = roofline(n_bytes, flops, dtype == torch.float32)
-    print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]}: PASS (out on non-padded "
-          f"rows within {tol_out} x max|ref| {ref_max:.3e}: {err:.3e}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; "
-          f"l rtol {tol_l}: {l_rel:.3e})"
+    print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
+          f"globals {shape[7]}: PASS (out within {tol_out} x each row set's own max|ref|: "
+          f"{'; '.join(said)}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; l rtol {tol_l}: "
+          f"{l_rel:.3e}; a second run bit-equal)"
           + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
@@ -454,11 +475,16 @@ def phase_k2():
           [1] * 8)
     served = _k2_case("led_base", led, torch.bfloat16, library=True)
     _k2_case("led_base", led, torch.float32)
-    _k2_case("longformer_base", lf, torch.bfloat16)
+    _k2_case("longformer_base", lf, torch.bfloat16, library=True)
     _k2_case("longformer_base", lf, torch.float32)
     # the LED encoder layer of the long-source slice (the plain version on 2
     # of the 4 batches: its [B, nh, T/w, w, 3w] f32 band tensors)
     _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
+    # the fixture's padding and the LED's valid globals, at the standing and
+    # the long-source slices' lengths
+    _k2_case("led_base_fixture", LED_FIXTURE, torch.bfloat16, library=True)
+    _k2_case("led_base_16k_fixture", LED_16K_FIXTURE, torch.bfloat16, plain_b=2,
+             library=True)
     return served
 
 
@@ -658,6 +684,7 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     g, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=21)
     out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
     ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
+    again = flash_dense_attention(q, k, v, kb, causal=causal)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     bwd = (q, k, v, kb, do, m, l, row_delta(do, out))
     got = flash_dense_backward(*bwd, causal=causal)
@@ -666,6 +693,8 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     tol = _grad_tol(dtype)
     what = f"{name} {dtype}"
     err4 = _compare(f"K4 {what}", [out], [ref], tol)
+    check(all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again)),
+          f"K4 {what}: a second run gave other bits")
     check(torch.allclose(m, ref_m, rtol=1e-6, atol=1e-3), f"K4 {what}: m differs")
     check(bool(((l - ref_l).abs() / ref_l).max() <= 1e-3), f"K4 {what}: l differs")
     err5 = _compare(f"K5 {what}", got, ref_g, tol)
@@ -687,7 +716,7 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
                  *_sdpa_ms(q, k, v, kb, do, causal)]
     shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
     print(f"[K4] {what}: {shape}: PASS (out within {tol} x max|ref|: {err4:.3e}; "
-          f"m atol 1e-3, l rtol 1e-3)"
+          f"m atol 1e-3, l rtol 1e-3; a second run bit-equal)"
           + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
              f"bound {bound4['bound_ms']:.3f} ms ({bound4['bound_by']})" if timed else ""))
     print(f"[K5] {what}: {shape}: PASS (dq, dk, dv within {tol} x max|ref|: "
@@ -1530,7 +1559,8 @@ LONG_SOURCE = 16384  # the LED's max_src_len (models/config.py)
 # standing slice's. On an H100 the refresh swapped the second row of every
 # example (554 for 556), which moved the loss by 6.9e-4 and 1.24e-3,
 # against 4.3e-5 and 5.3e-5 at the steps that retrieved the same rows:
-# held at 4x the larger swap
+# held at 4x the larger swap. The same rows in another order count as the
+# same rows (losses within 4.3e-5 of each other on an H100)
 RETRIEVAL_FLIP_RTOL = 5e-3
 
 
@@ -1544,8 +1574,11 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
     at the standing slice's 2048 tokens, both slices see the same tokens,
     and each step's loss is held to the standing slice's. A step that
     retrieved the same rows in both must agree to rtol 1e-4 (bf16 roundings
-    differ: K6 rounds p to bf16 as an operand where K4 keeps it in f32, K7
-    recomputes p from one LSE, K5 from m and l). Those roundings also move
+    differ: K4 and K6 run one forward kernel, which rounds p to bf16 as an
+    operand and skips the same padded tiles in both slices, but K7
+    recomputes p from one LSE where K5 recomputes it from m and l, and the
+    GEMMs around them run over 16384 source rows instead of 2048). Those
+    roundings also move
     the parameters a little, so after a store refresh a nearly tied search
     (random weights) may retrieve another row for an example; the memory
     then differs, and such a step is held to `RETRIEVAL_FLIP_RTOL`."""
@@ -1583,7 +1616,8 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
         check(len(base["retrieved"]) == len(summary["retrieved"]) == TRAIN_STEPS,
               "long: a step searched no store")
         for i, (a, b) in enumerate(zip(base["retrieved"], summary["retrieved"])):
-            swapped = (a != b).any(1).nonzero().flatten().tolist()
+            # the same rows in another order (a near tie) is the same memory
+            swapped = (a.sort(1).values != b.sort(1).values).any(1).nonzero().flatten().tolist()
             tol = RETRIEVAL_FLIP_RTOL if swapped else 1e-4
             check(rel[i] <= tol, f"long: step {i} loss {got[i]} differs from the standing "
                   f"slice's {ref[i]} on the same tokens by rel {rel[i]:.3e} > {tol}")
@@ -1592,7 +1626,8 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
                       f"other rows retrieved for example(s) {swapped} (standing "
                       f"{a[swapped].tolist()}, long {b[swapped].tolist()}): loss within "
                       f"rtol {tol}" if swapped else
-                      f"the same rows retrieved: loss within rtol {tol}")
+                      f"the same rows retrieved{' (in another order)' if (a != b).any() else ''}: "
+                      f"loss within rtol {tol}")
                   + f", rel diff {rel[i]:.3e}: PASS")
     print("[long] against the standing train slice of this call: " + "; ".join(
         f"{k} {base[k]:.3f} -> {summary[k]:.3f}" + (" GiB" if k == "peak_gib" else " s")

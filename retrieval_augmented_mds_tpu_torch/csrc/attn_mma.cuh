@@ -246,14 +246,16 @@ __device__ __forceinline__ int next_marked_tile(int kt, int n, const Marked& mar
 }
 
 // Shared tiles of the forward: the CTA's 64 query rows, two buffers of the
-// walked key tile (keys, values, key bias), and the sum of the values of
-// the keys a causal block skips (a fully masked row's closed form).
+// walked key tile (keys, values, key bias), and the sums of the values of
+// the keys a fully masked row has as columns but the walk skipped (its
+// closed form): the keys past a causal block, or, for a sliding block,
+// the window keys out of its walk, one sum per w-block the rows lie in.
 template <int DH>
 struct FwdTiles {
   bf16 q[kRows][DH + kPad];
   bf16 k[2][kTile][DH + kPad], v[2][kTile][DH + kPad];
   float bias[2][kTile];
-  float vsum[DH];
+  float vsum[2][DH];
   unsigned probe[2][kWarps];
 };
 

@@ -1,7 +1,7 @@
 // Tile routines shared by the attention kernels (forward and backward).
 //
-// All of them work on f32 CUDA cores in CTAs of 4 warps (bf16 K3, K5, K6
-// and K7 run on tensor cores instead: attn_mma.cuh).
+// All of them work on f32 CUDA cores in CTAs of 4 warps, for the f32
+// attention kernels (the bf16 ones run on tensor cores: attn_mma.cuh).
 // A forward CTA owns BQ query rows (R per warp) and walks key tiles of 32
 // (lane = key for the scores, lane = head dim for the accumulator), with an
 // online softmax in f32. A backward CTA either owns query rows and walks
@@ -13,7 +13,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 
@@ -27,11 +26,6 @@ constexpr int kBK = 32;        // keys (or queries) per staged tile: one per lan
 constexpr float kDegenerate = kMaskVal + 1000.f;
 // the same for a row's log-sum-exp: -1e9 + log S rounds to -1e9 in f32
 constexpr float kLseDegenerate = -1e8f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -81,26 +75,26 @@ __device__ void init_rows(Rows<DH>& st) {
 
 // Stage BQ rows of src (row stride DH) from row0, times mul; rows at or
 // past `end` are zero.
-template <int DH, int N, typename T>
-__device__ void stage_block(float (&dst)[N][DH], const T* __restrict__ src, int row0,
+template <int DH, int N>
+__device__ void stage_block(float (&dst)[N][DH], const float* __restrict__ src, int row0,
                             int end, float mul) {
   for (int i = threadIdx.x; i < N * DH; i += kThreads) {
     const int j = i / DH, pos = row0 + j;
-    dst[j][i % DH] = pos < end ? to_f(src[(long)pos * DH + i % DH]) * mul : 0.f;
+    dst[j][i % DH] = pos < end ? src[(long)pos * DH + i % DH] * mul : 0.f;
   }
 }
 
 // Stage keys/values src[pos0 + j] (j < kBK, valid while pos0 + j < end) into
 // shared memory; invalid slots are zero.
-template <int DH, typename T>
-__device__ void stage(Smem<DH>& sm, const T* __restrict__ k, const T* __restrict__ v,
+template <int DH>
+__device__ void stage(Smem<DH>& sm, const float* __restrict__ k, const float* __restrict__ v,
                       int pos0, int end) {
   for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
     const int j = i / DH, d = i % DH, pos = pos0 + j;
     float kv = 0.f, vv = 0.f;
     if (pos < end) {
-      kv = to_f(k[(long)pos * DH + d]);
-      vv = to_f(v[(long)pos * DH + d]);
+      kv = k[(long)pos * DH + d];
+      vv = v[(long)pos * DH + d];
     }
     sm.k[d][j] = kv;
     sm.v[j][d] = vv;
@@ -175,8 +169,8 @@ __device__ void add_masked_columns(Rows<DH>& st, float count, const float* vsum)
 
 // out = acc / l for the warp's rows (those below t_len), with m and l; with
 // l == nullptr, m receives the log-sum-exp m + log l instead.
-template <int DH, typename T>
-__device__ void write_rows(const Rows<DH>& st, T* __restrict__ out, float* __restrict__ m,
+template <int DH>
+__device__ void write_rows(const Rows<DH>& st, float* __restrict__ out, float* __restrict__ m,
                            float* __restrict__ l, int row0, int t_len) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -185,7 +179,7 @@ __device__ void write_rows(const Rows<DH>& st, T* __restrict__ out, float* __res
     if (qp >= t_len) continue;
 #pragma unroll
     for (int dd = 0; dd < Tile<DH>::DV; ++dd)
-      store(&out[(long)qp * DH + lane + 32 * dd], st.acc[r][dd] / st.l[r]);
+      out[(long)qp * DH + lane + 32 * dd] = st.acc[r][dd] / st.l[r];
     if (lane == 0 && l == nullptr) {
       m[qp] = st.m[r] + logf(st.l[r]);
     } else if (lane == 0) {
@@ -210,12 +204,12 @@ struct Logit {
 
 // Transposed stage of a 32-row tile: dst[d][j] = src[pos0 + j][d] * mul,
 // zero at or past `end`.
-template <int DH, typename T>
-__device__ void stage_t(float (&dst)[DH][kBK + 1], const T* __restrict__ src, int pos0,
+template <int DH>
+__device__ void stage_t(float (&dst)[DH][kBK + 1], const float* __restrict__ src, int pos0,
                         int end, float mul) {
   for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
     const int j = i / DH, d = i % DH, pos = pos0 + j;
-    dst[d][j] = pos < end ? to_f(src[(long)pos * DH + d]) * mul : 0.f;
+    dst[d][j] = pos < end ? src[(long)pos * DH + d] * mul : 0.f;
   }
 }
 
@@ -335,9 +329,9 @@ struct DkvSmem {
 };
 
 // Stage the query tile pos0.. (32 rows, valid below t_len) and its stats.
-template <int DH, typename T, typename Stats>
-__device__ void stage_queries(DkvSmem<DH>& sm, const T* __restrict__ q,
-                              const T* __restrict__ dout, const Stats& st,
+template <int DH, typename Stats>
+__device__ void stage_queries(DkvSmem<DH>& sm, const float* __restrict__ q,
+                              const float* __restrict__ dout, const Stats& st,
                               const float* __restrict__ delta, int pos0, int t_len,
                               float scale) {
   stage_t<DH>(sm.q, q, pos0, t_len, scale);
@@ -405,8 +399,8 @@ __device__ void dkv_tile(DkvSmem<DH>& sm, int r0, bool in, const Mask& mask,
 }
 
 // Store R rows of a [*, DH] accumulator (times mul) for rows below end.
-template <int DH, typename T>
-__device__ void write_acc(const float (&acc)[Tile<DH>::R][Tile<DH>::DV], T* __restrict__ dst,
+template <int DH>
+__device__ void write_acc(const float (&acc)[Tile<DH>::R][Tile<DH>::DV], float* __restrict__ dst,
                           int row0, int end, float mul) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -414,7 +408,7 @@ __device__ void write_acc(const float (&acc)[Tile<DH>::R][Tile<DH>::DV], T* __re
     if (row0 + r >= end) continue;
 #pragma unroll
     for (int dd = 0; dd < Tile<DH>::DV; ++dd)
-      store(&dst[(long)(row0 + r) * DH + lane + 32 * dd], acc[r][dd] * mul);
+      dst[(long)(row0 + r) * DH + lane + 32 * dd] = acc[r][dd] * mul;
   }
 }
 

@@ -22,33 +22,32 @@
 // here one CTA walks all key tiles of its rows itself, an online softmax,
 // so S has no cap and the LSE comes out of the CTA's own loop.
 //
-// - bf16 K6 (the long-source slice): tensor-core issue, then the bytes of
-//   K and V (read once per 64-row block). One CTA of 4 warps owns 64 query
-//   rows (16 per warp) and walks 64-key tiles that `cp.async` brings into
-//   two buffers, so the next tile loads while this one computes
-//   (attn_mma.cuh). S = Q K^T and O += P V are `mma.sync` m16n8k16 MMAs on
-//   bf16 shared-memory tiles with f32 accumulators; the bias, the causal
-//   mask and the online softmax (row max and sum over the 4 lanes of a
-//   quad) run on the C fragments, P is rounded to bf16 only as an operand.
-//   Padding: the fixture's 16384-token sources are 97% padding. A key tile
-//   whose every bias is -1e9 gives a row with an open key p = exp(<= -9e8 +
+// - bf16 (K4 on every led_base slice, K6 on the long-source one): tensor-
+//   core issue, then the bytes of K and V (read once per 64-row block).
+//   One CTA of 4 warps owns 64 query rows (16 per warp) and walks 64-key
+//   tiles that `cp.async` brings into two buffers, so the next tile loads
+//   while this one computes (attn_mma.cuh). S = Q K^T and O += P V are
+//   `mma.sync` m16n8k16 MMAs on bf16 shared-memory tiles with f32
+//   accumulators; the bias, the causal mask and the online softmax (row
+//   max and sum over the 4 lanes of a quad) run on the C fragments, P is
+//   rounded to bf16 only as an operand.
+//   Padding: the fixture's sources are 64-97% padding. A key tile whose
+//   every bias is -1e9 gives a row with an open key p = exp(<= -9e8 +
 //   s - m) = 0, and the rescale exp(m_old - m_new) of an earlier such tile
 //   is 0 as well, so skipping it gives the same sums: a block whose every
 //   row has an open key (its first row sees one) visits only the tiles
 //   that hold one, found by a ballot probe of 16 tiles per barrier. A block
 //   with a fully masked row walks every tile, as the uniform row needs.
-//   The stats output (lse, or m and l) is a template parameter.
-// - K4 and f32 K6: the f32 CUDA-core tiles of attn_tile.cuh (one CTA per
-//   (batch*head, 32 or 16 query rows), 32-key tiles, no skip), FMA and
-//   shared-memory issue bound.
+//   The stats output (lse for K6, m and l for K4) is a template parameter.
+// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
+//   tiles of attn_tile.cuh (one CTA per (batch*head, 32 or 16 query rows),
+//   32-key tiles, no skip), FMA and shared-memory issue bound.
 //
 // Ragged T and S are masked inside the kernels. With `causal` a CTA walks
 // only the keys up to its last row; when one of its rows is fully masked
 // (every key it sees carries -1e9, as for an all-padding source), it adds
 // the skipped keys, all exactly -1e9, in closed form, so such a row comes
 // out uniform over all S keys, as the plain composite makes it.
-
-#include <type_traits>
 
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
@@ -57,12 +56,13 @@ namespace {
 
 using namespace attn;
 
-// kLse: write lse = m + log l into m_out (K6) instead of m and l (K4)
-template <int DH, typename T, bool kLse>
+// f32 on the CUDA cores. kLse: write lse = m + log l into m_out (K6)
+// instead of m and l (K4).
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ key_bias,
-                 T* __restrict__ out, float* __restrict__ m_out,
+dense_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ key_bias,
+                 float* __restrict__ out, float* __restrict__ m_out,
                  float* __restrict__ l_out, int nh, int T_len, int S_len,
                  int causal, float scale) {
   constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R;
@@ -100,7 +100,7 @@ dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (__syncthreads_or(degenerate)) {
       for (int d = threadIdx.x; d < DH; d += kThreads) {
         float sum = 0.f;
-        for (int pos = hi; pos < S_len; ++pos) sum += to_f(v[kbase + (long)pos * DH + d]);
+        for (int pos = hi; pos < S_len; ++pos) sum += v[kbase + (long)pos * DH + d];
         sm.v[0][d] = sum;
       }
       __syncthreads();
@@ -112,7 +112,7 @@ dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // bf16 on the tensor cores. kLse: write lse = m + log l into m_out (K6)
-// instead of m and l.
+// instead of m and l (K4).
 template <int DH, bool kLse>
 __global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
 mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -223,7 +223,7 @@ mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         float sum = 0.f;
         for (int pos = hi; pos < S_len; ++pos)
           sum += __bfloat162float(v[kbase + (long)pos * DH + d]);
-        sm.vsum[d] = sum;
+        sm.vsum[0][d] = sum;
       }
       __syncthreads();
       const float count = static_cast<float>(S_len - hi);
@@ -238,7 +238,7 @@ mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         for (int jd = 0; jd < DH / 8; ++jd) {
 #pragma unroll
           for (int c2 = 0; c2 < 2; ++c2)
-            acc[jd][2 * h + c2] = acc[jd][2 * h + c2] * a + pd * sm.vsum[8 * jd + 2 * t + c2];
+            acc[jd][2 * h + c2] = acc[jd][2 * h + c2] * a + pd * sm.vsum[0][8 * jd + 2 * t + c2];
         }
       }
     }
@@ -273,65 +273,39 @@ int launch_mma(const void* q, const void* k, const void* v, const void* kb, void
                     scale);
 }
 
-template <int DH, typename T, bool kLse>
+template <int DH, bool kLse>
 int launch(const void* q, const void* k, const void* v, const void* kb, void* out,
            void* m, void* l, int BH, int nh, int T_len, int S_len, int causal,
            float scale, cudaStream_t s) {
   const dim3 grid((T_len + Tile<DH>::BQ - 1) / Tile<DH>::BQ, BH);
-  dense_fwd_kernel<DH, T, kLse><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(kb), static_cast<T*>(out), static_cast<float*>(m),
-      static_cast<float*>(l), nh, T_len, S_len, causal, scale);
+  dense_fwd_kernel<DH, kLse><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(kb),
+      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l), nh, T_len,
+      S_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
-// bf16 K6 on the tensor cores; K4 and f32 on the CUDA cores
-template <typename T, bool kLse>
-int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
-              void* out, void* m, void* l, int BH, int nh, int T_len, int S_len,
-              int causal, float scale, cudaStream_t s) {
-  if constexpr (kLse && std::is_same<T, __nv_bfloat16>::value) {
-#define ARGS q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s
-    switch (dh) {
-      case 32:
-        return launch_mma<32, kLse>(ARGS);
-      case 64:
-        return launch_mma<64, kLse>(ARGS);
-      case 128:
-        return launch_mma<128, kLse>(ARGS);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-#undef ARGS
-  } else {
-    switch (dh) {
-      case 32:
-        return launch<32, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
-                                   scale, s);
-      case 64:
-        return launch<64, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
-                                   scale, s);
-      case 128:
-        return launch<128, T, kLse>(q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
-                                    scale, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-}
-
+// dtype 0 (f32) on the CUDA cores, 1 (bf16) on the tensor cores
 template <bool kLse>
 int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
                  const void* kb, void* out, void* m, void* l, int BH, int nh, int T_len,
                  int S_len, int causal, float scale, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float, kLse>(dh, q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal,
-                                  scale, s);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16, kLse>(dh, q, k, v, kb, out, m, l, BH, nh, T_len, S_len,
-                                          causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+#define ARGS q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s
+  switch (dh) {
+    case 32:
+      return bf16 ? launch_mma<32, kLse>(ARGS) : launch<32, kLse>(ARGS);
+    case 64:
+      return bf16 ? launch_mma<64, kLse>(ARGS) : launch<64, kLse>(ARGS);
+    case 128:
+      return bf16 ? launch_mma<128, kLse>(ARGS) : launch<128, kLse>(ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
 }
 
 }  // namespace

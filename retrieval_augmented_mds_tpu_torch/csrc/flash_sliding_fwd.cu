@@ -16,34 +16,57 @@
 // row). A fully masked row therefore comes out uniform over those 3w + G
 // columns, which is what the backward's m/l contract needs.
 //
-// What bounds it on an H100: per row it reads ~2w+32 keys and values that
-// neighbouring rows share through shared memory, so HBM traffic is about
-// the q/k/v/out streams; the 4*dh*(2w+32) flops per row run on the f32
-// CUDA cores (no wgmma yet), so the kernel is bound by FMA and
-// shared-memory issue.
+// What bounds it on an H100, and what the design does about it: per row
+// the kernel reads ~2w keys and values that neighbouring rows share, so
+// one CTA owns a block of rows and walks only the keys any of them can
+// see, [q0 - w, q0 + rows + w) clipped to [0, T), then the globals, in one
+// online softmax; HBM traffic is then about the q/k/v/out streams.
 //
-// Design: one CTA (4 warps) per (batch*head, tile of BQ query rows); BQ
-// divides w, so all rows of a CTA share one window. The CTA walks only the
-// keys any of its rows can see, [q0-w, q0+BQ+w) clipped to [0, T), in
-// 32-key tiles staged in shared memory (K transposed, padded against bank
-// conflicts), then the globals in 32-key tiles, with an online softmax in
-// f32 (lane = key for the scores, lane = head dim for the accumulator).
-// Window columns it skipped all hold exactly -1e9; they only matter for a
-// row whose max is still about -1e9 (fully masked), so such CTAs add them
-// afterwards in closed form: their count and the sum of their value rows.
+// - bf16 (every led_base slice): tensor-core issue, then those bytes. One
+//   CTA of 4 warps owns 64 query rows (16 per warp) and walks 64-key tiles
+//   that `cp.async` brings into two buffers (attn_mma.cuh): S = Q K^T and
+//   O += P V are `mma.sync` m16n8k16 MMAs with f32 accumulators; masks and
+//   the online softmax run on the C fragments, P is rounded to bf16 only
+//   as an operand. Masks apply per element: a 64-row block spans two
+//   w-blocks when w is not a multiple of 64, so each row tests a key
+//   against its own band and its own window (a walked key outside the
+//   row's window is no column of it at all).
+//   Padding: a band key tile whose every key_bias is -1e9 adds exactly
+//   nothing to a row with an open column (p = exp(<= -9e8 + s - m) = 0,
+//   and the rescale of an earlier such tile is 0 too). The forward has no
+//   m beforehand, so the block decides from its inputs before the walk:
+//   every row has an open column when the batch has a valid global (every
+//   row sees every global; the LED and the Longformer make token 0 a
+//   global wherever it is not padding). Such a block visits only the
+//   tiles that hold an open key or an open global, marked once in a 64-bit
+//   mask before the walk; the LED's padded rows then cost one tile. A
+//   block of a batch with no valid global walks every tile, and a fully
+//   masked row adds the window keys out of its walk in closed form, per
+//   w-block.
+// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
+//   tiles of attn_tile.cuh, one CTA per (batch*head, tile of BQ query rows)
+//   with BQ dividing w, so all rows of a CTA share one window; 32-key
+//   tiles staged in shared memory (K transposed, padded against bank
+//   conflicts), an online softmax in f32 (lane = key for the scores, lane =
+//   head dim for the accumulator), no skip. Window columns it skipped all
+//   hold exactly -1e9; they only matter for a row whose max is still about
+//   -1e9 (fully masked), so such CTAs add them afterwards in closed form:
+//   their count and the sum of their value rows. FMA and shared-memory
+//   issue bound.
 
+#include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ key_bias,
-                   const T* __restrict__ kg, const T* __restrict__ vg,
-                   const float* __restrict__ g_bias, T* __restrict__ out,
+sliding_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ key_bias,
+                   const float* __restrict__ kg, const float* __restrict__ vg,
+                   const float* __restrict__ g_bias, float* __restrict__ out,
                    float* __restrict__ m_out, float* __restrict__ l_out, int nh,
                    int T_len, int w, int G, float scale) {
   constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R;
@@ -102,7 +125,7 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = threadIdx.x; d < DH; d += kThreads) {
       float sum = 0.f;
       for (int pos = max(wlo, 0); pos < min(whi, T_len); ++pos)
-        if (pos < lo || pos >= hi) sum += to_f(v[base + (long)pos * DH + d]);
+        if (pos < lo || pos >= hi) sum += v[base + (long)pos * DH + d];
       sm.v[0][d] = sum;
     }
     __syncthreads();
@@ -112,59 +135,274 @@ sliding_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  q0 + r0, T_len);
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, const void* kb,
-           const void* kg, const void* vg, const void* gb, void* out, void* m,
-           void* l, int B, int nh, int T_len, int w, int G, float scale,
-           cudaStream_t s) {
-  const dim3 grid(T_len / Tile<DH>::BQ, B * nh);
-  sliding_fwd_kernel<DH, T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(kb), static_cast<const T*>(kg),
-      static_cast<const T*>(vg), static_cast<const float*>(gb),
-      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), nh,
-      T_len, w, G, scale);
+// bf16 on the tensor cores: 64 rows a CTA, any T and w that are multiples
+// of 32 with w dividing T.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
+sliding_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+                       const __nv_bfloat16* __restrict__ kg,
+                       const __nv_bfloat16* __restrict__ vg, const float* __restrict__ g_bias,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int nh, int T_len, int w, int G,
+                       float scale) {
+  using namespace attn::mma;
+  static_assert(kThreads >= 2 * kTile, "a thread per global tests the globals");
+  extern __shared__ __align__(16) unsigned char smem[];
+  FwdTiles<DH>& sm = *reinterpret_cast<FwdTiles<DH>*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / nh, q0 = blockIdx.x * kRows;
+  const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
+  const float* kb = key_bias + (long)b * T_len;
+  const float* gb = g_bias + (long)b * G;
+
+  load_rows<DH, kRows>(&sm.q[0][0], q + base, q0, T_len);
+  cp_async_commit();
+  // this lane's two rows (g and g + 8 of the warp's 16) and the window of
+  // each: its w-block and the two beside it
+  int row[2], wlo[2], whi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = q0 + warp * 16 + g + 8 * h;
+    wlo[h] = (row[h] / w - 1) * w;
+    whi[h] = wlo[h] + 3 * w;
+  }
+  // the band keys any row of the block can see, then the globals
+  const int qend = min(q0 + kRows, T_len);
+  const int lo = max(q0 - w, 0), hi = min(qend + w, T_len);
+  const int nb = (hi - lo + kTile - 1) / kTile, n = nb + (G + kTile - 1) / kTile;
+  // keys in the band of every row of the block, [qend - 1 - w, q0 + w]
+  const int clo = max(qend - 1 - w, 0), chi = min(q0 + w + 1, T_len);
+
+  // every row has an open column if the batch has a valid global: then a
+  // tile with no open key or global adds exactly nothing
+  bool skip = __syncthreads_or(threadIdx.x < G && gb[threadIdx.x] > kMaskVal);
+  // Such a block marks, once, the tiles that hold an open key or global
+  // (bit i: tile i; at most 64 tiles, past that it walks every tile), so
+  // the walk issues each tile's loads with no probe of the bias between.
+  __shared__ unsigned long long marked;
+  skip = skip && n <= 64;
+  if (threadIdx.x == 0) marked = 0;
+  __syncthreads();
+  if (skip) {
+    unsigned long long mine = 0;
+    for (int p = threadIdx.x; p < hi - lo; p += kThreads)
+      if (kb[lo + p] > kMaskVal) mine |= 1ull << (p / kTile);
+    if (threadIdx.x < G && gb[threadIdx.x] > kMaskVal)
+      mine |= 1ull << (nb + threadIdx.x / kTile);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mine |= __shfl_xor_sync(0xffffffffu, mine, o);
+    if (lane == 0 && mine) atomicOr(&marked, mine);
+  }
+  __syncthreads();
+  const unsigned long long walk = marked;
+  const auto next = [&](int it) {
+    if (it >= n || !skip) return it;
+    const unsigned long long rest = walk >> it;
+    return rest ? it + __ffsll(static_cast<long long>(rest)) - 1 : n;
+  };
+  const auto fetch = [&](int it, int buf) {
+    if (it < nb) {
+      const int k0 = lo + it * kTile;
+      load_rows<DH, kTile>(&sm.k[buf][0][0], k + base, k0, hi);
+      load_rows<DH, kTile>(&sm.v[buf][0][0], v + base, k0, hi);
+      load_vec<kTile>(sm.bias[buf], kb, k0, hi);
+    } else if (it < n) {
+      const int g0 = (it - nb) * kTile;
+      load_rows<DH, kTile>(&sm.k[buf][0][0], kg + gbase, g0, G);
+      load_rows<DH, kTile>(&sm.v[buf][0][0], vg + gbase, g0, G);
+      load_vec<kTile>(sm.bias[buf], gb, g0, G);
+    }
+    cp_async_commit();
+  };
+
+  // running max (from -FLT_MAX: a row may have no column in a tile), this
+  // lane's share of the denominator, the accumulator
+  float acc[DH / 8][4] = {}, mr[2] = {-FLT_MAX, -FLT_MAX}, lr[2] = {0.f, 0.f};
+  int cur = next(0), buf = 0;
+  fetch(cur, 0);
+  while (cur < n) {
+    const int nxt = next(cur + 1);
+    fetch(nxt, buf ^ 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const bool band = cur < nb;
+    const int c0 = band ? lo + cur * kTile : (cur - nb) * kTile;  // first key or global
+    // a band tile in the band of every row, inside [lo, hi): no mask
+    const bool inner = band && c0 >= clo && c0 + kTile <= min(chi, hi);
+    float s[kTile / 8][4] = {};
+    mma_xyt<DH, kTile>(s, &sm.q[warp * 16][0], &sm.k[buf][0][0]);
+    float mx[2] = {mr[0], mr[1]};
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, c = 8 * j + 2 * t + (e & 1), col = c0 + c;
+        const float logit = s[j][e] * scale + sm.bias[buf][c];
+        float x = logit;
+        if (!band) {
+          x = col < G ? logit : -INFINITY;
+        } else if (!inner) {
+          // not a column of this row: past the walk or out of its window;
+          // a window column out of its band: exactly -1e9
+          x = col >= hi || col < wlo[h] || col >= whi[h] ? -INFINITY
+              : abs(col - row[h]) <= w                  ? logit
+                                                        : kMaskVal;
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);  // >= -FLT_MAX: never -inf
+      alpha[h] = __expf(mr[h] - mx[h]);
+      mr[h] = mx[h];
+      lr[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = __expf(s[j][e] - mr[h]);
+        lr[h] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int jd = 0; jd < DH / 8; ++jd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+    }
+    uint32_t pa[kTile / 16][4];
+    to_a<kTile>(pa, s);
+    mma_py<DH, kTile>(acc, pa, &sm.v[buf][0][0]);
+    __syncthreads();
+    cur = nxt;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lr[h] = quad_sum(lr[h]);
+
+  // fully masked rows (only in a block that walked every tile): add the
+  // window columns out of [lo, hi), all exactly -1e9, in closed form. The
+  // block's rows lie in w-blocks n0 and n0 + 1 (64 <= 2w).
+  bool degenerate = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) degenerate |= row[h] < T_len && mr[h] < kDegenerate;
+  if (!skip && __syncthreads_or(degenerate)) {
+    const int n0 = q0 / w;
+    for (int i = threadIdx.x; i < 2 * DH; i += kThreads) {
+      const int wb = n0 + i / DH, d = i % DH;
+      const int a = max((wb - 1) * w, 0), z = min((wb + 2) * w, T_len);
+      float sum = 0.f;
+      for (int pos = a; pos < min(z, lo); ++pos)
+        sum += __bfloat162float(v[base + (long)pos * DH + d]);
+      for (int pos = max(a, hi); pos < z; ++pos)
+        sum += __bfloat162float(v[base + (long)pos * DH + d]);
+      sm.vsum[i / DH][d] = sum;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= T_len || !(mr[h] < kDegenerate)) continue;
+      // the window's 3w columns (positions outside [0, T) included) less
+      // the ones walked
+      const int walked = max(min(hi, whi[h]) - max(lo, wlo[h]), 0);
+      const float count = static_cast<float>(3 * w - walked);
+      const float* vs = sm.vsum[row[h] / w - n0];
+      const float mn = fmaxf(mr[h], kMaskVal);
+      const float a = expf(mr[h] - mn), pd = expf(kMaskVal - mn);
+      lr[h] = lr[h] * a + count * pd;
+      mr[h] = mn;
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2)
+          acc[jd][2 * h + c2] = acc[jd][2 * h + c2] * a + pd * vs[8 * jd + 2 * t + c2];
+      }
+    }
+  }
+  const float inv[2] = {1.f / lr[0], 1.f / lr[1]};
+  store_rows<DH>(acc, out + base, q0 + warp * 16, T_len, inv);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= T_len) continue;
+      m_out[(long)bh * T_len + row[h]] = mr[h];
+      l_out[(long)bh * T_len + row[h]] = lr[h];
+    }
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* kb, const void* kg,
+           const void* vg, const void* gb, void* out, void* m, void* l, int BH, int nh,
+           int T_len, int w, int G, float scale, cudaStream_t s) {
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const dim3 grid(T_len / Tile<DH>::BQ, BH);
+  sliding_fwd_kernel<DH><<<grid, kThreads, 0, s>>>(
+      cf(q), cf(k), cf(v), cf(kb), cf(kg), cf(vg), cf(gb), static_cast<float*>(out),
+      static_cast<float*>(m), static_cast<float*>(l), nh, T_len, w, G, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
-              const void* kg, const void* vg, const void* gb, void* out, void* m,
-              void* l, int B, int nh, int T_len, int w, int G, float scale,
-              cudaStream_t s) {
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, const void* kb, const void* kg,
+               const void* vg, const void* gb, void* out, void* m, void* l, int BH, int nh,
+               int T_len, int w, int G, float scale, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const auto cq = [](const void* p) { return static_cast<const bf16*>(p); };
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  return launch_dyn(sliding_mma_fwd_kernel<DH>,
+                    dim3((T_len + mma::kRows - 1) / mma::kRows, BH), sizeof(mma::FwdTiles<DH>),
+                    s, cq(q), cq(k), cq(v), cf(kb), cq(kg), cq(vg), cf(gb),
+                    static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
+                    nh, T_len, w, G, scale);
+}
+
+// dtype 0 (f32) on the CUDA cores, 1 (bf16) on the tensor cores
+int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
+                 const void* kb, const void* kg, const void* vg, const void* gb, void* out,
+                 void* m, void* l, int BH, int nh, int T_len, int w, int G, float scale,
+                 cudaStream_t s) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+#define ARGS q, k, v, kb, kg, vg, gb, out, m, l, BH, nh, T_len, w, G, scale, s
   switch (dh) {
     case 32:
-      return launch<32, T>(q, k, v, kb, kg, vg, gb, out, m, l, B, nh, T_len, w, G, scale, s);
+      return bf16 ? launch_mma<32>(ARGS) : launch<32>(ARGS);
     case 64:
-      return launch<64, T>(q, k, v, kb, kg, vg, gb, out, m, l, B, nh, T_len, w, G, scale, s);
+      return bf16 ? launch_mma<64>(ARGS) : launch<64>(ARGS);
     case 128:
-      return launch<128, T>(q, k, v, kb, kg, vg, gb, out, m, l, B, nh, T_len, w, G, scale, s);
+      return bf16 ? launch_mma<128>(ARGS) : launch<128>(ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef ARGS
 }
 
 }  // namespace
 
-// Query-row tile of the dh variant: T and w must be multiples of it.
-extern "C" int sliding_fwd_block_rows(int dh) {
+// The granule of the window for a dtype and head dim: w must be a multiple
+// of it, and T a multiple of w. f32: the CUDA-core kernel's query tile (32
+// rows; 16 at dh 128); bf16: 32 (a 64-row block then spans at most two
+// w-blocks).
+extern "C" int sliding_fwd_block_rows(int dtype, int dh) {
+  if (dtype == 1) return 32;
   return dh >= 128 ? attn::Tile<128>::BQ : attn::Tile<64>::BQ;
 }
 
 // dtype: 0 = f32, 1 = bf16. q/k/v/out [B*nh, T, dh]; key_bias [B, T] f32;
-// kg/vg [B*nh, G, dh]; g_bias [B, G] f32; m/l [B*nh, T] f32.
+// kg/vg [B*nh, G, dh]; g_bias [B, G] f32 (1 <= G <= 128); m/l [B*nh, T] f32.
 extern "C" int sliding_fwd_launch(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* kg,
                                   const void* vg, const void* g_bias, void* out,
                                   void* m, void* l, int dtype, int B, int nh,
                                   int T_len, int dh, int w, int G, float scale,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float>(dh, q, k, v, key_bias, kg, vg, g_bias, out, m, l, B,
-                            nh, T_len, w, G, scale, s);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, key_bias, kg, vg, g_bias, out,
-                                    m, l, B, nh, T_len, w, G, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype(dtype, dh, q, k, v, key_bias, kg, vg, g_bias, out, m, l, B * nh, nh,
+                      T_len, w, G, scale, static_cast<cudaStream_t>(stream));
 }

@@ -13,8 +13,12 @@ delta = rowsum(dO * out) and calls the backward of
 ``flash_sliding_bwd.py`` (kernel K3 on the card). Routing is by device: a
 CPU tensor goes to `local_rows_plain` and the plain backward, a CUDA
 tensor to the kernels in ``csrc/flash_sliding_fwd.cu`` (K2) and
-``csrc/flash_sliding_bwd.cu`` (K3); no fallback. The masks ``key_bias``
-and ``g_bias`` get zero gradients.
+``csrc/flash_sliding_bwd.cu`` (K3); no fallback. In bf16 both run on the
+tensor cores and skip the band key tiles that ``key_bias`` masks whole
+for a block of rows that each have an open column (K2 decides it from
+the inputs: the batch has a valid global, or a key open to every row of
+the block); in f32 both run on the CUDA cores and compute every key.
+The masks ``key_bias`` and ``g_bias`` get zero gradients.
 """
 
 from __future__ import annotations
@@ -83,9 +87,11 @@ def local_rows_plain(q, k, v, key_bias, kg, vg, g_bias, window,
 
 def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
                             return_stats: bool = False):
-    """The CUDA kernel. Same arguments and results as `local_rows_plain`;
-    needs dh in {32, 64, 128}, G <= 128, and T and w multiples of the
-    kernel's query tile (32 rows; 16 at dh=128)."""
+    """Kernel K2. Same arguments and results as `local_rows_plain`; needs
+    dh in {32, 64, 128}, 1 <= G <= 128 and T a multiple of the window. The
+    window is a multiple of 32 in bf16 (the tensor-core kernel, as K3
+    takes it), and of the f32 kernel's query tile (32 rows; 16 at dh=128)
+    in f32."""
     from .cuda_build import check, load
 
     b, nh, t, dh = q.shape
@@ -111,12 +117,12 @@ def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
         raise ValueError(f"head dim {dh} not in (32, 64, 128)")
     lib = load("flash_sliding_fwd")
     lib.sliding_fwd_block_rows.restype = ctypes.c_int
-    lib.sliding_fwd_block_rows.argtypes = [ctypes.c_int]
-    bq = lib.sliding_fwd_block_rows(dh)
-    if t % window or window % bq:
+    lib.sliding_fwd_block_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    granule = lib.sliding_fwd_block_rows(_DTYPE_CODE[q.dtype], dh)
+    if t % window or window % granule:
         raise ValueError(
             f"T={t} must be a multiple of window={window}, and the window a "
-            f"multiple of the {bq}-row query tile"
+            f"multiple of {granule} ({q.dtype}, dh={dh})"
         )
 
     q, k, v, kg, vg = (x.contiguous() for x in (q, k, v, kg, vg))

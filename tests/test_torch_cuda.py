@@ -487,6 +487,104 @@ def test_bf16_sliding_backward_on_tensor_cores(gen, t, w, dh, model_do):
     assert all(torch.equal(a, b_) for a, b_ in zip(got, flash_sliding_backward(*bwd, window=w)))
 
 
+@pytest.mark.parametrize("t,w", [(96, 32), (224, 32), (480, 96), (1536, 512)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_sliding_forward_on_tensor_cores(gen, t, w, dh):
+    """bf16 K2 (tensor-core tiles that skip band key tiles the bias masks
+    whole, decided from the inputs) against its plain version: out within
+    2e-2 x max|ref| (P is rounded to bf16 as an operand) on each of three
+    row sets apart (non-padded rows; padded rows of batches with a valid
+    global; the other padded rows), m atol 1e-3, l rtol 1e-3 on every row;
+    T a multiple of 32 and not of 64 (a ragged last block), w = 32 and 96
+    (a 64-row block spans two w-blocks); a batch with no valid global and
+    an all-padding one, whose fully masked rows are uniform over their
+    3w + G columns (m = -1e9, l = 3w + G); the padded rows of a batch with
+    a valid global and no open key in their band equal to the softmax over
+    the valid globals alone; the same bits on a second run."""
+    args, padded, is_global = _led_inputs(gen, t, dh, w)
+    q, k, v, kb, kg, vg, gb = args
+    out, m, l = flash_sliding_attention(*args, window=w, return_stats=True)
+    ref, ref_m, ref_l = local_rows_plain(*args, w, return_stats=True)
+    assert out.dtype == torch.bfloat16
+    # each row set within 2e-2 x its own max|ref|: the non-padded rows
+    # (up to 2w + 1 keys, small outputs) apart from the padded rows of a
+    # batch with a valid global (a few globals, large outputs) and from
+    # the padded rows of the others
+    with_global = (gb == 0).any(1, keepdim=True)
+    for rows in (~padded, padded & with_global, padded & ~with_global):
+        sel = rows[:, None, :].expand(out.shape[:3])
+        err = (out.float() - ref.float()).abs()[sel].max().item()
+        assert err <= 2e-2 * ref.float().abs()[sel].max().item()
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
+    b, nh, _, _ = q.shape
+    g = kg.shape[2]
+    # batch 3: every row fully masked, the mean over its window and globals
+    pos = torch.arange(t, device="cuda")
+    lo = torch.clamp((pos // w - 1) * w, min=0)
+    hi = torch.clamp((pos // w + 2) * w, max=t)
+    cum = torch.nn.functional.pad(v[3].float().cumsum(1), (0, 0, 1, 0))
+    uniform = (cum[:, hi] - cum[:, lo] + vg[3].float().sum(1, keepdim=True)) / (3 * w + g)
+    _close([out[3]], [uniform], 2e-2)
+    assert bool((m.reshape(b, nh, t)[3] == -1e9).all())
+    torch.testing.assert_close(l.reshape(b, nh, t)[3],
+                               torch.full((nh, t), 3.0 * w + g, device="cuda"),
+                               rtol=1e-6, atol=0.0)
+    # batch 1: padded rows with no open key within w see only its globals
+    open_ = torch.nn.functional.pad((kb[1] == 0).long().cumsum(0), (1, 0))
+    blind = (open_[torch.clamp(pos + w + 1, max=t)] - open_[torch.clamp(pos - w, min=0)]) == 0
+    assert bool(blind.any())
+    sg = torch.einsum("hrd,hjd->hrj", q[1].float(), kg[1].float()) * dh ** -0.5 + gb[1]
+    only = torch.einsum("hrj,hjd->hrd", torch.softmax(sg, -1), vg[1].float())
+    _close([out[1][:, blind]], [only[:, blind]], 2e-2)
+    again = flash_sliding_attention(*args, window=w, return_stats=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again))
+
+
+def test_bf16_sliding_forward_rejects_untiled_window(gen):
+    """bf16 K2 takes what K3 takes: w a multiple of 32 dividing T."""
+    args = _sliding_inputs(gen, torch.bfloat16, t=480)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_sliding_attention(*args, window=48)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_sliding_attention(*args, window=64)  # 480 % 64
+
+
+@pytest.mark.parametrize("causal,t,s", [(True, 100, 100), (True, 512, 512),
+                                        (False, 77, 300), (False, 130, 2048)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_dense_forward_on_tensor_cores(gen, causal, t, s, dh):
+    """bf16 K4 (the tensor-core forward of K6, writing m and l) against its
+    plain version: out within 2e-2 x max|ref|, m atol 1e-3, l rtol 1e-3;
+    causal self-attention and cross-attention, T and S not multiples of
+    64; masked-whole tiles in the middle of S and at its end; a source of
+    length 0 (its rows uniform over the S keys, m = -1e9, l = S); K5 fed
+    K4's m and l against the plain backward from the same statistics; the
+    same bits on a second run."""
+    b, nh = 3, 2
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kb = _padded_bias(s, b)
+    out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
+    ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
+    _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], 2e-2)
+    assert bool((m[:nh] == -1e9).all())
+    torch.testing.assert_close(l[:nh], torch.full_like(l[:nh], float(s)), rtol=1e-6,
+                               atol=0.0)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = (q, k, v, kb, g, m, l, row_delta(g, out))
+    got = flash_dense_backward(*bwd, causal=causal)
+    for a, r in zip(got, dense_backward_plain(*bwd, causal)):
+        assert (a.float() - r.float()).abs().max().item() <= 2e-2 * r.float().abs().max().item()
+    again = flash_dense_attention(q, k, v, kb, causal=causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again))
+
+
 def test_dense_rows_routes_long_sources_to_k6_k7(gen):
     """dense_rows on CUDA tensors at S = MAX_S + 1 launches K6 and K7 (not
     K4/K5), with gradients equal to the CPU path's."""
