@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero:
   1. environment: the card's name and power limit, torch/CUDA/nvcc
      versions; builds every CUDA kernel of
      ``retrieval_augmented_mds_tpu_torch/csrc`` (one nvcc each, in parallel).
-  2. kernel K1 (MIPS top-k) against its plain PyTorch version;
+  2. kernel K1 (MIPS top-k) against its plain PyTorch version, each case
+     run twice (bit-equal), with the worst case of its selection: scores
+     that rise with the row index, so that every score passes its
+     threshold;
   3. kernel K2 (sliding-window local rows, forward) against its plain version;
   4. kernel K3 (its backward) against the plain backward, at the LED and
      Longformer shapes of the train step;
@@ -20,12 +23,13 @@ Phases, in order; any failure exits non-zero:
      padding (sources of 306-743 tokens in T or S = 2048 and 16384), where
      the bf16 kernels skip the key tiles the bias masks whole;
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
-     version at K1's serving shape, its top-k against K1's;
+     version at K1's serving shape, its top-k against K1's and, on a bf16
+     corpus, its scores at K1's hits bit-equal to K1's values;
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
      the same probe ids, on IVF indexes (C = 1024, SQ8 and bf16) built by
      the port over 1,048,576 rows of the ``bench-index`` Gaussian mixture
      (D = 768), at B = 4 and 16, nprobe = 32, k = 10; with the K1 flat scan
-     of the same payload, the build time and recall@10;
+     of the same payload beside its bound, the build time and recall@10;
   7. ``predict`` on ``configs/smoke.yaml`` on the card and on the CPU (the
      plain versions), from one seed: equal retrieved and generated ids;
      then ``fit`` on the same config for 3 steps, card against CPU: the
@@ -215,7 +219,13 @@ def phase_env() -> str:
 # phase 2: K1
 # ---------------------------------------------------------------------------
 
-def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False):
+def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False,
+             rising=False):
+    """K1 against `mips_topk_plain`, and a rerun bit-equal to the first run.
+    ``rising``: a bias step of 1000 a row over products of at most a few
+    hundred, so the scores rise with the row index and every score passes
+    the selection's threshold (its worst case; the top-k is the last k
+    rows)."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
@@ -233,6 +243,8 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False):
     else:
         e = e.to(dtype)
     rb = torch.randn(n, generator=g, device="cuda") if bias else None
+    if rising:
+        rb = 1000.0 * torch.arange(n, device="cuda", dtype=torch.float32)
     ign = None
     if ignore:
         _, top = mips_topk_plain(q, e, 1, rb, None, scale)
@@ -240,8 +252,14 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False):
                             dtype=torch.int32)
         ign[:, 0] = top[:, 0]  # the true best hit must disappear
     vals, ids = mips_topk(q, e, k, rb, ign, scale)
+    again_v, again_i = mips_topk(q, e, k, rb, ign, scale)
     ref_v, ref_i = mips_topk_plain(q, e, k, rb, ign, scale)
     torch.cuda.synchronize()
+    check(torch.equal(vals, again_v) and torch.equal(ids, again_i),
+          f"K1 {name}: a rerun differs")
+    if rising:
+        last = torch.arange(n - 1, n - 1 - k, -1, device="cuda", dtype=torch.int32)
+        check(torch.equal(ids, last.expand(b, k)), f"K1 {name}: not the last {k} rows")
     err = (vals - ref_v).abs().max().item()
     if dtype == torch.float32:
         # f32: the same ids; values to f32 summation-order noise
@@ -266,8 +284,8 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False):
         plain_ms = cuda_ms(lambda: mips_topk_plain(q, e, k, rb, ign, scale))
     bound = roofline(nbytes(q, e, rb, scale, ign, vals, ids), 2.0 * b * n * d,
                      dtype == torch.float32)
-    print(f"[K1] {name}: B={b} N={n} D={d} k={k} {dtype}: PASS ({tol}); "
-          f"max_abs_err {err:.3e}"
+    print(f"[K1] {name}: B={b} N={n} D={d} k={k} {dtype}: PASS ({tol}; rerun "
+          f"bit-equal); max_abs_err {err:.3e}"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})" if timed else ""))
     return result(err, ms, plain_ms, bound)
@@ -281,6 +299,8 @@ def phase_k1():
              ignore=True, timed=True)
     _k1_case("sq8", 64, 65613, 768, 10, "int8", timed=True)
     _k1_case("f32_k128", 16, 20000, 256, 128, torch.float32, bias=True, ignore=True)
+    _k1_case("rising_bf16", 64, 131072, 768, 128, torch.bfloat16, rising=True, timed=True)
+    _k1_case("rising_sq8", 4, 200003, 768, 10, "int8", rising=True)
     return serving
 
 
@@ -876,6 +896,11 @@ def _k10_case(name, b, n, d, k, dtype, *, timed=False):
     check(err <= tol, f"K10 {name}: max abs err {err} > {tol}")
     check(torch.equal(ids, k1_ids), f"K10 {name}: top-{k} ids differ from K1's")
     check(torch.allclose(vals, k1_vals, rtol=1e-5, atol=1e-4), f"K10 {name}: values")
+    if dtype == torch.bfloat16:  # one tensor-core tile: K1's values bit for bit
+        check(torch.equal(torch.gather(scores, 1, k1_ids.long()), k1_vals),
+              f"K10 {name}: scores at K1's hits differ from K1's values")
+    same_bits = (", its scores there bit-equal to K1's values"
+                 if dtype == torch.bfloat16 else "")
     ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: mips_chunkmax(q, e, rb, ign))
@@ -887,7 +912,7 @@ def _k10_case(name, b, n, d, k, dtype, *, timed=False):
                      dtype == torch.float32)
     print(f"[K10] {name}: B={b} N={n} D={d} k={k} {dtype}, bias, 8 ignored ids: PASS "
           f"(scores and chunk maxima within {tol:.3e}: max abs err {err:.3e}; masked "
-          f"cells equal; top-{k} ids equal to K1's)"
+          f"cells equal; top-{k} ids equal to K1's{same_bits})"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.mm of the scores "
              f"{lib_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})"
              if timed else ""))
@@ -992,6 +1017,9 @@ def phase_k8() -> dict:
             ms = cuda_ms(lambda: ivf_probe_topk(*args, K8_K))
             plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, K8_K))
             flat_ms = cuda_ms(lambda: mips_topk(q, flat, K8_K, None, None, flat_scale))
+            # K1's flat scan: the payload and its scales read once
+            flat_bound = roofline(nbytes(q, flat, flat_scale) + b * K8_K * 8,
+                                  2.0 * b * K8_N * d, False)["bound_ms"]
             # the whole per-query route: probes, K8, ids, the spill by K1, merge
             route_ms = cuda_ms(lambda: ivf_search_serving(idx, queries[:b], k=K8_K,
                                                           nprobe=K8_NPROBE))
@@ -1007,7 +1035,8 @@ def phase_k8() -> dict:
             print(f"[K8] {payload} B={b} nprobe={K8_NPROBE} k={K8_K}: PASS (positions equal "
                   f"but {n_swapped} swapped near-ties within tol {tol:.3e}; values max abs "
                   f"err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, K1 flat "
-                  f"scan of the same {K8_N}-row payload {flat_ms:.3f} ms; bound "
+                  f"scan of the same {K8_N}-row payload {flat_ms:.3f} ms (bound "
+                  f"{flat_bound:.3f} ms, bytes: {flat_bound / flat_ms:.1%} of it); bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {n_probed} distinct "
                   f"clusters of {b * K8_NPROBE} probes), {bound['bound_ms'] / ms:.1%} of it; "
                   f"the whole per-query route {route_ms:.3f} ms; recall@10 vs exact f32: "

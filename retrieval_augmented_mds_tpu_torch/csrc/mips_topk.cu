@@ -7,25 +7,58 @@
 //   the result is the top-k of the DISTINCT score values, each reported with
 //   the lowest corpus index that holds it; leftover slots are (-3e38, -1).
 //
-// What bounds it on an H100: at the serving shape (B=256 queries, N=131072
-// rows, D=768, bf16) the corpus is 201 MB, one pass over it ~60 us of HBM
-// time, while the B*N*D = 25.8 G multiply-adds take ~0.8 ms even at the
-// full f32 CUDA-core rate. This first kernel keeps the products on the
-// CUDA cores (no wgmma yet), so it is bound by FMA issue and shared-memory
-// reads, not by HBM.
+// What bounds it on an H100: bytes, at both shapes that matter. At the
+// serving shape (B = 256 queries, N = 131072 rows, D = 768, bf16) the
+// corpus is 201 MB, ~60 us at 3.35 TB/s, against 25.8 G multiply-adds,
+// ~52 us at the bf16 tensor-core peak: the products must run on the tensor
+// cores and the corpus must come from HBM about once. On the path's own
+// shape (the IVF spill or a flat SQ8 scan, B = 4 over 0.5-1M int8 rows) it
+// is the corpus alone: 805 MB of int8 at 1M rows, ~0.24 ms.
 //
-// Design: pass 1 splits the corpus across CTAs (grid.x = splits) and the
-// queries into groups of 16 (grid.y). A CTA runs a register-tiled f32 GEMM
-// over its rows in 256-row tiles: each thread owns 4 queries x 4 rows, the
-// corpus tile is staged transposed in shared memory and dequantised on load
-// (bf16 -> f32, int8 -> f32 then * row_scale on the score), so each corpus
-// element is read from HBM once per 16 queries. After every tile the 256
-// new scores of a query are merged with its running top-k in shared memory
-// by one warp: k rounds of (warp max, lowest index among equal values,
-// remove every equal value; `topk::warp_select`, shared with K8). Pass 2
-// merges the per-split lists [B, splits, k] with the same rule. The merge is exact: a value among the
-// global top-k distinct values is among the top-k distinct values of every
-// split holding it, reported there with that split's lowest index.
+// Design. bf16 and int8 corpora: pass 1 is `mma.sync` on the shared score
+// tile of mips_tile.cuh (grid.x = groups of NQ queries, grid.y = splits of
+// the corpus, so the query groups that read one corpus slab run together
+// and share it through L2). The f32 corpus keeps CUDA-core products (a
+// register-tiled f32 GEMM over 256-row tiles, 16 queries a CTA): TF32 would
+// change its numerics. `mips_topk_layout` reports each instance's layout
+// and occupancy, from which ops/mips_topk.py plans the splits.
+//
+// Both feed one selection, per (split, query): a running list of up to k
+// distinct values in shared memory, each with its lowest row, and a
+// threshold, the list's k-th value (-3e38 while it holds fewer). The rows
+// are offered in parts of 128, in ascending order: a part's scores are
+// staged in shared memory, and a CTA-wide vote (`__syncthreads_or`) skips
+// every part in which no score beats its query's threshold, which is most
+// of them once the lists are full and the splits long. Otherwise one plain
+// loop over the staged scores offers each score strictly greater than the
+// threshold whose row is not among the query's ignored ids (the ignore test
+// runs on candidates only) to the query's candidate buffer, a slot taken
+// with a shared-memory atomicAdd. When a buffer is half full after a part,
+// or overflowed during one, one warp per query merges buffer and list by
+// `topk::warp_select` (largest value, lowest row holding it, every equal
+// value dropped; the rule K8 shares) and the threshold rises. Padding
+// queries (b >= B) do no selection work.
+//
+// An overflowed part is offered again after the merge, this time every
+// score AT OR above the new threshold. Which scores won the slots is up to
+// the scheduler, so the buffer may have held a higher row of a value
+// without its lowest one; the new threshold is no higher than the part's
+// true k-th value, so the second pass offers every row of every value the
+// list can keep, the lowest ones among them, and they fit: the buffer is
+// empty and holds as many candidates as a part has rows. Candidates offered
+// twice collapse in the merge, so the result does not depend on which
+// scores won the slots, and reruns are bit-equal. The staging keeps the
+// offer code out of the products' path: it exists once instead of at each
+// of the 64 scores a thread holds (inlined there, it slowed the whole walk
+// by a third; not inlined, the calls spilled the accumulators).
+//
+// Why the filter is exact: rows are walked in ascending order within a
+// split, so a later score equal to a listed value, or to the threshold,
+// never has a lower row; a score below the threshold is below k distinct
+// values already seen. Pass 2 merges the per-split lists [B, splits, k]
+// with the same rule. That merge is exact: a value among the global top-k
+// distinct values is among the top-k distinct values of every split
+// holding it, reported there with that split's lowest index.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,53 +66,261 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "mips_tile.cuh"
 #include "topk_select.cuh"
 
 namespace {
 
+using mips::bf16;
+using mips::kThreads;
+using mips::kWarps;
 using topk::kNegInf;
 using topk::warp_max;
 using topk::warp_min;
 
-constexpr int kQB = 16;       // queries per CTA
-constexpr int kRT = 256;      // corpus rows per tile
-constexpr int kKC = 16;       // depth staged per step
-constexpr int kThreads = 256;
 constexpr int kMaxK = 128;
-constexpr int kNewSlots = kRT / 32;           // tile candidates per lane
-constexpr int kRunSlots = kMaxK / 32;         // running candidates per lane
+constexpr int kStageLD = mips::kPartRows + 4;  // floats per query of a staged part
 
-__device__ __forceinline__ float load_f(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float load_f(const int8_t* p, long i) {
-  return static_cast<float>(p[i]);
-}
+// The running selection of NQ queries in dynamic shared memory: candidate
+// buffers of CAP (= the rows of a part) per query, the running lists, the
+// thresholds, the buffer counts and two flags (0: a buffer overflowed, 1: a
+// buffer is at least half full).
+template <int NQ>
+struct Selector {
+  static constexpr int CAP = mips::kPartRows;
+  float* cv;
+  int* ci;
+  float* rv;
+  int* ri;
+  float* thr;
+  int* cnt;
+  int* flags;
+  int k;
+  const int* ignore;
+  int n_ignore;
 
-template <typename ET>
+  static constexpr size_t bytes(int k) {
+    return (size_t)NQ * (8 * CAP + 8 * k + 8) + 16;
+  }
+
+  __device__ Selector(char* base, int k_, const int* ignore_, int n_ignore_)
+      : k(k_), ignore(ignore_), n_ignore(n_ignore_) {
+    cv = reinterpret_cast<float*>(base);
+    ci = reinterpret_cast<int*>(cv + NQ * CAP);
+    rv = reinterpret_cast<float*>(ci + NQ * CAP);
+    ri = reinterpret_cast<int*>(rv + NQ * k);
+    thr = reinterpret_cast<float*>(ri + NQ * k);
+    cnt = reinterpret_cast<int*>(thr + NQ);
+    flags = cnt + NQ;
+  }
+
+  __device__ void init() {
+    for (int i = threadIdx.x; i < NQ * k; i += kThreads) {
+      rv[i] = kNegInf;
+      ri[i] = -1;
+    }
+    for (int i = threadIdx.x; i < NQ; i += kThreads) {
+      thr[i] = kNegInf;
+      cnt[i] = 0;
+    }
+    if (threadIdx.x < 2) flags[threadIdx.x] = 0;
+  }
+
+  // The filter: strictly above the query's threshold; on the pass after an
+  // overflow (again), at or above it (see the note at the top).
+  __device__ __forceinline__ bool admits(int qi, float s, bool again) const {
+    const float th = thr[qi];
+    return s > th || (again && s == th && s > kNegInf);
+  }
+
+  // An admitted score: into the query's buffer unless its row is ignored.
+  __device__ __forceinline__ void offer(int qi, int b, int row, float s) {
+    for (int t = 0; t < n_ignore; ++t)
+      if (ignore[(long)b * n_ignore + t] == row) return;
+    const int pos = atomicAdd(cnt + qi, 1);
+    if (pos < CAP) {
+      cv[qi * CAP + pos] = s;
+      ci[qi * CAP + pos] = row;
+      if (pos >= CAP / 2) flags[1] = 1;
+    } else {
+      flags[0] = 1;
+    }
+  }
+
+  // Merge every non-empty buffer into its list (one warp per query), raise
+  // the thresholds, empty the buffers and clear the flags. All threads.
+  __device__ void flush() {
+    constexpr int NC = CAP / 32, NR = kMaxK / 32;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int qi = warp; qi < NQ; qi += kWarps) {
+      const int c = min(cnt[qi], CAP);  // warp-uniform
+      if (c == 0) continue;
+      float v[NC + NR];
+      int id[NC + NR];
+#pragma unroll
+      for (int s = 0; s < NC; ++s) {
+        const int j = lane + 32 * s;
+        v[s] = j < c ? cv[qi * CAP + j] : kNegInf;
+        id[s] = j < c ? ci[qi * CAP + j] : INT_MAX;
+      }
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        const int j = lane + 32 * s;
+        v[NC + s] = j < k ? rv[qi * k + j] : kNegInf;
+        id[NC + s] = j < k ? ri[qi * k + j] : INT_MAX;
+      }
+      __syncwarp();
+      topk::warp_select(v, id, k, rv + qi * k, ri + qi * k, -1);
+      __syncwarp();
+      if (lane == 0) {
+        thr[qi] = rv[qi * k + k - 1];
+        cnt[qi] = 0;
+      }
+    }
+    if (threadIdx.x < 2) flags[threadIdx.x] = 0;
+    __syncthreads();
+  }
+
+  // One part: the scores st[NQ][kStageLD] of its CAP rows from row `base`.
+  // Skipped unless some thread's `any` (it saw a score of a query below B
+  // beat that query's threshold) is set; else offered, merged when a buffer
+  // is half full, and merged and offered again when one overflowed. All
+  // threads; on return no thread reads st any more.
+  __device__ void take_part(const float* st, int base, int qb0, int B, bool any) {
+    if (!__syncthreads_or(any)) return;
+    for (bool again = false;; again = true) {
+      for (int x = threadIdx.x; x < NQ * CAP; x += kThreads) {
+        const int qi = x / CAP, r = x % CAP, b = qb0 + qi;
+        const float s = st[qi * kStageLD + r];
+        if (b < B && admits(qi, s, again)) offer(qi, b, base + r, s);
+      }
+      __syncthreads();
+      const int overflow = flags[0], half = flags[1];
+      __syncthreads();  // every thread has read the flags before flush clears them
+      if (!(overflow | half)) return;
+      flush();
+      if (!overflow) return;
+    }
+  }
+
+  // The lists of the queries below B to part_[v|i][b, split, :].
+  __device__ void write(int qb0, int B, int split, int splits, float* __restrict__ part_v,
+                        int* __restrict__ part_i) {
+    for (int i = threadIdx.x; i < NQ * k; i += kThreads) {
+      const int qi = i / k, kk = i % k, b = qb0 + qi;
+      if (b < B) {
+        const long o = ((long)b * splits + split) * k + kk;
+        part_v[o] = rv[i];
+        part_i[o] = ri[i];
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 / int8 corpus: tensor-core score tiles
+// ---------------------------------------------------------------------------
+
+template <typename ET, int NQ, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-mips_partial_kernel(const float* __restrict__ q, const ET* __restrict__ E,
-                    const float* __restrict__ bias, const float* __restrict__ scale,
-                    const int* __restrict__ ignore, int n_ignore, int B, int N,
-                    int D, int k, int rows_per_split, float* __restrict__ part_v,
-                    int* __restrict__ part_i) {
-  __shared__ float Qs[kQB][kKC];
-  __shared__ float Es[kKC * (kRT + 1)];  // reused as the [kQB][kRT] score tile
-  __shared__ float Rv[kQB][kMaxK];
-  __shared__ int Ri[kQB][kMaxK];
+mips_mma_partial_kernel(const bf16* __restrict__ q, const ET* __restrict__ E,
+                        const float* __restrict__ bias, const float* __restrict__ scale,
+                        const int* __restrict__ ignore, int n_ignore, int B, int N, int D,
+                        int k, int rows_per_split, float* __restrict__ part_v,
+                        int* __restrict__ part_i) {
+  extern __shared__ __align__(16) char smem[];
+  using S = mips::Slab<ET, NQ>;
+  constexpr int MT = S::MT;
+  static_assert(NQ * kStageLD * sizeof(float) <= S::kBytes, "a staged part fits a stage");
+  Selector<NQ> sel(smem + mips::kStages * S::kBytes, k, ignore, n_ignore);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int qb0 = blockIdx.x * NQ, split = blockIdx.y, splits = gridDim.y;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(N, row_begin + rows_per_split);
+  sel.init();
+  __syncthreads();
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  mips::walk_tiles<ET, NQ, VEC>(
+      smem, E, q, row_begin, row_end, qb0, B, D,
+      [&](mips::Acc<ET, NQ>& acc, int row0, char* scratch) {
+        // The tile in parts of 128 rows, in ascending order: the part's
+        // warps stage its scores [NQ][kStageLD] in the stage just
+        // multiplied and note whether one beats its query's threshold.
+        float* st = reinterpret_cast<float*>(scratch);
+        __syncthreads();  // every warp is done with the stage
+#pragma unroll
+        for (int part = 0; part < MT; ++part) {
+          bool any = false;
+          if (warp / (kWarps / MT) == part) {
+            int rp[MT][2];
+            float sc[MT][2], bi[MT][2];
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = 16 * (MT * warp + i) + g + 8 * h, row = row0 + r;
+                const bool ok = row < row_end;
+                rp[i][h] = r - part * mips::kPartRows;
+                sc[i][h] = !ok ? 0.f : scale ? scale[row] : 1.f;
+                bi[i][h] = !ok ? kNegInf : bias ? bias[row] : 0.f;
+              }
+#pragma unroll
+            for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int qi = 8 * j + 2 * t + e;
+                const float th = qb0 + qi < B ? sel.thr[qi] : FLT_MAX;
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+#pragma unroll
+                  for (int h = 0; h < 2; ++h) {
+                    // rows past the split: scale 0, bias -3e38, so s = -3e38
+                    const float s = mips::score(acc[i][j][2 * h + e], sc[i][h], bi[i][h]);
+                    st[qi * kStageLD + rp[i][h]] = s;
+                    any |= s > th;
+                  }
+              }
+          }
+          sel.take_part(st, row0 + part * mips::kPartRows, qb0, B, any);
+        }
+      });
+  sel.flush();
+  sel.write(qb0, B, split, splits, part_v, part_i);
+}
+
+// ---------------------------------------------------------------------------
+// f32 corpus: CUDA-core register tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kQB = 16;   // queries per CTA
+constexpr int kRT = 256;  // corpus rows per tile
+constexpr int kKC = 16;   // depth staged per step
+constexpr size_t kF32Stage = sizeof(float) * (kQB * kKC + kKC * (kRT + 1));
+
+// A CTA runs a register-tiled f32 GEMM over its rows in 256-row tiles: each
+// thread owns 4 queries x 4 rows, the corpus tile is staged transposed in
+// shared memory 16 dims at a time. The tile's scores then go to the
+// selection in two parts of 128 rows, staged where the corpus tile was.
+__global__ void __launch_bounds__(kThreads)
+mips_f32_partial_kernel(const float* __restrict__ q, const float* __restrict__ E,
+                        const float* __restrict__ bias, const float* __restrict__ scale,
+                        const int* __restrict__ ignore, int n_ignore, int B, int N, int D,
+                        int k, int rows_per_split, float* __restrict__ part_v,
+                        int* __restrict__ part_i) {
+  extern __shared__ __align__(16) char smem[];
+  float(*Qs)[kKC] = reinterpret_cast<float(*)[kKC]>(smem);
+  float* Es = reinterpret_cast<float*>(smem) + kQB * kKC;
+  static_assert(kQB * kStageLD <= kKC * (kRT + 1), "a staged part fits the corpus tile");
+  Selector<kQB> sel(smem + kF32Stage, k, ignore, n_ignore);
+
+  const int tid = threadIdx.x;
   const int split = blockIdx.x, splits = gridDim.x;
   const int qb0 = blockIdx.y * kQB;
   const int row_begin = split * rows_per_split;
   const int row_end = min(N, row_begin + rows_per_split);
   const int tq = tid >> 6, tr = tid & 63;  // 4 query groups x 64 row lanes
-
-  for (int i = tid; i < kQB * kMaxK; i += kThreads) {
-    Rv[i / kMaxK][i % kMaxK] = kNegInf;
-    Ri[i / kMaxK][i % kMaxK] = -1;
-  }
+  sel.init();
+  __syncthreads();
 
   for (int row0 = row_begin; row0 < row_end; row0 += kRT) {
     float acc[4][4];
@@ -96,8 +337,7 @@ mips_partial_kernel(const float* __restrict__ q, const ET* __restrict__ E,
       }
       for (int e = tid; e < kRT * kKC; e += kThreads) {
         const int r = e / kKC, c = e % kKC, row = row0 + r, d = d0 + c;
-        Es[c * (kRT + 1) + r] =
-            (row < row_end && d < D) ? load_f(E, (long)row * D + d) : 0.f;
+        Es[c * (kRT + 1) + r] = (row < row_end && d < D) ? E[(long)row * D + d] : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -113,60 +353,32 @@ mips_partial_kernel(const float* __restrict__ q, const ET* __restrict__ E,
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], ev[j], acc[i][j]);
       }
     }
-    __syncthreads();  // Es now becomes the score tile
 
-    float* S = Es;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = tq * 4 + i, r = tr + 64 * j, row = row0 + r, b = qb0 + qi;
-        float s = kNegInf;
-        if (row < row_end) {
-          const float sc = scale ? scale[row] : 1.f;
-          const float bi = bias ? bias[row] : 0.f;
-          s = __fadd_rn(__fmul_rn(acc[i][j], sc), bi);
-          if (b < B) {
-            for (int t = 0; t < n_ignore; ++t)
-              if (ignore[(long)b * n_ignore + t] == row) s = kNegInf;
-          }
-        }
-        S[qi * kRT + r] = s;
-      }
-    }
-    __syncthreads();
-
-    // warp w merges queries 2w and 2w+1 into their running lists
+    // part h holds rows 128 h .. 128 h + 127 of the tile: j = 2h, 2h + 1
+    float* st = Es;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int qi = warp * 2 + h;
-      float v[kNewSlots + kRunSlots];
-      int id[kNewSlots + kRunSlots];
+      __syncthreads();  // every thread is done with Es (h = 0) or its last part
+      bool any = false;
 #pragma unroll
-      for (int s = 0; s < kNewSlots; ++s) {
-        v[s] = S[qi * kRT + lane + 32 * s];
-        id[s] = row0 + lane + 32 * s;
-      }
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * h + jj, r = tr + 64 * jj, row = row0 + tr + 64 * j;
+        const bool ok = row < row_end;
+        const float sc = !ok ? 0.f : scale ? scale[row] : 1.f;
+        const float bi = !ok ? kNegInf : bias ? bias[row] : 0.f;
 #pragma unroll
-      for (int s = 0; s < kRunSlots; ++s) {
-        const int kk = lane + 32 * s;
-        v[kNewSlots + s] = kk < k ? Rv[qi][kk] : kNegInf;
-        id[kNewSlots + s] = kk < k ? Ri[qi][kk] : INT_MAX;
+        for (int i = 0; i < 4; ++i) {
+          const int qi = tq * 4 + i;
+          const float s = mips::score(acc[i][j], sc, bi);
+          st[qi * kStageLD + r] = s;
+          any |= qb0 + qi < B && s > sel.thr[qi];
+        }
       }
-      __syncwarp();
-      topk::warp_select(v, id, k, Rv[qi], Ri[qi], -1);
-      __syncwarp();
+      sel.take_part(st, row0 + h * mips::kPartRows, qb0, B, any);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < kQB * k; i += kThreads) {
-    const int qi = i / k, kk = i % k, b = qb0 + qi;
-    if (b < B) {
-      const long o = ((long)b * splits + split) * k + kk;
-      part_v[o] = Rv[qi][kk];
-      part_i[o] = Ri[qi][kk];
-    }
-  }
+  sel.flush();
+  sel.write(qb0, B, split, splits, part_v, part_i);
 }
 
 // One warp per query: k selection rounds over its splits*k candidates.
@@ -202,49 +414,106 @@ mips_merge_kernel(float* __restrict__ part_v, const int* __restrict__ part_i,
   }
 }
 
+struct Args {
+  const void *q, *corpus, *bias, *scale, *ignore;
+  int n_ignore, B, N, D, k, rows_per_split, splits;
+  void *part_v, *part_i;
+};
+
+// Each instance below either launches (layout null) or describes itself.
+template <typename ET, int NQ, bool VEC>
+cudaError_t run_mma(const Args& a, cudaStream_t s, int* layout) {
+  auto kern = mips_mma_partial_kernel<ET, NQ, VEC>;
+  constexpr int kRows = mips::Slab<ET, NQ>::ROWS;
+  const size_t smem = mips::kStages * mips::Slab<ET, NQ>::kBytes + Selector<NQ>::bytes(a.k);
+  if (layout) return mips::describe(kern, NQ, kRows, smem, layout);
+  if (a.rows_per_split % kRows != 0) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.B + NQ - 1) / NQ, a.splits);
+  kern<<<grid, kThreads, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const ET*>(a.corpus),
+      static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
+      static_cast<const int*>(a.ignore), a.n_ignore, a.B, a.N, a.D, a.k, a.rows_per_split,
+      static_cast<float*>(a.part_v), static_cast<int*>(a.part_i));
+  return cudaGetLastError();
+}
+
+template <typename ET, bool VEC>
+cudaError_t run_mma_nq(int nq, const Args& a, cudaStream_t s, int* layout) {
+  switch (nq) {
+    case 8: return run_mma<ET, 8, VEC>(a, s, layout);
+    case 16: return run_mma<ET, 16, VEC>(a, s, layout);
+    case 32: return run_mma<ET, 32, VEC>(a, s, layout);
+    case 64: return run_mma<ET, 64, VEC>(a, s, layout);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename ET>
+cudaError_t run_mma_vec(int nq, int vec, const Args& a, cudaStream_t s, int* layout) {
+  return vec ? run_mma_nq<ET, true>(nq, a, s, layout) : run_mma_nq<ET, false>(nq, a, s, layout);
+}
+
+cudaError_t run_f32(const Args& a, cudaStream_t s, int* layout) {
+  const size_t smem = kF32Stage + Selector<kQB>::bytes(a.k);
+  if (layout) return mips::describe(mips_f32_partial_kernel, kQB, kRT, smem, layout);
+  if (a.rows_per_split % kRT != 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mips_f32_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.splits, (a.B + kQB - 1) / kQB);
+  mips_f32_partial_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.corpus),
+      static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
+      static_cast<const int*>(a.ignore), a.n_ignore, a.B, a.N, a.D, a.k, a.rows_per_split,
+      static_cast<float*>(a.part_v), static_cast<int*>(a.part_i));
+  return cudaGetLastError();
+}
+
+cudaError_t run(int dtype, int nq, int vec, const Args& a, cudaStream_t s, int* layout) {
+  if (a.k < 1 || a.k > kMaxK) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return run_f32(a, s, layout);
+    case 1: return run_mma_vec<bf16>(nq, vec, a, s, layout);
+    case 2: return run_mma_vec<int8_t>(nq, vec, a, s, layout);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16, 2 = int8. q is f32 [B, D] (already rounded to the
-// corpus's compute type by the caller); bias/scale may be null; ignore is
-// [B, n_ignore] int32 or null. part_* are [B, splits, k] scratch.
+// dtype: 0 = f32 (q f32 [B, D]; 256-row tiles, groups of 16 queries
+// whatever nq), 1 = bf16, 2 = int8 (q bf16 [B, D], rounded by the caller;
+// groups of nq = 8, 16 (128-row tiles), 32 or 64 queries (256-row tiles));
+// vec = 1 when D * sizeof(corpus element) and D * 2 are multiples of 16 and
+// both pointers 16-byte aligned. layout receives the instance's {queries
+// per CTA, corpus rows per tile, dynamic shared memory in bytes, CTAs per
+// SM on the current device (0: it does not fit)}, which the caller plans
+// its splits from.
+extern "C" int mips_topk_layout(int dtype, int nq, int vec, int k, int* layout) {
+  Args a{};
+  a.k = k;
+  return (int)run(dtype, nq, vec, a, nullptr, layout);
+}
+
+// As above; bias/scale may be null; ignore is [B, n_ignore] int32 or null.
+// rows_per_split is a multiple of the tile's rows; part_* are [B, splits,
+// k] scratch.
 extern "C" int mips_topk_launch(const void* q, const void* corpus, int dtype,
                                 const void* bias, const void* scale,
                                 const void* ignore, int n_ignore, int B, int N,
-                                int D, int k, int rows_per_split, int splits,
-                                void* part_v, void* part_i, void* out_v,
+                                int D, int k, int nq, int vec, int rows_per_split,
+                                int splits, void* part_v, void* part_i, void* out_v,
                                 void* out_i, void* stream) {
-  if (k < 1 || k > kMaxK || rows_per_split % kRT != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(splits, (B + kQB - 1) / kQB);
-  const float* qf = static_cast<const float*>(q);
-  const float* bf = static_cast<const float*>(bias);
-  const float* sf = static_cast<const float*>(scale);
-  const int* ig = static_cast<const int*>(ignore);
-  float* pv = static_cast<float*>(part_v);
-  int* pi = static_cast<int*>(part_i);
-  switch (dtype) {
-    case 0:
-      mips_partial_kernel<float><<<grid, kThreads, 0, s>>>(
-          qf, static_cast<const float*>(corpus), bf, sf, ig, n_ignore, B, N, D,
-          k, rows_per_split, pv, pi);
-      break;
-    case 1:
-      mips_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          qf, static_cast<const __nv_bfloat16*>(corpus), bf, sf, ig, n_ignore,
-          B, N, D, k, rows_per_split, pv, pi);
-      break;
-    case 2:
-      mips_partial_kernel<int8_t><<<grid, kThreads, 0, s>>>(
-          qf, static_cast<const int8_t*>(corpus), bf, sf, ig, n_ignore, B, N,
-          D, k, rows_per_split, pv, pi);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+  const Args a{q, corpus, bias, scale, ignore, n_ignore, B, N, D, k, rows_per_split,
+               splits, part_v, part_i};
+  const cudaError_t err = run(dtype, nq, vec, a, s, nullptr);
   if (err != cudaSuccess) return (int)err;
   mips_merge_kernel<<<(B + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
-      pv, pi, B, splits * k, k, static_cast<float*>(out_v),
-      static_cast<int*>(out_i));
+      static_cast<float*>(part_v), static_cast<const int*>(part_i), B, splits * k, k,
+      static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

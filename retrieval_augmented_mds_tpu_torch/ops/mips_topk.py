@@ -8,7 +8,9 @@ index holding it (bit-identical scores, e.g. duplicate rows, collapse to
 one hit). Leftover slots are (-3e38, -1).
 
 Routing is by device: a CPU tensor goes to `mips_topk_plain`, a CUDA
-tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback.
+tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback. A
+bf16 or int8 corpus is scored on the tensor cores (``csrc/mips_tile.cuh``,
+bf16 queries), an f32 one on the CUDA cores (f32 queries).
 
 `mips_topk_blocked` is the JAX package's two-phase exact top-k, which no
 path calls (there as here): phase 1 writes every score and the maximum
@@ -21,14 +23,13 @@ their columns. Unlike `mips_topk` it does not collapse equal scores.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 NEG_INF = float(-3.0e38)
 MAX_K = 128
 CHUNK = 128  # columns per chunk maximum of `mips_topk_blocked`
-_ROW_TILE = 256  # csrc/mips_topk.cu kRT
-_QUERY_GROUP = 16  # csrc/mips_topk.cu kQB
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -82,16 +83,74 @@ def mips_topk_plain(
     return _distinct_topk(scores, k)
 
 
-def _splits(b: int, n: int) -> tuple[int, int]:
-    """Corpus rows per CTA and the CTA count along N: enough CTAs for a few
-    waves over 132 SMs, in whole 256-row tiles."""
-    def cdiv(a, m):
-        return -(-a // m)
+def _cdiv(a: int, m: int) -> int:
+    return -(-a // m)
 
-    target = max(1, cdiv(1056, cdiv(b, _QUERY_GROUP)))
-    splits = min(cdiv(n, _ROW_TILE), target)
-    rows = cdiv(cdiv(n, splits), _ROW_TILE) * _ROW_TILE
-    return rows, cdiv(n, rows)
+
+def _query_group(b: int) -> int:
+    """Queries per CTA asked of the tensor-core tile: 8, 16, 32 or 64."""
+    for nq in (8, 16, 32):
+        if b <= nq:
+            return nq
+    return 64
+
+
+def _splits(b: int, n: int, sms: int, layout) -> tuple[int, int, int]:
+    """A kernel's layout → (queries per CTA, corpus rows per split, splits).
+
+    ``layout(nq)`` = (queries per CTA, corpus rows per tile, shared bytes,
+    CTAs per SM) of the kernel's instance for groups of ``nq`` queries, as
+    the kernel reports it (`_kernel_layout`; 0 CTAs: its shared memory does
+    not fit). Takes the largest query group that fits (large k takes
+    smaller ones; 8 always fits) and cuts the corpus into splits of whole
+    tiles, enough (query group, split) CTAs to fill each of ``sms`` SMs
+    once at that occupancy."""
+    nq = _query_group(b)
+    while True:
+        nq, tile, _, per_sm = layout(nq)
+        if per_sm > 0:
+            break
+        if nq <= 8:
+            raise RuntimeError(f"no query group of the kernel fits an SM: {layout(nq)}")
+        nq //= 2
+    splits = min(_cdiv(n, tile), max(1, sms * per_sm // _cdiv(b, nq)))
+    rows = _cdiv(_cdiv(n, splits), tile) * tile
+    return nq, rows, _cdiv(n, rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_layout(kernel: str, device: int, *args: int) -> tuple[int, int, int, int]:
+    """``<kernel>_layout(*args)`` of csrc/<kernel>.cu on CUDA device
+    ``device``: (queries per CTA, corpus rows per tile, shared bytes, CTAs
+    per SM)."""
+    from .cuda_build import check, load
+
+    fn = getattr(load(kernel), f"{kernel}_layout")
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        check(fn(*[ctypes.c_int(a) for a in args], out), f"{kernel} layout")
+    return tuple(out)
+
+
+def _k1_plan(q: torch.Tensor, corpus: torch.Tensor, k: int) -> tuple[int, int, int, int]:
+    """K1's layout for these CUDA tensors → (queries per CTA, rows per
+    split, splits, vec)."""
+    dev = q.device
+    vec = int(_vec_ok(corpus.shape[1], q, corpus))
+    code = _DTYPE_CODE[corpus.dtype]
+    return (*_splits(q.shape[0], corpus.shape[0], _sm_count(dev), lambda nq: _kernel_layout(
+        "mips_topk", dev.index, code, nq, vec, k)), vec)
+
+
+def _vec_ok(d: int, *tensors: torch.Tensor) -> bool:
+    """16-byte `cp.async` copies: every row stride a multiple of 16 bytes
+    and every base pointer 16-byte aligned."""
+    return all(d * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
@@ -120,8 +179,10 @@ def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
     if corpus.device != dev:
         raise ValueError("queries and corpus must be on the same device")
 
-    q = queries.to(_query_dtype(corpus)).float().contiguous()
-    rows, splits = _splits(b, n)
+    # bf16 queries for the tensor cores (int8 corpora score against bf16
+    # queries), f32 for the CUDA cores
+    q = queries.to(_query_dtype(corpus)).contiguous()
+    nq, rows, splits, vec = _k1_plan(q, corpus, k)
     part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -130,12 +191,12 @@ def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
     fn = lib.mips_topk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(
         q.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
         ptr(row_bias), ptr(row_scale), ptr(ignore),
-        0 if ignore is None else ignore.shape[1], b, n, d, k, rows, splits,
+        0 if ignore is None else ignore.shape[1], b, n, d, k, nq, vec, rows, splits,
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -232,18 +293,23 @@ def mips_chunkmax(queries, corpus, row_bias=None, ignore=None):
                                or not ignore.is_contiguous()):
         raise ValueError(f"ignore must be a contiguous int32 [{b}, I] on {dev}")
     n_pad = _chunked(n)
-    q = queries.to(corpus.dtype).float().contiguous()
+    q = queries.to(corpus.dtype).contiguous()
+    vec = int(_vec_ok(d, q, corpus))
+    nq, rows, splits = 0, 0, 0  # f32: one CTA per 256 rows, no splits
+    if corpus.dtype == torch.bfloat16:
+        nq, rows, splits = _splits(b, n, _sm_count(dev), lambda nq: _kernel_layout(
+            "mips_chunkmax", dev.index, nq, vec))
     scores = torch.empty((b, n_pad), dtype=torch.float32, device=dev)
     cmax = torch.empty((b, n_pad // CHUNK), dtype=torch.float32, device=dev)
     fn = load("mips_chunkmax").mips_chunkmax_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(q.data_ptr(), corpus.data_ptr(), 0 if corpus.dtype == torch.float32 else 1,
              ptr(row_bias), ptr(ignore), 0 if ignore is None else ignore.shape[1], b, n, d,
-             n_pad, scores.data_ptr(), cmax.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             n_pad, nq, vec, rows, splits, scores.data_ptr(),
+             cmax.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mips_chunkmax")
     mips_chunkmax.launches += 1
     return scores, cmax

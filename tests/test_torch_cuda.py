@@ -104,6 +104,195 @@ def test_mips_kernel_rejects_k_above_128(gen):
         mips_topk(q, torch.randn((300, 32), generator=gen, device="cuda"), 129)
 
 
+# ---------------------------------------------------------------------------
+# K1 on the tensor cores (bf16, int8) and the threshold-filtered selection
+# ---------------------------------------------------------------------------
+
+def _corpus(gen, n, d, dtype):
+    """A random [n, d] corpus of ``dtype`` → (corpus, row scale or None)."""
+    e = torch.randn((n, d), generator=gen, device="cuda")
+    if dtype == "int8":
+        return quantize_corpus_sq8(e)
+    return e.to(getattr(torch, dtype)), None
+
+
+def _same_as_plain(q, e, k, bias=None, ign=None, scale=None):
+    """K1 against `mips_topk_plain`: ids equal, values within rtol 1e-5 and
+    atol 1e-4 (f32 sums of the same exact products in another order)."""
+    vals, ids = mips_topk(q, e, k, bias, ign, scale)
+    ref_v, ref_i = mips_topk_plain(q, e, k, bias, ign, scale)
+    assert torch.equal(ids, ref_i)
+    torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+    return vals, ids
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 4, 17, 256])
+@pytest.mark.parametrize("d", [50, 96, 768])
+def test_mips_kernel_query_groups_and_widths(gen, dtype, b, d):
+    """Every query group (8, 16, 32, 64 queries a CTA) and both load paths
+    (16-byte copies at D = 96 and 768; element copies at D = 50, whose rows
+    are not 16-byte multiples), with bias, ignore lists and a ragged N."""
+    e, scale = _corpus(gen, 4099, d, dtype)
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    bias = torch.randn(4099, generator=gen, device="cuda")
+    ign = torch.randint(-1, 4099, (b, 3), generator=gen, device="cuda", dtype=torch.int32)
+    _same_as_plain(q, e, 10, bias, ign, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_mips_kernel_k(gen, dtype, k):
+    e, scale = _corpus(gen, 20000, 96, dtype)
+    q = torch.randn((17, 96), generator=gen, device="cuda")
+    _same_as_plain(q, e, k, None, None, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_fewer_rows_than_k(gen, dtype):
+    e, scale = _corpus(gen, 5, 50, dtype)
+    q = torch.randn((4, 50), generator=gen, device="cuda")
+    vals, ids = _same_as_plain(q, e, 10, None, None, scale)
+    assert (ids[:, 5:] == -1).all() and (vals[:, 5:] == -3.0e38).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,k", [(4, 10), (64, 128)])
+def test_mips_kernel_rising_scores(gen, dtype, b, k):
+    """The worst case of the filter: scores rise with the row index (a bias
+    step of 1000 over products of at most ~100), so every score beats the
+    running threshold and every tile fills the candidate buffers."""
+    n = 20000
+    e, scale = _corpus(gen, n, 96, dtype)
+    q = torch.randn((b, 96), generator=gen, device="cuda")
+    bias = 1000.0 * torch.arange(n, device="cuda", dtype=torch.float32)
+    vals, ids = _same_as_plain(q, e, k, bias, None, scale)
+    want = torch.arange(n - 1, n - 1 - k, -1, device="cuda", dtype=torch.int32)
+    assert torch.equal(ids, want.expand(b, k))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_buffer_overflow(gen, dtype):
+    """Tiles that leave the candidate buffers a quarter full (three quarters
+    of their rows have bias -3e38) before full tiles, with k = 128 (the
+    threshold stays at -3e38 until a list holds 128 values): the full
+    tiles overflow the buffers, which are merged, and the part is offered
+    again (tests/test_torch_mips_select.py counts the overflows). Small
+    integers, so every score is an exact integer on both sides: many exact
+    ties, which go to the lowest row, and no rounding near-ties."""
+    tile = 256 if dtype == "float32" else 128
+    n = (600000 if dtype == "float32" else 300000) // (2 * tile) * 2 * tile
+    small = lambda *shape: torch.randint(-3, 4, shape, generator=gen, device="cuda")  # noqa: E731
+    e = small(n, 32).to(getattr(torch, dtype))
+    scale = torch.ones(n, device="cuda") if dtype == "int8" else None
+    q = small(3, 32).float()
+    bias = torch.zeros((n // (2 * tile), 2, tile), device="cuda")
+    bias[:, 0, tile // 4:] = -3.0e38
+    _same_as_plain(q, e, 128, bias.reshape(n), None, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_tie_at_the_threshold_after_an_overflow(gen, dtype):
+    """Buffers that overflow while the value that ends at the k-th place
+    has rows in every warp that offers the part (tests/
+    test_torch_mips_select.py `tie_after_overflow`): which rows win the
+    slots is up to the scheduler, so 20 reruns, each with the lowest row of
+    that value and ids equal to plain."""
+    from test_torch_mips_select import tie_after_overflow
+
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import _k1_plan
+
+    q, e, bias, scale, want = (None if t is None else t.cuda()
+                               for t in tie_after_overflow(dtype, 300000))
+    assert _k1_plan(q, e, 10)[1] >= 256  # the first split holds both parts
+    ref_v, ref_i = mips_topk_plain(q, e, 10, bias, None, scale)
+    assert torch.equal(ref_i, want)
+    for _ in range(20):
+        vals, ids = mips_topk(q, e, 10, bias, None, scale)
+        assert torch.equal(ids, want)
+        torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+
+
+def test_mips_layout_matches_the_h100_stand_in(gen):
+    """The layout each MIPS kernel instance reports (queries per CTA, rows
+    per tile, shared bytes) equals the stand-in the CPU tests plan with, and
+    its CTAs per SM, which count registers too, are no more than the
+    stand-in's and zero exactly where the stand-in's are."""
+    from test_torch_mips_select import h100_layout
+
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import _DTYPE_CODE, _kernel_layout
+
+    dev = torch.cuda.current_device()
+    cases = [("mips_topk", dt, k) for dt in _DTYPE_CODE for k in (1, 10, 64, 128)]
+    for kernel, dt, k in cases + [("mips_chunkmax", torch.bfloat16, 10)]:
+        want = h100_layout(kernel, dt, k)
+        for nq in (8, 16, 32, 64):
+            for vec in (0, 1):
+                args = (_DTYPE_CODE[dt], nq, vec, k) if kernel == "mips_topk" else (nq, vec)
+                got = _kernel_layout(kernel, dev, *args)
+                w = want(nq)
+                assert got[:3] == w[:3], (kernel, dt, k, nq, vec, got, w)
+                assert (got[3] > 0) == (w[3] > 0) and got[3] <= w[3], (kernel, dt, k, nq, got, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_identical_rows(gen, dtype):
+    """All rows equal: one hit at the lowest row (row 1 where row 0 is
+    ignored), then (-3e38, -1)."""
+    e, scale = _corpus(gen, 3000, 96, dtype)
+    e = e[:1].expand(3000, 96).contiguous()
+    if scale is not None:
+        scale = scale[:1].expand(3000).contiguous()
+    q = torch.randn((5, 96), generator=gen, device="cuda")
+    ign = torch.tensor([[-1], [0], [-1], [0], [7]], dtype=torch.int32, device="cuda")
+    vals, ids = _same_as_plain(q, e, 10, None, ign, scale)
+    assert ids[:, 0].tolist() == [0, 1, 0, 1, 0]
+    assert (ids[:, 1:] == -1).all() and (vals[:, 1:] == -3.0e38).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_duplicates_across_split_borders(gen, dtype):
+    """Copies of one row on both sides of split borders: the lowest row
+    wins, and the copies collapse into that one hit."""
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import _k1_plan
+
+    n, b = 60000, 4
+    e, scale = _corpus(gen, n, 96, dtype)
+    _, rows, splits, _ = _k1_plan(torch.zeros((b, 96), device="cuda"), e, 10)
+    assert splits >= 3
+    src = 2 * rows + 5  # a row of the third split
+    copies = [rows - 1, rows, 2 * rows - 1, 2 * rows, src]
+    e[copies] = e[src].clone()
+    if scale is not None:
+        scale[copies] = scale[src].clone()
+    q = torch.randn((b, 96), generator=gen, device="cuda")
+    q[0] = 3.0 * e[src].float() * (1.0 if scale is None else float(scale[src]))
+    vals, ids = _same_as_plain(q, e, 10, None, None, scale)
+    assert ids[0, 0] == rows - 1
+    assert not torch.isin(torch.tensor(copies[1:], device="cuda"), ids[0]).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_ignores_the_true_top_hits(gen, dtype):
+    """Ignored ids that hold the five best hits of every query: they never
+    enter the selection, so they cannot raise its threshold either."""
+    e, scale = _corpus(gen, 30000, 96, dtype)
+    q = torch.randn((17, 96), generator=gen, device="cuda")
+    _, top = mips_topk_plain(q, e, 5, None, None, scale)
+    vals, ids = _same_as_plain(q, e, 10, None, top, scale)
+    assert not bool((ids[:, :, None] == top[:, None, :]).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_mips_kernel_reruns_are_bit_equal(gen, dtype):
+    e, scale = _corpus(gen, 50000, 768, dtype)
+    q = torch.randn((17, 768), generator=gen, device="cuda")
+    bias = torch.randn(50000, generator=gen, device="cuda")
+    first = mips_topk(q, e, 128, bias, None, scale)
+    again = mips_topk(q, e, 128, bias, None, scale)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def _probe_inputs(gen, dtype, c=40, L=300, d=96, b=6, p=5):
     """Clusters with padded tail slots, a row repeated in one cluster and in
     another (equal scores: the lowest position wins), and each query's
@@ -642,6 +831,22 @@ def test_blocked_topk_on_the_card_matches_k1(gen):
     cpu_vals, cpu_ids = mips_topk_blocked(q.cpu(), e.cpu(), 10, rb.cpu(), ign.cpu())
     assert torch.equal(ids.cpu(), cpu_ids)
     torch.testing.assert_close(vals.cpu(), cpu_vals, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,d", [(4, 768), (17, 96), (256, 768), (3, 50)])
+def test_chunkmax_scores_are_k1_values_bit_for_bit(gen, b, d):
+    """bf16 corpus, no scale: K10 and K1 walk D through the same tensor-core
+    tile, so K10's score at each of K1's hits is K1's value, bit for bit;
+    a rerun of K10 is bit-equal."""
+    e = torch.randn((30000, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    rb = torch.randn(30000, generator=gen, device="cuda")
+    ign = torch.randint(-1, 30000, (b, 4), generator=gen, device="cuda", dtype=torch.int32)
+    scores, cmax = mips_chunkmax(q, e, rb, ign)
+    vals, ids = mips_topk(q, e, 10, rb, ign)
+    assert torch.equal(torch.gather(scores, 1, ids.long()), vals)
+    again = mips_chunkmax(q, e, rb, ign)
+    assert torch.equal(again[0], scores) and torch.equal(again[1], cmax)
 
 
 def test_predict_runs_through_both_kernels(gen):
