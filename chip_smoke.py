@@ -28,8 +28,10 @@ Phases, in order; any failure exits non-zero:
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
      the same probe ids, on IVF indexes (C = 1024, SQ8 and bf16) built by
      the port over 1,048,576 rows of the ``bench-index`` Gaussian mixture
-     (D = 768), at B = 4 and 16, nprobe = 32, k = 10; with the K1 flat scan
-     of the same payload beside its bound, the build time and recall@10;
+     (D = 768), at B = 4 and 16, nprobe = 32, k = 10, and with 16 queries
+     that all probe the same 32 clusters; with its read amplification and
+     the device time of its passes, the K1 flat scan of the same payload
+     beside its bound, the build time and recall@10;
   7. ``predict`` on ``configs/smoke.yaml`` on the card and on the CPU (the
      plain versions), from one seed: equal retrieved and generated ids;
      then ``fit`` on the same config for 3 steps, card against CPU: the
@@ -963,6 +965,58 @@ def _k8_check(what, args, k):
     return err, tol, int(differ.sum())
 
 
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel fn() launches, by kernel name
+    (torch.profiler's key averages over ``reps`` calls after one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / 1e3 / reps for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0}
+
+
+def _k8_case(what, args):
+    """K8 on one set of probes: held against plain (`_k8_check`), timed
+    beside its plain version and its bound (each distinct probed cluster
+    read once), with the read amplification (probes per distinct cluster)
+    and the device time of its passes → (err, ms, plain_ms, bound)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
+        ivf_probe_topk,
+        ivf_probe_topk_plain,
+    )
+
+    q, clustered, bias, scale, probes = args
+    b, L, d = probes.shape[0], clustered.shape[1], clustered.shape[2]
+    err, tol, n_swapped = _k8_check(what, args, K8_K)
+    ms = cuda_ms(lambda: ivf_probe_topk(*args, K8_K))
+    plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, K8_K))
+    n_probed = int(torch.unique(probes).numel())
+    row_bytes = d * clustered.element_size() + 4 * (1 if scale is None else 2)
+    bound = roofline(n_probed * L * row_bytes + nbytes(q, probes) + b * K8_K * 8,
+                     2.0 * b * K8_NPROBE * L * d, False)
+    split = device_ms_by_kernel(lambda: ivf_probe_topk(*args, K8_K))
+    pass1 = sum(v for n, v in split.items() if "ivf_partial_kernel" in n)
+    merge = sum(v for n, v in split.items() if "ivf_merge" in n)
+    rest = sum(split.values()) - pass1 - merge
+    print(f"[K8] {what} nprobe={K8_NPROBE} k={K8_K}: PASS (positions equal but "
+          f"{n_swapped} swapped near-ties within tol {tol:.3e}; values max abs err "
+          f"{err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {n_probed} distinct clusters "
+          f"of {b * K8_NPROBE} probes, read amplification {b * K8_NPROBE / n_probed:.2f}), "
+          f"{bound['bound_ms'] / ms:.1%} of it; device time per call (profiler): pass 1 "
+          f"{pass1:.4f} ms, merge {merge:.4f} ms, grouping and query copy {rest:.4f} ms")
+    return err, ms, plain_ms, bound
+
+
 def phase_k8() -> dict:
     import numpy as np
     import torch
@@ -973,11 +1027,7 @@ def phase_k8() -> dict:
         prepare_queries,
         probe_clusters,
     )
-    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import (
-        ivf_probe_topk,
-        ivf_probe_topk_plain,
-        ivf_search_serving,
-    )
+    from retrieval_augmented_mds_tpu_torch.index.ivf_serving import ivf_search_serving
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
         mips_topk,
         mips_topk_plain,
@@ -1013,9 +1063,7 @@ def phase_k8() -> dict:
             q = prepare_queries(idx, queries[:b])
             probes = probe_clusters(idx, q, K8_NPROBE).to(torch.int32).contiguous()
             args = (q, idx.clustered, idx.clustered_bias, idx.clustered_scale, probes)
-            err, tol, n_swapped = _k8_check(f"{payload} B={b}", args, K8_K)
-            ms = cuda_ms(lambda: ivf_probe_topk(*args, K8_K))
-            plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, K8_K))
+            err, ms, plain_ms, bound = _k8_case(f"{payload} B={b}", args)
             flat_ms = cuda_ms(lambda: mips_topk(q, flat, K8_K, None, None, flat_scale))
             # K1's flat scan: the payload and its scales read once
             flat_bound = roofline(nbytes(q, flat, flat_scale) + b * K8_K * 8,
@@ -1023,26 +1071,26 @@ def phase_k8() -> dict:
             # the whole per-query route: probes, K8, ids, the spill by K1, merge
             route_ms = cuda_ms(lambda: ivf_search_serving(idx, queries[:b], k=K8_K,
                                                           nprobe=K8_NPROBE))
-            # each probed cluster read once: its rows, their bias and scale
-            n_probed = int(torch.unique(probes).numel())
-            row_bytes = d * idx.clustered.element_size() + 4 * (
-                1 if idx.clustered_scale is None else 2)
-            bound = roofline(n_probed * L * row_bytes + nbytes(q, probes) + b * K8_K * 8,
-                             2.0 * b * K8_NPROBE * L * d, False)
             _, ids = ivf_search_serving(idx, queries[:b], k=K8_K, nprobe=K8_NPROBE)
             rec = recall(ids, exact[:b])
             _, flat_ids = mips_topk(queries[:b], flat, K8_K, None, None, flat_scale)
-            print(f"[K8] {payload} B={b} nprobe={K8_NPROBE} k={K8_K}: PASS (positions equal "
-                  f"but {n_swapped} swapped near-ties within tol {tol:.3e}; values max abs "
-                  f"err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, K1 flat "
-                  f"scan of the same {K8_N}-row payload {flat_ms:.3f} ms (bound "
-                  f"{flat_bound:.3f} ms, bytes: {flat_bound / flat_ms:.1%} of it); bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {n_probed} distinct "
-                  f"clusters of {b * K8_NPROBE} probes), {bound['bound_ms'] / ms:.1%} of it; "
-                  f"the whole per-query route {route_ms:.3f} ms; recall@10 vs exact f32: "
-                  f"IVF per-query {rec:.4f}, flat {recall(flat_ids, exact[:b]):.4f}")
+            print(f"[K8] {payload} B={b}: K1 flat scan of the same {K8_N}-row payload "
+                  f"{flat_ms:.3f} ms (bound {flat_bound:.3f} ms, bytes: "
+                  f"{flat_bound / flat_ms:.1%} of it); the whole per-query route "
+                  f"{route_ms:.3f} ms; recall@10 vs exact f32: IVF per-query {rec:.4f}, "
+                  f"flat {recall(flat_ids, exact[:b]):.4f}")
             if measured is None:  # the reported case: SQ8, B = 4
                 measured = result(err, ms, plain_ms, bound)
+        # maximal sharing: 16 queries probe query 0's 32 clusters, each at
+        # its own ranks
+        b = 16
+        q = prepare_queries(idx, queries[:b])
+        probes = probe_clusters(idx, q, K8_NPROBE).to(torch.int32)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        probes = torch.stack([probes[0][torch.randperm(K8_NPROBE, generator=g, device="cuda")]
+                              for _ in range(b)]).contiguous()
+        _k8_case(f"{payload} B={b} sharing", (q, idx.clustered, idx.clustered_bias,
+                                              idx.clustered_scale, probes))
         del idx, flat, flat_scale
     del x
     torch.cuda.empty_cache()

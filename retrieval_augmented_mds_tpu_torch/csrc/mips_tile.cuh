@@ -25,9 +25,11 @@
 // the 8 rows an `ldmatrix` phase reads fall on distinct banks.
 //
 // int8 (SQ8) rows arrive as bytes and are widened to bf16 straight into
-// the A fragments (2-byte shared loads, -127..127 exact in bf16); the
-// per-row scale is applied to the score, as the TPU kernel does. Queries
-// arrive as bf16 (the wrapper rounds them), always through `ldmatrix`.
+// the A fragments (2-byte shared loads, -127..127 exact in bf16) without a
+// conversion instruction (`widen4`: an I2F issues at 16 a clock on an SM,
+// a byte permute or an FADD at 64 or more); the per-row scale is applied
+// to the score, as the TPU kernel does. Queries arrive as bf16 (the
+// wrapper rounds them), always through `ldmatrix`.
 //
 // VEC = true takes 16-byte `cp.async` copies; it needs both row strides in
 // bytes (D * sizeof(ET) and D * 2) to be multiples of 16 and the base
@@ -123,22 +125,34 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const char* es, int r0,
   ldsm_x4(a, reinterpret_cast<const bf16*>(es + (r0 + ar) * LD + (kk * 16 + ac) * 2));
 }
 
-// int8: two bytes (dims 2t, 2t + 1 of a half k-step) widened to a bf16 pair.
-__device__ __forceinline__ uint32_t widen2(const char* p) {
-  const uint16_t u = *reinterpret_cast<const uint16_t*>(p);
-  return pack_bf16(static_cast<float>(static_cast<int8_t>(u & 0xff)),
-                   static_cast<float>(static_cast<int8_t>(u >> 8)));
+// int8: the four bytes of a little-endian word -> two bf16 pairs (bytes 0,
+// 1 to lo, bytes 2, 3 to hi), exactly: a byte b becomes the f32 2^23 +
+// (b ^ 128) by a byte permute into 0x4B000000, one FADD takes 2^23 + 128
+// off, and the bf16 is the f32's upper half (exact for |b| <= 128).
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
+// Lane (g, t) widens dims 2t, 2t + 1 and 2t + 8, 2t + 9 of rows g and g + 8
+// (two 2-byte loads a row) into k-slots 2t, 2t + 1 (a[0], a[1]) and 2t + 8,
+// 2t + 9 (a[2], a[3]): the bf16 fragment layout, so the queries keep theirs.
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const char* es, int r0, int kk,
                                        const int8_t*) {
   constexpr int LD = Slab<int8_t, 8>::E_LD;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const char* p = es + (r0 + g) * LD + kk * 16 + 2 * t;
-  a[0] = widen2(p);
-  a[1] = widen2(p + 8 * LD);
-  a[2] = widen2(p + 8);
-  a[3] = widen2(p + 8 * LD + 8);
+  auto pair = [](const char* x) {
+    return (uint32_t)*reinterpret_cast<const uint16_t*>(x) |
+           (uint32_t)*reinterpret_cast<const uint16_t*>(x + 8) << 16;
+  };
+  widen4(pair(p), a[0], a[2]);
+  widen4(pair(p + 8 * LD), a[1], a[3]);
 }
 
 template <typename ET, int NQ>

@@ -11,7 +11,10 @@ select the final top-k.
 
 `ivf_probe_topk` routes by device: a CPU tensor takes
 `ivf_probe_topk_plain`, a CUDA tensor the kernel in
-``csrc/ivf_probe_topk.cu``; there is no fallback.
+``csrc/ivf_probe_topk.cu``; there is no fallback. The kernel groups the
+probes by cluster itself, so that a cluster several queries probe is read
+once; the wrapper plans its row splits from the layout it reports
+(`_plan`).
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from ..ops.mips_topk import _DTYPE_CODE, MAX_K, _distinct_topk, _query_dtype
 from .ivf import IVFIndex, _select, _spill_hits, prepare_queries, probe_clusters
 
 INT_MAX = 2**31 - 1  # the position of an empty hit
-_ROWS = 256  # csrc/ivf_probe_topk.cu kRows: cluster rows per block
 _MAX_D = 8192  # csrc/ivf_probe_topk.cu kMaxD
 
 
@@ -50,8 +52,34 @@ def ivf_probe_topk_plain(q, clustered, bias, scale, probes, k):
     return vals, torch.where(pos < 0, torch.full_like(pos, INT_MAX), pos)
 
 
+# waves of CTAs when the probes outnumber the card's CTA slots: runs that
+# serve several queries take longer than the rest, and short CTAs let the
+# block scheduler even them out
+_WAVES = 4
+
+
+def _plan(b: int, p: int, L: int, sms: int, layout) -> tuple[int, int]:
+    """K8's layout → (cluster rows per split, splits).
+
+    ``layout()`` = (queries per chunk, cluster rows per tile, shared bytes,
+    CTAs per SM) of the kernel instance, as the kernel reports it (0 CTAs:
+    it does not fit). If each of the B·nprobe probes read its own cluster,
+    one wave of CTAs would fill the card's ``sms`` x CTAs-per-SM slots when
+    the probes are fewer than the slots, and ``_WAVES`` waves otherwise;
+    the splits are whole tiles, at least two of them."""
+    _, tile, _, per_sm = layout()
+    if per_sm <= 0:
+        raise RuntimeError(f"K8 does not fit an SM: {layout()}")
+    slots, n_tiles = sms * per_sm, -(-L // tile)
+    want = slots // (b * p) if b * p <= slots else -(-_WAVES * slots // (b * p))
+    splits = min(max(1, n_tiles // 2), max(1, want))
+    rows = -(-n_tiles // splits) * tile
+    return rows, -(-L // rows)
+
+
 def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
     from ..ops.cuda_build import check, load
+    from ..ops.mips_topk import _kernel_layout, _sm_count
 
     if clustered.dtype not in _DTYPE_CODE:
         raise TypeError(f"payload dtype {clustered.dtype} is not f32/bf16/int8")
@@ -64,8 +92,10 @@ def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
     dev = q.device
-    if not clustered.is_contiguous() or clustered.device != dev:
-        raise ValueError(f"clustered must be a contiguous [C, L, D] on {dev}")
+    if (not clustered.is_contiguous() or clustered.device != dev
+            or clustered.data_ptr() % 16):
+        raise ValueError(f"clustered must be a contiguous [C, L, D] on {dev}, 16-byte "
+                         "aligned")
     for name, t in (("bias", bias), ("scale", scale)):
         if t is not None and (t.dtype != torch.float32 or t.shape != (c, L)
                               or t.device != dev or not t.is_contiguous()):
@@ -74,21 +104,24 @@ def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
             or not probes.is_contiguous()):
         raise ValueError(f"probes must be a contiguous int32 [{b}, nprobe] on {dev}")
 
-    qk = q.to(_query_dtype(clustered)).float().contiguous()
-    splits = -(-L // _ROWS)
-    part_v = torch.empty((b, p * splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, p * splits, k), dtype=torch.int32, device=dev)
+    code = _DTYPE_CODE[clustered.dtype]
+    qk = q.to(_query_dtype(clustered)).contiguous()
+    rows, splits = _plan(b, p, L, _sm_count(dev), lambda: _kernel_layout(
+        "ivf_probe_topk", dev.index, code, k))
+    part_v = torch.empty((b * p, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b * p, splits, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     pos = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = load("ivf_probe_topk").ivf_probe_topk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     err = fn(
-        qk.data_ptr(), clustered.data_ptr(), _DTYPE_CODE[clustered.dtype],
-        bias.data_ptr(), None if scale is None else scale.data_ptr(), probes.data_ptr(),
-        b, p, L, d, k, splits, part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-        pos.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        qk.data_ptr(), clustered.data_ptr(), code, bias.data_ptr(),
+        None if scale is None else scale.data_ptr(), probes.data_ptr(), b, p, L, d, k,
+        rows, splits, part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "ivf_probe_topk")
     ivf_probe_topk.launches += 1

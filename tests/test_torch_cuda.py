@@ -323,8 +323,8 @@ def _probe_inputs(gen, dtype, c=40, L=300, d=96, b=6, p=5):
 @pytest.mark.parametrize("k", [1, 10, 128])
 def test_ivf_probe_kernel_matches_plain(gen, dtype, k):
     """K8 against its plain version: positions equal, values to f32
-    summation-order noise (rtol 1e-5, atol 1e-4), with padded slots, two
-    256-row slices per cluster (one ragged) and duplicate rows."""
+    summation-order noise (rtol 1e-5, atol 1e-4), with padded slots, three
+    128-row tiles per cluster (one ragged) and duplicate rows."""
     args = _probe_inputs(gen, dtype)
     ivf_probe_topk.launches = 0
     vals, pos = ivf_probe_topk(*args, k)
@@ -341,6 +341,63 @@ def test_ivf_probe_kernel_pads_missing_hits(gen):
     vals, pos = ivf_probe_topk(q, e, bias, scale, probes, 16)
     assert (pos[:, 10:] == INT_MAX).all() and (vals[:, 10:] == -3.0e38).all()
     assert torch.equal(pos, ivf_probe_topk_plain(q, e, bias, scale, probes, 16)[1])
+
+
+def _probe_case_on_card(dtype, seed, **kw):
+    from test_torch_ivf_group import _probe_case
+
+    return tuple(None if a is None else a.cuda() for a in _probe_case(dtype, seed, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("seed,integer,c,b,p,k", [
+    (0, False, 64, 20, 3, 10), (2, True, 24, 20, 14, 10), (5, False, 24, 3, 4, 5),
+    (6, False, 24, 9, 4, 128), (7, True, 24, 1, 4, 40)])
+def test_ivf_probe_kernel_on_shared_clusters(gen, dtype, seed, integer, c, b, p, k):
+    """K8 where queries share clusters (`tests/test_torch_ivf_group.py`'s
+    cases): every query probes the same clusters at its own ranks but one;
+    B = 20 above the 8 queries of a chunk (B * nprobe < C, as the route
+    sends it, and at 280 probes of 24 clusters); a value in two clusters at
+    different ranks (query 1) and in slots 383 and 384 of one cluster,
+    across a split border (query 2); L = 600, not whole tiles, with 37
+    padding slots; integer scores whose buffers overflow. Positions equal
+    to the plain version's, values to f32 summation-order noise (rtol 1e-5,
+    atol 1e-4)."""
+    args = _probe_case_on_card(dtype, seed, c=c, b=b, p=p, integer=integer)
+    ivf_probe_topk.launches = 0
+    vals, pos = ivf_probe_topk(*args, k)
+    ref_v, ref_p = ivf_probe_topk_plain(*args, k)
+    assert ivf_probe_topk.launches == 1
+    assert torch.equal(pos, ref_p)
+    torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_probe_kernel_k128_over_few_rows(gen, dtype):
+    """k = 128 over 2 probes of 30 real rows each, the other 270 slots
+    padding (-3e38): 60 hits, then (-3e38, INT_MAX), as the plain version."""
+    q, e, bias, scale, probes = _probe_inputs(gen, dtype, c=8, L=300, d=64, b=3, p=2)
+    bias[:, 30:] = -3.0e38
+    vals, pos = ivf_probe_topk(q, e, bias, scale, probes, 128)
+    ref_v, ref_p = ivf_probe_topk_plain(q, e, bias, scale, probes, 128)
+    assert torch.equal(pos, ref_p) and (pos[:, 60:] == INT_MAX).all()
+    assert (vals[:, 60:] == -3.0e38).all()
+    torch.testing.assert_close(vals, ref_v, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("k", [10, 128])
+def test_ivf_layout_matches_the_h100_stand_in(gen, dtype, k):
+    """The layout K8 reports (queries per chunk, rows per tile, shared
+    bytes, CTAs per SM) equals the stand-in the CPU tests plan with."""
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import _DTYPE_CODE, _kernel_layout
+
+    from test_torch_ivf_group import h100_layout
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the stand-in is an H100 SXM")
+    got = _kernel_layout("ivf_probe_topk", 0, _DTYPE_CODE[dtype], k)
+    assert got == h100_layout(dtype, k)()
 
 
 def test_ivf_probe_kernel_rejects_unaligned_dim(gen):

@@ -9,9 +9,11 @@ seed; everything is f32. Tolerances are rtol=atol=1e-5 unless a test says
 otherwise.
 """
 
+import copy
 import dataclasses
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +40,7 @@ from retrieval_augmented_mds_tpu_torch.train import trainer as ttrainer
 from retrieval_augmented_mds_tpu_torch.utils import checkpoint as tckpt
 from retrieval_augmented_mds_tpu_torch.utils import config as tconfig
 
-from tests.test_torch_models import _np, _t
+from tests.test_torch_models import _np, _t, port_params
 from tests.test_torch_rag import B, N, _batch, _setup, _stores
 
 torch.set_num_threads(1)
@@ -242,46 +244,303 @@ def _train_inputs(cfg, seed, n_batches=3):
     return jstore, tstore, batches
 
 
-def test_train_steps_match_jax():
-    """3 make_train_step steps (AdamW with warmup, decay, clip, bf16 mu):
-    losses within rtol 1e-4, every metric key equal, every other metric
-    within rtol 1e-4 + atol 1e-5 (`mips_score_mean` is a mean of cosines
-    near 0), and the parameters after the 3 steps within atol 1e-5.
+# Leaves whose gradient is zero in exact arithmetic: a bias added to every
+# key of an attention row (`k`, and `kg` of the Longformer's global rows)
+# adds q . b to all of that row's logits, and the copy head's `beta_bias`
+# shifts every logit of its softmax alike. Their gradients are roundoff in
+# both packages, and Adam divides a gradient by its own size.
+_ZERO_GRADIENT = re.compile(r"\.(k|kg)\.bias$|\.beta_bias$")
 
-    One parameter is held to Adam's own bound instead: the copy head's
-    `beta_bias` shifts every logit of a softmax alike, so its gradient is
-    zero in exact arithmetic and roundoff in either package (XLA's fusion
-    happens to give exactly 0, PyTorch ~1e-9). Adam divides such a
-    gradient by its own size (eps = 1e-8), so each package moves it by up
-    to lr per update, in no shared direction."""
-    cfg, jcfg, jp, model = _setup(seed=5)
-    hyper = dict(lr=5e-4, warmup_steps=1, total_steps=100, weight_decay=0.01,
-                 grad_clip=1.0, grad_group_norms=True)
-    opt = dict(weight_decay=0.01, grad_clip=1.0)
-    jtx = joptim.build_optimizer(5e-4, 1, 100, **opt)
+
+def zero_gradient_leaves(model: nn.Module) -> list[str]:
+    return [n for n, _ in model.named_parameters() if _ZERO_GRADIENT.search(n)]
+
+
+def _outputs(model, cfg, store, batch) -> dict[str, torch.Tensor]:
+    out, aux, enc = trag.rag_forward(model, cfg, store, batch)
+    loss = tloss.summarization_loss(out, batch["labels"], 0.1, cfg.led.pad_id)
+    return {"loss": loss, "out": out, "copy_gate": aux["copy_gate"],
+            "copy_probs": aux["copy_probs"], "mips_scores": enc.mips_scores}
+
+
+@torch.no_grad()
+def check_zero_gradient_leaves(model, cfg, store, batch) -> list[str]:
+    """Prove the set: each leaf of `zero_gradient_leaves`, shifted by a
+    standard normal vector, moves the loss and every output of
+    `rag_forward` by roundoff only (TOL); a leaf whose gradient is not zero
+    moves them by orders of magnitude more. Returns the set."""
+    names = zero_gradient_leaves(model)
+    assert any(n.endswith(".k.bias") for n in names)
+    assert any(n.endswith(".kg.bias") for n in names)
+    assert any(n.endswith(".beta_bias") for n in names)
+    base = _outputs(model, cfg, store, batch)
+    params = dict(model.named_parameters())
+    gen = torch.Generator().manual_seed(0)
+    for n in names:
+        kept = params[n].clone()
+        params[n].add_(torch.randn(kept.shape, generator=gen))
+        moved = _outputs(model, cfg, store, batch)
+        params[n].copy_(kept)
+        for k, v in base.items():
+            np.testing.assert_allclose(_np(moved[k]), _np(v), err_msg=f"{n}: {k}", **TOL)
+    return names
+
+
+def _keep_gradients_tx() -> optax.GradientTransformation:
+    """Moves nothing and keeps the last gradients as its state: the JAX
+    train step with it gives the step's gradients."""
+    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)  # noqa: E731
+    return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
+
+
+class _KeepGradients:
+    """A stand-in optimizer for the port's train step: it keeps each step's
+    gradients in ``self.grads`` and, given an optimizer, runs it."""
+
+    def __init__(self, tx=None):
+        self.tx, self.grads = tx, []
+
+    def update(self, params, grads, state):
+        self.grads.append({n: g.detach().clone() for n, g in grads.items()})
+        if self.tx is not None:
+            self.tx.update(params, grads, state)
+
+
+def _jax_tree(like, flat: dict):
+    """``flat`` ({"a.b.0.c": array}) in the structure of the JAX tree ``like``."""
+    def name(path):
+        return ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+    return jax.tree_util.tree_map_with_path(
+        lambda path, _: jnp.asarray(np.asarray(flat[name(path)])), like)
+
+
+def _state_arrays(jstate) -> dict[str, torch.Tensor]:
+    """A JAX train state's leaves under the checkpoint key paths, copied
+    (the JAX step donates its state), bf16 kept."""
+    flat, bf16 = jckpt._flatten(jstate)
+    return {k: tckpt._from_numpy(np.array(v), k in bf16) for k, v in flat.items()}
+
+
+def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dict):
+    """The port's f32 gradients against the JAX package's, leaf by leaf:
+    ||g_port - g_jax|| <= 3 (r_port + r_jax) + 2^-22 ||g_jax||, r being a
+    package's own roundoff, ||g - g64||, against its own f64 run from the
+    same state. In exact arithmetic g64_port = g64_jax, so by the triangle
+    inequality the gap is at most r_port + r_jax. The JAX package's f64 run
+    keeps its loss in f32 (its metrics come back f32), so r_jax misses the
+    roundoff of the loss's cotangent, which reaches every leaf near the
+    logits (measured: a gap of 1.9 (r_port + r_jax) at `led.dec_pos.table`;
+    3 leaves room for it). The last term is a few roundings of the
+    leaf itself (an f32 gradient that both f64 runs give exactly). Each
+    leaf is held to its own roundoff, so that a fault in a leaf whose
+    gradient is far below the tree's largest (the query encoder's are
+    below 1e-6 of it) still shows."""
+    for n, g in port.items():
+        g = g.double().numpy()
+        gap = float(np.linalg.norm(g - jax_[n]))
+        r_port = float(np.linalg.norm(g - port64[n].numpy()))
+        r_jax = float(np.linalg.norm(np.asarray(jax_[n], np.float64) - jax64[n]))
+        allowed = 3 * (r_port + r_jax) + 2.0 ** -22 * float(np.linalg.norm(jax_[n]))
+        assert gap <= allowed, f"step {step}: {n} gradient {gap:.3g} apart, {allowed:.3g} allowed"
+
+
+def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
+    """Three train steps of both packages from the JAX package's
+    trajectory, each step begun by both from the same point: the JAX
+    parameters and optimizer state are loaded into the port first. At each
+    step:
+
+    * every metric key equal, the loss within rtol 1e-4, every metric
+      within rtol 1e-4 + atol 1e-5 (`mips_score_mean` is a mean of cosines
+      near 0);
+    * every gradient held to the two packages' own roundoff, leaf by leaf
+      (`_check_gradients`; the JAX gradients come from the same jitted
+      step, its optimizer swapped for one that keeps them, in f32 and in
+      f64, the port's from its step in f64 beside its f32 one);
+    * the update: the port's parameters after the step within rtol = atol
+      = 1e-6 of the JAX optimizer's (jitted, as in the reference's step)
+      applied to the PORT's gradients from the same state, the tolerance of
+      the optimizer tests that feed both packages the same gradients, and
+      ``check_state(got, ref, start, clipped)`` on the two optimizer states
+      (the port's `state_arrays` and the JAX state under the same keys),
+      given the state both began from and the port's clipped gradients.
+
+    Comparing the updates on one set of gradients keeps f32 roundoff in
+    the gradients out of the update, where Adam would amplify it: an
+    element whose gradient is far below eps = 1e-8 moves by lr * mhat / eps,
+    linear in a gradient that is roundoff where the terms of its sum
+    cancel. Beside this, a copy of the port runs the three steps on its own
+    (the reference's free-running comparison): its loss within rtol 1e-4 of
+    the JAX package's at every step. Returns (the port's config, the
+    free-running port model, the JAX parameters after the three steps,
+    the port's store, the first batch, and per step the JAX package's
+    gradients on its own trajectory and the free-running port's on its own,
+    each scaled by its clip)."""
+    cfg, jcfg, jp, model = _setup(seed=seed)
+    free = port_params(cfg, jp)
+    jtx = joptim.build_optimizer(hyper["lr"], hyper["warmup_steps"], hyper["total_steps"],
+                                 **opt)
     jstep = jtrainer.make_train_step(jcfg, jtx, jtrainer.TrainHyper(**hyper))
+    jgrad_step = jtrainer.make_train_step(jcfg, _keep_gradients_tx(),
+                                          jtrainer.TrainHyper(**hyper))
+    jupdate = jax.jit(jtx.update)
     jstate = jtrainer.TrainState.create(jp, jtx)
-    ttx = toptim.build_optimizer(5e-4, 1, 100, **opt)
-    tstep = ttrainer.make_train_step(cfg, ttx, tconfig.TrainHyper(**hyper))
+
+    def port_step(tx, dtype=torch.float32):
+        kept = _KeepGradients(tx)
+        return kept, ttrainer.make_train_step(cfg, kept, tconfig.TrainHyper(**hyper),
+                                              dtype=dtype)
+
+    def optimizer():
+        return toptim.build_optimizer(hyper["lr"], hyper["warmup_steps"],
+                                      hyper["total_steps"], **opt)
+
+    ttx, ftx = optimizer(), optimizer()
+    tkept, tstep = port_step(ttx)
+    fkept, fstep = port_step(ftx)
+    exact, exact_step = port_step(None, torch.float64)
     tstate = ttrainer.TrainState.create(model, ttx)
-    jstore, tstore, batches = _train_inputs(cfg, 5)
-    for jb, tb in batches:
+    fstate = ttrainer.TrainState.create(free, ftx)
+    jstore, tstore, batches = _train_inputs(cfg, seed)
+    required = {"loss", "copy_gate_mean", "copy_probs_mass", "mips_score_mean",
+                "retriever_recall", "grad_norm"}
+    if hyper.get("grad_group_norms"):
+        required.add("grad_norm_led")
+    trace = []
+    for i, (jb, tb) in enumerate(batches):
+        start = jax.tree_util.tree_map(jnp.array, jstate)  # the step donates jstate
+        flat = _state_arrays(start)
+        tckpt.load_params(model, flat)
+        tstate.opt_state = ttx.load_state_arrays(model, flat)
+        jgrads = {}
+        for dtype in (jnp.float32, jnp.float64):
+            with jax.enable_x64(dtype == jnp.float64):
+                params = jax.tree_util.tree_map(lambda x: jnp.array(x, dtype), start.params)
+                kept = jtrainer.TrainState(params=params,
+                                           opt_state=_keep_gradients_tx().init(params),
+                                           step=jnp.array(start.step))
+                jgrads[dtype] = flatten_tree(jgrad_step(kept, jstore, jb, None)[0].opt_state)
+        exact_step(ttrainer.TrainState(copy.deepcopy(model).double(), None, 0), tstore, tb)
         jstate, jm = jstep(jstate, jstore, jb, None)
         tstate, tm = tstep(tstate, tstore, tb)
+        fstate, fm = fstep(fstate, tstore, tb)
         assert set(tm) == set(jm)
-        assert {"loss", "copy_gate_mean", "copy_probs_mass", "mips_score_mean",
-                "retriever_recall", "grad_norm", "grad_norm_led"} <= set(tm)
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4)
+        assert required <= set(tm)
+        for m in (tm, fm):
+            np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4,
+                                       err_msg=f"step {i}")
         for k in jm:
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-5,
-                                       err_msg=k)
-    assert tstate.step == 3 and int(jstate.step) == 3
-    ref = flatten_tree(jstate.params)
-    # schedule(0) = 0: two of the three updates move the parameters
-    adam_bound = 2 * hyper["lr"]
-    for n, p in model.named_parameters():
-        atol = adam_bound if n.endswith("beta_bias") else 1e-5
-        np.testing.assert_allclose(_np(p), ref[n], rtol=0, atol=atol, err_msg=n)
+                                       err_msg=f"step {i}: {k}")
+        g = tkept.grads[-1]
+        assert set(g) == set(jgrads[jnp.float32]) == set(fkept.grads[-1])
+        _check_gradients(i, g, jgrads[jnp.float32], exact.grads[-1], jgrads[jnp.float64])
+        upd, ref_opt = jupdate(_jax_tree(start.params, {n: _np(x) for n, x in g.items()}),
+                               start.opt_state, start.params)
+        ref_params = optax.apply_updates(start.params, upd)
+        ref = flatten_tree(ref_params)
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(_np(p), ref[n], rtol=1e-6, atol=1e-6,
+                                       err_msg=f"step {i}: {n}")
+        ref_state = _state_arrays(jtrainer.TrainState(params=ref_params, opt_state=ref_opt,
+                                                      step=jnp.int32(0)))
+        got = ttx.state_arrays(model, tstate.opt_state)
+        ref_state = {k: v for k, v in ref_state.items() if k.startswith(".opt_state")}
+        assert set(got) == set(ref_state)
+        clip = _clip_scale(hyper, tm)
+        check_state(got, ref_state, flat, {n: x * clip for n, x in g.items()})
+        jclip, fclip = _clip_scale(hyper, jm), _clip_scale(hyper, fm)
+        trace.append(({n: np.abs(x) * jclip for n, x in jgrads[jnp.float32].items()},
+                      {n: np.abs(_np(x)) * fclip for n, x in fkept.grads[-1].items()}))
+    assert tstate.step == fstate.step == 3 and int(jstate.step) == 3
+    return cfg, free, jstate.params, tstore, batches[0][1], trace
+
+
+def _clip_scale(hyper: dict, metrics: dict) -> float:
+    return hyper["grad_clip"] / max(float(metrics["grad_norm"]), hyper["grad_clip"])
+
+
+def _adam_bound(hyper: dict, steps: int, b1_mu: float) -> float:
+    """The most two Adam trajectories can part on a leaf whose gradients
+    are arbitrary (roundoff): each update moves an element by lr_t times
+    |mhat| / (sqrt(vhat) + eps) plus the decay, and by Cauchy-Schwarz over
+    the bias-corrected weights of the gradients in mhat (a_j, decay b1_mu,
+    the mu dtype's b1) and in vhat (c_j), |mhat| <= sqrt(sum a_j^2 / c_j)
+    sqrt(vhat); a bf16 mu is rounded once a step (relative 2^-9). So the
+    two differ by at most 2 lr_t R_t on top of the decayed earlier gap."""
+    sched = joptim.linear_warmup_schedule(hyper["lr"], hyper["warmup_steps"],
+                                          hyper["total_steps"])
+    gap = 0.0
+    for count in range(1, steps + 1):
+        lr = float(sched(count - 1))
+        bc1, bc2 = 1 - 0.9 ** count, 1 - 0.999 ** count
+        r2 = sum(((1 - 0.9) * b1_mu ** (count - j) / bc1) ** 2
+                 / ((1 - 0.999) * 0.999 ** (count - j) / bc2) for j in range(1, count + 1))
+        gap = gap * (1 + lr * hyper["weight_decay"]) \
+            + 2 * lr * np.sqrt(r2) * (1 + 2.0 ** -9) ** count
+    return gap
+
+
+def test_train_steps_match_jax():
+    """Three make_train_step steps (AdamW with warmup, decay, clip, bf16
+    mu), held step by step from the JAX trajectory (`steps_from_jax`; nu
+    within rtol 1e-5 + atol 1e-7, as `test_optimizer_matches_optax` holds
+    it, and the bf16 mu within one bf16 step of the result plus the f32
+    roundoff of its terms: where b1 mu_prev and 0.1 g cancel, a roundoff
+    of the terms is many bf16 steps of the small result), with a
+    free-running copy of the port whose loss follows the JAX package's. On
+    that copy, after the three steps:
+
+    * the leaves whose gradient is zero in exact arithmetic
+      (`zero_gradient_leaves`, each proven so by
+      `check_zero_gradient_leaves`) are held to Adam's bound
+      (`_adam_bound`): their gradients are roundoff in both packages, so
+      each package moves them by up to lr per update in no shared
+      direction;
+    * every other leaf is held to the JAX package's parameters at atol
+      1e-5, element by element, wherever Adam's step is set by the
+      gradient and not by eps: elements whose clipped gradient is at least
+      eps = 1e-8 in both packages at every step, or exactly 0 in both (a
+      token row no batch holds). Below eps Adam moves an element by
+      lr g / eps, so a roundoff of g moves it by as much; those elements
+      (most of the query encoder's, whose gradients are ~1e-9) are held on
+      shared gradients above.
+    """
+    hyper = dict(lr=5e-4, warmup_steps=1, total_steps=100, weight_decay=0.01,
+                 grad_clip=1.0, grad_group_norms=True)
+    b1 = float(torch.tensor(0.9, dtype=torch.bfloat16))  # the mu decay, as rounded
+
+    def check_state(got, ref, prev, clipped):
+        for k, r in ref.items():
+            if "/.mu/" in k:
+                # mu = bf16(b1 mu_prev + 0.1 g): one bf16 step at the result
+                # (a half-way point rounded either way), and f32 roundoff of
+                # the terms: 2^-23 in the sum, and the clip scales of the
+                # two packages, each a norm over n < 2^21 squares summed
+                # pairwise (log2(n) 2^-24 apiece): 2^-18 of the terms
+                assert got[k].dtype == r.dtype == torch.bfloat16, k
+                n = k.split("/.mu/")[1].replace("/", ".")
+                terms = b1 * prev[k].float().abs() + 0.1 * clipped[n].abs()
+                bound = r.float().abs() * 2.0 ** -7 + terms * 2.0 ** -18
+                assert ((got[k].float() - r.float()).abs() <= bound).all(), k
+            else:
+                np.testing.assert_allclose(*_as_f32({"g": got[k], "r": r}).values(),
+                                           rtol=1e-5, atol=1e-7, err_msg=k)
+
+    cfg, free, jparams, tstore, tb, trace = steps_from_jax(
+        5, hyper, dict(weight_decay=0.01, grad_clip=1.0), check_state)
+    names = check_zero_gradient_leaves(free, cfg, tstore, tb)
+    bound = _adam_bound(hyper, 3, b1)
+    ref = flatten_tree(jparams)
+    for n, p in free.named_parameters():
+        if n in names:
+            np.testing.assert_allclose(_np(p), ref[n], rtol=0, atol=bound, err_msg=n)
+            continue
+        held = np.ones(p.shape, bool)
+        for jg, fg in trace:
+            held &= ((jg[n] == 0) & (fg[n] == 0)) | ((jg[n] >= 1e-8) & (fg[n] >= 1e-8))
+        np.testing.assert_allclose(_np(p)[held], ref[n][held], rtol=0, atol=1e-5, err_msg=n)
 
 
 def test_refresh_store_matches_jax_and_a_fresh_build():
