@@ -22,6 +22,10 @@ Phases, in order; any failure exits non-zero:
      shape of that slice (T = 16384); K2-K7 also at the fixture's own
      padding (sources of 306-743 tokens in T or S = 2048 and 16384), where
      the bf16 kernels skip the key tiles the bias masks whole;
+     The f32 cases of the retriever's path: K1 at its full-KB validation
+     (B = N = 1997, D = 768, and D = 769 with the l2 route's augmented
+     column), K2 at its train step (B=4) and encode batches (B=64), K3 at
+     its train step, K2/K3 beside SDPA in f32 under the same mask;
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
      version at K1's serving shape, its top-k against K1's and, on a bf16
      corpus, its scores at K1's hits bit-equal to K1's values;
@@ -56,10 +60,18 @@ Phases, in order; any failure exits non-zero:
      ``train.remat`` on, its peak memory and step time beside 10's;
  12. the long-source training slice: 10's config with ``data.max_length``
      16384 (the LED's ``max_src_len``), the decoder's cross-attention on
-     K6/K7.
+     K6/K7;
+ 13. the retriever slice: ``pretrain-retriever`` at full width (the
+     led_base preset's Longformer-base query and mips encoders, f32, B=4,
+     query and positive 512 tokens) on
+     ``configs/led_base_multi_x_science.yaml`` as written (its hub weight
+     names warn and keep the seeded init), 4 steps with two full-KB
+     validations over the fixture's 1997 positive pairs, then ``--mode
+     test`` and ``--mode predict`` on the exported ``encoders.npz``, then the
+     summarizer's ``predict`` with ``model.encoder_state_path`` set to it.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the four slices, K10's from its own phase, as no path calls it; ms,
+over the five slices, K10's from its own phase, as no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -303,6 +315,10 @@ def phase_k1():
     _k1_case("f32_k128", 16, 20000, 256, 128, torch.float32, bias=True, ignore=True)
     _k1_case("rising_bf16", 64, 131072, 768, 128, torch.bfloat16, rising=True, timed=True)
     _k1_case("rising_sq8", 4, 200003, 768, 10, "int8", rising=True)
+    # the retriever's full-KB validation: its 1997 queries over the 1997
+    # encoded positives, f32; the l2 route's φ-augmented D = 769
+    _k1_case("retriever_val", 1997, 1997, 768, 10, torch.float32, timed=True)
+    _k1_case("retriever_val_l2", 1997, 1997, 769, 10, torch.float32, bias=True, timed=True)
     return serving
 
 
@@ -499,6 +515,10 @@ def phase_k2():
     _k2_case("led_base", led, torch.float32)
     _k2_case("longformer_base", lf, torch.bfloat16, library=True)
     _k2_case("longformer_base", lf, torch.float32)
+    # the retriever's f32 encoder layers: its train step (B=4) and the
+    # validation's encode batches (B=64)
+    _k2_case("retriever_train", RET_QUERY, torch.float32, library=True)
+    _k2_case("retriever_encode", RET_ENCODE, torch.float32, library=True)
     # the LED encoder layer of the long-source slice (the plain version on 2
     # of the 4 batches: its [B, nh, T/w, w, 3w] f32 band tensors)
     _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
@@ -516,6 +536,12 @@ def phase_k2():
 
 # LED-base encoder layer over the long-source slice's 16384-token sources
 LED_16K = (4, 12, 16384, 64, 512, 64, [16384, 12000, 6000, 2048], [64, 10, 3, 0])
+# the retriever's Longformer-base layers, CLS the one global: its train
+# step's queries (B=4) and the validation's encode batches of 64 rows
+# (valid lengths 40-195, mean 116.5; the fixture's queries hold 119.0
+# valid tokens on average)
+RET_QUERY = (4, 12, 512, 64, 256, 1, [512, 500, 300, 130], [1] * 4)
+RET_ENCODE = (64, 12, 512, 64, 256, 1, [40 + (61 * i) % 160 for i in range(64)], [1] * 64)
 # valid source tokens of four fixture examples (mean 451.7, 306-743 over
 # the long-source slice's steps): the padding the slices' kernels see
 FIXTURE_LENGTHS = [743, 451, 306, 520]
@@ -629,6 +655,8 @@ def phase_k3():
     served = _k3_case("led_base", led, torch.bfloat16, library=True)
     _k3_case("led_base", led, torch.float32)
     _k3_case("longformer_query", query, torch.bfloat16, library=True)
+    # the retriever's train step: the same shape in f32
+    _k3_case("longformer_query", query, torch.float32, library=True)
     _k3_case("longformer_memory", memory, torch.bfloat16, library=True)
     _k3_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
     # the fixture's padding, its globals and the model's zero cotangents, at
@@ -1712,12 +1740,165 @@ def phase_long_slice(standing: tuple[dict, dict]) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the retriever slice (pretrain-retriever, then the handoff)
+# ---------------------------------------------------------------------------
+
+RET_STEPS, RET_EVAL_EVERY = 4, 2  # one periodic full-KB validation, then the last
+
+
+def led_base_config(name: str, model: dict | None = None, **over):
+    """``configs/led_base_multi_x_science.yaml`` AS WRITTEN (its four
+    ``*_weights`` hub names kept), over the committed 2000-example fixture
+    with the hash tokenizer, its logs and checkpoints under
+    ``OUT_DIR/<name>``; ``model`` updates the model fields, ``over``
+    replaces top-level fields."""
+    import yaml
+
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    with open(os.path.join(REPO, "configs", "led_base_multi_x_science.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["data"].update(source=FIXTURE, tokenizer=None)
+    d["model"].update(model or {})
+    d.update(ckpt_dir=os.path.join(OUT_DIR, name, "ckpt"),
+             logging={"log_dir": os.path.join(OUT_DIR, name), "run_name": name}, **over)
+    return config_from_dict(d)
+
+
+def _skips(fn):
+    """fn() with the warnings it gives recorded → (result, the ``[weights]
+    SKIPPING`` messages among them)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [str(x.message) for x in w if "[weights] SKIPPING" in str(x.message)]
+
+
+def phase_retriever_slice() -> dict:
+    """``pretrain-retriever`` at full width: the Longformer-base query and
+    mips encoders of the led_base preset (768 wide, 12 heads, 12 layers,
+    window 256; queries and positives 512 tokens), B=4, f32 (as the JAX
+    package trains them), AdamW as the config builds it, over the 1997
+    positive pairs of the fixture; `RET_STEPS` steps with a full-KB
+    validation after step 2 and at the end (each encodes 2 x 1997 rows in
+    batches of 64 and searches them with K1 in f32), ``encoders.npz``
+    exported at the best. Then ``--mode test`` and ``--mode predict`` on that
+    file, and the summarizer's ``predict`` on the same config with
+    ``model.encoder_state_path`` set to it (the handoff). The config keeps
+    its hub names: each run warns for each one and keeps the seeded init
+    (no hub is reachable here). Checks: finite losses; the file holds the
+    weights of the exporting validation; test's metrics equal that
+    validation's; the handoff's query and mips encoders equal the file; K1,
+    K2 and K3 launched in training, and K10 nowhere."""
+    import numpy as np
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.checkpoint import load_arrays
+
+    cfg = led_base_config("retriever", max_steps=RET_STEPS, eval_every=RET_EVAL_EVERY)
+    report: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (out, launches), skipped = _skips(lambda: run_counted(
+        lambda: cli.run_pretrain_retriever(cfg, device="cuda", report=report)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = report["losses"]
+    check(len(losses) == RET_STEPS and all(math.isfinite(x) for x in losses),
+          f"retriever: losses {losses}")
+    check(len(skipped) == 2, f"retriever: {len(skipped)} weight skips, not 2: {skipped}")
+    check(len(report["val"]) == 2, f"retriever: {len(report['val'])} validations")
+    for name in ("mips_topk", "flash_sliding_attention", "flash_sliding_backward"):
+        check(launches[name] > 0, f"retriever: {name} not launched: {launches}")
+    check(launches["mips_topk"] == 2 and launches["mips_chunkmax"] == 0,
+          f"retriever: K1 once per validation, K10 never: {launches}")
+    path = os.path.join(cfg.ckpt_dir, "encoders.npz")
+    saved = load_arrays(path)
+    exported = report["exported"]
+    check(len(saved) == len(exported) and all(
+        torch.equal(saved[k.replace(".", "/")], v.cpu()) for k, v in exported.items()),
+        "retriever: encoders.npz differs from the weights of the exporting validation")
+    at = report["val"][[RET_EVAL_EVERY, RET_STEPS].index(report["export_step"])]
+    n_pairs = len(report["pairs"]["query_input_ids"])
+    classes = np.bincount(cli.positive_classes(report["pairs"]))
+    enc = cfg.model.query_enc
+    print(f"[retriever] pretrain-retriever, {cfg.model.led.d_model}-wide led_base preset's "
+          f"encoders ({enc.n_layers} layers, {enc.d_model} wide, {enc.n_heads} heads, window "
+          f"{enc.window}), f32, B={cfg.data.batch_size}, query/positive {cfg.data.query_max_length}/"
+          f"{cfg.data.memory_len} tokens, {n_pairs} pairs ({len(classes)} distinct "
+          f"positives, classes up to {classes.max()}), "
+          f"{sum(p.numel() for p in report['state'].params.parameters())} parameters; "
+          f"{len(skipped)} hub names skipped (seeded init)")
+    print(f"[retriever] losses {[f'{x:.5f}' for x in losses]}; validations "
+          f"{[{k: round(v, 6) for k, v in vm.items()} for vm in report['val']]}; "
+          f"exported at step {report['export_step']}")
+    steady = report["step_s"][-2:]
+    step_s = sum(steady) / len(steady)
+    print(f"[retriever] step wall s {[f'{x:.3f}' for x in report['step_s']]}; steady (mean "
+          f"of the last two) {step_s:.3f} s ({cfg.data.batch_size / step_s:.2f} examples/s); "
+          f"full-KB validation wall s {[f'{x:.3f}' for x in report['val_s']]}; run total "
+          f"{wall:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"[retriever] launches during the training run: {launches}")
+
+    counted = dict(launches)
+    for mode, run in (("test", cli.run_pretrain_retriever_test),
+                      ("predict", cli.run_pretrain_retriever_predict)):
+        t0 = time.perf_counter()
+        (res, n), skipped = _skips(lambda: run_counted(lambda: run(cfg, device="cuda")))
+        check(len(skipped) == 2, f"retriever {mode}: {len(skipped)} weight skips")
+        check(n["mips_topk"] == 1 and n["flash_sliding_attention"] > 0,
+              f"retriever {mode}: launches {n}")
+        counted = {k: counted[k] + n[k] for k in counted}
+        if mode == "test":
+            check(res["n_queries"] == n_pairs and all(
+                abs(res[f"test_{k}"] - v) <= 1e-6 for k, v in at.items()),
+                f"retriever test: {res} differs from the exporting validation's {at}")
+        else:
+            with open(os.path.join(cfg.logging.log_dir, "retriever_predictions.json")) as f:
+                dump = json.load(f)
+            check(len(dump) == n_pairs == res["n_queries"], "retriever predict: dump size")
+            check(all(abs(res[k] - v) <= 1e-6 for k, v in at.items()),
+                  f"retriever predict: {res} differs from {at}")
+        print(f"[retriever] --mode {mode}: {json.dumps(res)} in "
+              f"{time.perf_counter() - t0:.3f} s (data and set-up included); equal to the "
+              f"exporting validation's: PASS")
+
+    hand = led_base_config("handoff", model={"encoder_state_path": path})
+    check(hand.model.led_weights and hand.model.memory_encoder_weights,
+          "handoff: the config's weight names were dropped")
+    rep: dict = {}
+    t0 = time.perf_counter()
+    (pred, n), skipped = _skips(lambda: run_counted(
+        lambda: cli.run_predict(hand, device="cuda", report=rep)))
+    check(len(skipped) == 4, f"handoff: {len(skipped)} weight skips, not 4")
+    params = dict(rep["params"].named_parameters())
+    check(all(torch.equal(params[k.replace("/", ".")].cpu(), v) for k, v in saved.items()),
+          "handoff: the summarizer's encoders differ from encoders.npz")
+    check(len(pred["predictions"]) == hand.data.batch_size
+          and all(p.strip() for p in pred["predictions"]), "handoff: empty predictions")
+    check(bool(torch.isfinite(rep["enc"].enc_hidden.float()).all()), "handoff: non-finite")
+    counted = {k: counted[k] + n[k] for k in counted}
+    print(f"[handoff] predict on configs/led_base_multi_x_science.yaml as written + "
+          f"model.encoder_state_path: 4 hub names skipped; query/mips encoders equal "
+          f"encoders.npz ({len(saved)} arrays): PASS; {time.perf_counter() - t0:.3f} s; "
+          f"launches {n}")
+    check(counted["mips_chunkmax"] == 0, "retriever slice: K10 launched")
+    return counted
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # the led_base config names hub weights: they must fail at once (and
+    # warn), never reach for a network
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
     try:
         import retrieval_augmented_mds_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1743,6 +1924,7 @@ def main() -> int:
         standing = phase_train_slice()
         capacity = phase_capacity_slice(standing)
         long = phase_long_slice(standing)
+        retriever = phase_retriever_slice()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1760,10 +1942,10 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths; K10's paths launch it 0 times (checked), so its
+    # launches on the paths (the five slices); K10's paths launch it 0 times (checked), so its
     # count is that of its own phase
     launches = {name: served[name] + standing[0][name] + capacity[name] + long[name]
-                for name, _, _ in sources}
+                + retriever[name] for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

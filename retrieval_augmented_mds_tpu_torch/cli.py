@@ -1,13 +1,16 @@
 """Command-line entry point of the port:
 
     python -m retrieval_augmented_mds_tpu_torch.cli \
-        {fit,validate,test,predict,build-index,bench-index} \
-        --config <yaml> [--index DIR] [--out DIR] [--device cuda|cpu]
+        {fit,validate,test,predict,pretrain-retriever,build-index,bench-index} \
+        --config <yaml> [--index DIR] [--out DIR] [--mode train|test|predict] \
+        [--device cuda|cpu]
 
-The subcommands do what the JAX package's ``run_fit``, ``run_validate``
-and ``run_predict`` do, on one device:
+The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
+``run_predict`` and ``run_pretrain_retriever*`` do, on one device:
 
-* ``fit``: build the data and the (seeded, random) parameters, resume from
+* ``fit``: build the data and the parameters (seeded, with the pretrained
+  weights the config names loaded over them: ``*_weights`` and
+  ``encoder_state_path``, `models.hf_import`), resume from
   ``ckpt_dir/latest.json`` when there is one, build the memory store, and
   take ``max_steps`` train steps, refreshing the store every
   ``index.rebuild_every`` steps, evaluating every ``eval_every`` steps and
@@ -20,6 +23,11 @@ and ``run_predict`` do, on one device:
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one.
 * ``predict``: generate for the first batch of the test split.
+* ``pretrain-retriever``: contrastive pretraining of the query and mips
+  encoders on the config's positive pairs (``--mode train``), exporting
+  ``ckpt_dir/encoders.npz``, the file ``model.encoder_state_path`` reads;
+  ``--mode test`` scores that file over the full pair corpus, ``--mode
+  predict`` dumps its per-query ranking.
 * ``build-index``: embed the corpus, build the configured index and save
   it with the tokenized corpus (``corpus_tokens.npz``) under ``--out``, in
   the JAX package's layout; ``--index DIR`` loads such a directory.
@@ -114,19 +122,12 @@ def build_data(cfg):
 
 
 def build_params(cfg, device: torch.device):
-    from .models.retriever_generator import init_rag
+    """The seeded init, drawn on the CPU and then moved (one seed gives the
+    same weights on every device, so a CPU run is a reference for a CUDA
+    run), with the pretrained weights the config names loaded over it."""
+    from .models.retriever_generator import init_rag_pretrained
 
-    named = [f for f in ("led_weights", "query_encoder_weights",
-                         "mips_encoder_weights", "memory_encoder_weights",
-                         "encoder_state_path") if getattr(cfg.model, f)]
-    if named:
-        raise NotImplementedError(
-            f"pretrained weights ({', '.join(named)}) are not ported yet "
-            "(ROADMAP queue 1: HF interop); drop them for a seeded random init"
-        )
-    # drawn on the CPU, then moved: one seed gives the same weights on
-    # every device, so a CPU run is a reference for a CUDA run
-    return init_rag(cfg.model, torch.Generator().manual_seed(cfg.seed)).to(device)
+    return init_rag_pretrained(cfg.model, torch.Generator().manual_seed(cfg.seed)).to(device)
 
 
 def build_store(params, cfg, dm, device: torch.device):
@@ -309,7 +310,11 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
                   device: torch.device) -> dict[str, float]:
     """Generate for every batch of ``split`` (at most ``max_batches``) and
     score the outputs with ROUGE; with ``dump_name``, also write them to
-    ``<log_dir>/<dump_name>.json``. Runs without autograd."""
+    ``<log_dir>/<dump_name>.json``. Runs without autograd. The ragged last
+    batch is padded to ``data.batch_size`` with copies of its first row and
+    only its real rows are scored, as the JAX package does: the batch size
+    picks the IVF search's route, so a smaller batch could retrieve other
+    rows."""
     from .eval import RougeAccumulator
     from .models.generate import generate
     from .models.retriever_generator import rag_encode
@@ -322,11 +327,16 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
                                               drop_last=False, split=split)):
             if max_batches is not None and bi >= max_batches:
                 break
+            n_real = len(batch["input_ids"])
+            if n_real < cfg.data.batch_size:
+                reps = cfg.data.batch_size - n_real
+                batch = {k: np.concatenate([v, np.repeat(v[:1], reps, axis=0)])
+                         for k, v in batch.items()}
             dbatch = device_batch(batch, cfg, device)
             enc = rag_encode(params, cfg.model, store, dbatch, dtype=dtype)
             ids = generate(params, cfg.model, enc, cfg.generation, dtype=dtype)
-            preds = tok.batch_decode(ids.cpu().numpy())
-            refs = tok.batch_decode(np.asarray(batch["labels"]))
+            preds = tok.batch_decode(ids.cpu().numpy())[:n_real]
+            refs = tok.batch_decode(np.asarray(batch["labels"]))[:n_real]
             acc.add_batch(preds, refs)
             outputs.extend({"prediction": p, "reference": r} for p, r in zip(preds, refs))
     if dump_name:
@@ -486,16 +496,246 @@ def run_bench_index(cfg, *, device: str = "cuda") -> dict[str, Any]:
     return out
 
 
+def _pretrain_setup(cfg, device: torch.device):
+    """Shared set-up of ``pretrain-retriever`` (train, test and predict):
+    the retriever config, the seeded dual encoder (drawn on the CPU, then
+    moved) with the pretrained encoders the config names loaded under the
+    load policy, and the tokenized positive pairs."""
+    from .data import load_tokenizer, synthetic_multi_x_science
+    from .data.pipeline import prepare_pretrain_pairs
+    from .models.hf_import import encoder_from_tree, load_encoder_from_pretrained, load_with_policy
+    from .retriever.contrastive import RetrieverConfig, init_retriever
+
+    rcfg = RetrieverConfig(
+        query_enc=cfg.model.query_enc, mips_enc=cfg.model.mips_enc,
+        temperature=cfg.retriever.temperature, pooling_dim=cfg.retriever.pooling_dim,
+        token_loss=cfg.retriever.token_loss)
+    params = init_retriever(rcfg, torch.Generator().manual_seed(cfg.seed))
+    for field, group, enc_cfg in (("query_encoder_weights", "query_encoder", rcfg.query_enc),
+                                  ("mips_encoder_weights", "mips_encoder", rcfg.mips_enc)):
+        module = load_with_policy(
+            field, getattr(cfg.model, field), group,
+            lambda n, c=enc_cfg: encoder_from_tree(load_encoder_from_pretrained(
+                n, c, adapter_name=cfg.model.adapter_name), c))
+        if module is not None:
+            setattr(params, group, module)
+    params = params.to(device)
+
+    if cfg.data.source == "synthetic":
+        df = synthetic_multi_x_science(cfg.data.n_synthetic)
+    else:
+        df = build_data(cfg)[0].df
+    tok = load_tokenizer(cfg.data.tokenizer, vocab_size=cfg.model.query_enc.vocab_size,
+                         fallback=cfg.data.tokenizer_fallback)
+    pairs = prepare_pretrain_pairs(
+        df, tok, tok, mode=cfg.retriever.pair_mode,
+        query_max_length=cfg.data.query_max_length, mips_max_length=cfg.data.memory_len,
+        seed=cfg.seed)
+    return rcfg, params, pairs
+
+
+def positive_classes(pairs: dict) -> np.ndarray:
+    """Each pair's gold for the full-KB validation → class [n] int32: rows
+    whose positive (``mips_input_ids`` and mask) is the same get one class,
+    so a query's positive counts as found in any of its copies. (The JAX
+    package gives row i the gold i, so a query whose positive also sits at
+    a lower row can never score a rank-1 hit: a distinct-value search
+    returns the lowest of equal rows.)"""
+    rows = np.concatenate([np.asarray(pairs["mips_input_ids"]),
+                           np.asarray(pairs["mips_attention_mask"])], axis=1)
+    return np.unique(rows, axis=0, return_inverse=True)[1].reshape(-1).astype(np.int32)
+
+
+def _pretrain_full_kb_validation(params, rcfg, pairs, k: int, *, return_details=False):
+    """Every query ranks the COMPLETE encoded pair corpus; its gold is the
+    class of its own positive (`positive_classes`), counted as one
+    document: a query's one hit is the first rank that holds its class, so
+    a perfect retriever scores 1. (Copies of a positive encode to equal
+    rows, whose equal scores the distinct-value search returns once
+    anyway.)"""
+    from .retriever.metrics import retriever_metrics_fixed
+    from .retriever.validate import validate_retriever
+
+    n = len(pairs["query_input_ids"])
+    gold = positive_classes(pairs)
+    corpus = {"token_ids": np.asarray(pairs["mips_input_ids"]),
+              "token_mask": np.asarray(pairs["mips_attention_mask"])}
+    queries = {"query_input_ids": np.asarray(pairs["query_input_ids"]),
+               "query_attention_mask": np.asarray(pairs["query_attention_mask"])}
+    _, details = validate_retriever(params, rcfg.query_enc, rcfg.mips_enc, corpus,
+                                    gold[:, None], queries, gold_aid=gold,
+                                    gold_counts=np.ones(n, np.int32), k=min(k, n),
+                                    return_details=True)
+    hits = details["hits"]
+    details["hits"] = hits & (np.cumsum(hits, -1) == 1)
+    vm = {key: float(v) for key, v in retriever_metrics_fixed(
+        torch.from_numpy(details["hits"]), torch.ones(n)).items()}
+    return (vm, details) if return_details else vm
+
+
+def run_pretrain_retriever(cfg, *, device: str = "cuda",
+                           report: dict[str, Any] | None = None) -> dict[str, Any]:
+    """Contrastive pretraining of the dual encoder for ``max_steps`` steps
+    (f32, AdamW as ``build_optimizer`` builds it), a full-KB validation
+    every ``eval_every`` steps and at the end, and ``ckpt_dir/encoders.npz``
+    exported on each better ``average_precision`` (and at the end if none
+    was). With ``retriever.hf_export``, also ``ckpt_dir/hf_query_encoder``
+    and ``hf_mips_encoder``; that needs ``transformers``, which is checked
+    before the first step. With ``report``, also fills in each step's and
+    each validation's wall seconds (synchronised), the losses, the
+    validations' metrics, the final state, and the step and the encoder
+    weights (copies on the CPU) of the last export."""
+    from .obs import MetricsLogger
+    from .train.optimizer import build_optimizer
+    from .train.trainer import TrainState, make_retriever_train_step
+    from .utils.checkpoint import ENCODER_GROUPS, export_encoders
+
+    dev = resolve_device(device)
+    hf_export = bool(cfg.ckpt_dir and cfg.retriever.hf_export)
+    if hf_export:
+        try:
+            import transformers  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError("retriever.hf_export writes transformers directories and "
+                               "needs the transformers package; unset it or install "
+                               "transformers") from e
+    rcfg, params, pairs = _pretrain_setup(cfg, dev)
+    t = cfg.train
+    tx = build_optimizer(t.lr, t.warmup_steps, t.total_steps, grad_clip=t.grad_clip,
+                         mu_dtype=t.adam_mu_dtype)
+    state = TrainState.create(params, tx)
+    step_fn = make_retriever_train_step(rcfg, tx)
+    n = len(pairs["query_input_ids"])
+    rep = report if report is not None else {}
+    rep.update(step_s=[], losses=[], val_s=[], val=[])
+    log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name + "_retriever",
+                        tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
+    enc_path = os.path.join(cfg.ckpt_dir, "encoders.npz") if cfg.ckpt_dir else None
+    best_ap, exported, metrics = -1.0, False, {}
+
+    def export(step: int) -> None:
+        nonlocal exported
+        export_encoders(enc_path, state.params)
+        exported = True
+        if report is not None:
+            rep.update(export_step=step, exported={
+                f"{g}.{n}": p.detach().to("cpu", copy=True) for g in ENCODER_GROUPS
+                for n, p in getattr(state.params, g).named_parameters()})
+
+    def validate_and_maybe_export(step: int) -> dict:
+        nonlocal best_ap
+        t0 = time.perf_counter()
+        vm = _pretrain_full_kb_validation(state.params, rcfg, pairs, cfg.retriever.eval_k)
+        rep["val_s"].append(time.perf_counter() - t0)
+        rep["val"].append(vm)
+        log.log(step, vm, prefix="val_")
+        if enc_path and vm["average_precision"] > best_ap:
+            export(step)
+        best_ap = max(best_ap, vm["average_precision"])
+        return vm
+
+    try:
+        for step in range(cfg.max_steps):
+            # (seed, step) fixes the draw, as in the JAX package
+            sel = np.random.default_rng(cfg.seed + step).choice(
+                n, size=min(cfg.data.batch_size, n), replace=False)
+            batch = {k: torch.from_numpy(np.asarray(v)[sel]).to(dev) for k, v in pairs.items()}
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])  # waits for the device
+            rep["step_s"].append(time.perf_counter() - t0)
+            rep["losses"].append(loss)
+            log.log(step, metrics)
+            if (cfg.eval_every and (step + 1) % cfg.eval_every == 0
+                    and step + 1 < cfg.max_steps):
+                validate_and_maybe_export(step + 1)
+        out = {k: float(v) for k, v in metrics.items()}
+        vm = validate_and_maybe_export(cfg.max_steps)
+    finally:
+        log.close()
+    if enc_path and not exported:
+        export(cfg.max_steps)
+    if hf_export:
+        from .models.hf_export import save_encoder_pretrained
+
+        for group, enc_cfg in (("query_encoder", rcfg.query_enc),
+                               ("mips_encoder", rcfg.mips_enc)):
+            save_encoder_pretrained(getattr(state.params, group), enc_cfg,
+                                    os.path.join(cfg.ckpt_dir, f"hf_{group}"))
+            print(f"[export] {group} -> {cfg.ckpt_dir}/hf_{group}")
+    out.update({f"val_{k}": v for k, v in vm.items()})
+    out["best_average_precision"] = best_ap
+    rep.update(state=state, pairs=pairs)
+    return out
+
+
+def _saved_encoders(cfg, params):
+    """Load ``ckpt_dir/encoders.npz`` into ``params`` when there is one."""
+    from .utils.checkpoint import import_encoders
+
+    path = os.path.join(cfg.ckpt_dir, "encoders.npz") if cfg.ckpt_dir else None
+    if path and os.path.exists(path):
+        import_encoders(path, params)
+        print(f"[weights] query/mips encoders <- {path}")
+        return True
+    return False
+
+
+def run_pretrain_retriever_test(cfg, *, device: str = "cuda") -> dict[str, Any]:
+    """``pretrain-retriever --mode test``: the full-KB metrics of the saved
+    ``ckpt_dir/encoders.npz`` (else of the pretrained or seeded encoders),
+    with no training."""
+    from .obs import MetricsLogger
+
+    rcfg, params, pairs = _pretrain_setup(cfg, resolve_device(device))
+    if not _saved_encoders(cfg, params):
+        print("[weights] no encoders.npz found; evaluating the pretrained/seed-initialized "
+              "encoders")
+    vm = _pretrain_full_kb_validation(params, rcfg, pairs, cfg.retriever.eval_k)
+    log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name + "_retriever")
+    log.log(0, vm, prefix="test_")
+    log.close()
+    out = {f"test_{k}": float(v) for k, v in vm.items()}
+    out["n_queries"] = len(pairs["query_input_ids"])
+    return out
+
+
+def run_pretrain_retriever_predict(cfg, *, device: str = "cuda") -> dict[str, Any]:
+    """``pretrain-retriever --mode predict``: the full-KB search with the
+    saved encoders (when there are), its per-query ranking dumped to
+    ``<log_dir>/retriever_predictions.json`` → the metrics and
+    ``n_queries``."""
+    from .obs import MetricsLogger
+
+    rcfg, params, pairs = _pretrain_setup(cfg, resolve_device(device))
+    _saved_encoders(cfg, params)
+    vm, details = _pretrain_full_kb_validation(params, rcfg, pairs, cfg.retriever.eval_k,
+                                               return_details=True)
+    dump = [{"query": i, "retrieved": details["indices"][i].tolist(),
+             "scores": [round(float(s), 6) for s in details["scores"][i]],
+             "hits": details["hits"][i].astype(int).tolist()}
+            for i in range(len(details["indices"]))]
+    log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name + "_retriever")
+    log.dump_outputs("retriever_predictions", dump)
+    log.close()
+    out = dict(vm)
+    out["n_queries"] = len(dump)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="retrieval_augmented_mds_tpu_torch")
     p.add_argument("command", choices=["fit", "validate", "test", "predict",
-                                       "build-index", "bench-index"])
+                                       "pretrain-retriever", "build-index", "bench-index"])
     p.add_argument("--config", default=None)
     p.add_argument("--out", default="./index_out",
                    help="build-index: the directory to save the index in")
     p.add_argument("--index", default=None, metavar="DIR",
                    help="load this persisted index directory instead of "
                    "embedding the corpus (validate, test, predict)")
+    p.add_argument("--mode", choices=["train", "test", "predict"], default="train",
+                   help="pretrain-retriever only: train; test = the full-KB metrics of "
+                   "the saved encoders.npz; predict = their top-k ranking dumped")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
@@ -511,6 +751,10 @@ def main(argv=None) -> int:
     elif args.command in ("validate", "test"):
         split = "val" if args.command == "validate" else "test"
         out = run_validate(cfg, split, index_dir=args.index, device=args.device)
+    elif args.command == "pretrain-retriever":
+        run = {"train": run_pretrain_retriever, "test": run_pretrain_retriever_test,
+               "predict": run_pretrain_retriever_predict}[args.mode]
+        out = run(cfg, device=args.device)
     elif args.command == "build-index":
         out = run_build_index(cfg, args.out, device=args.device)
     elif args.command == "bench-index":

@@ -47,10 +47,15 @@ class LongformerLayer(nn.Module):
 
 
 class Longformer(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    """``type_emb``: hold the one token-type row that an imported HF
+    checkpoint brings (`models.hf_import`); a fresh init has none."""
+
+    def __init__(self, cfg: EncoderConfig, type_emb: bool = False):
         super().__init__()
         self.tok_emb = Embedding(cfg.vocab_size, cfg.d_model)
         self.pos_emb = Embedding(cfg.max_len + cfg.pos_offset, cfg.d_model)
+        if type_emb:
+            self.type_emb = Embedding(1, cfg.d_model)
         self.emb_ln = LayerNorm(cfg.d_model)
         self.layers = nn.ModuleList(LongformerLayer(cfg) for _ in range(cfg.n_layers))
 
@@ -81,6 +86,9 @@ def longformer_encode(
 
     pos = torch.arange(t, device=ids.device)[None, :] + cfg.pos_offset
     x = embed(params.tok_emb, ids, dtype) + embed(params.pos_emb, pos, dtype)
+    if hasattr(params, "type_emb"):
+        # the single token-type row: a constant on every position
+        x = x + params.type_emb.table[0].to(dtype)
     x = layernorm(params.emb_ln, x)
 
     def layer_fn(x, lp):

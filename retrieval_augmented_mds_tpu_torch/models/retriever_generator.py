@@ -175,6 +175,21 @@ def init_rag(cfg: RAGConfig, generator: torch.Generator, device=None) -> RAG:
     return build_module(lambda: RAG(cfg), generator, device)
 
 
+_WEIGHT_FIELDS = ("led_weights", "query_encoder_weights", "mips_encoder_weights",
+                  "memory_encoder_weights", "encoder_state_path")
+
+
+def init_rag_pretrained(cfg: RAGConfig, generator: torch.Generator, device=None) -> RAG:
+    """`init_rag`, then the pretrained weights the config names, under the
+    load policy of `hf_import.load_pretrained_rag`."""
+    params = init_rag(cfg, generator, device)
+    if any(getattr(cfg, f) for f in _WEIGHT_FIELDS):
+        from .hf_import import load_pretrained_rag
+
+        params = load_pretrained_rag(params, cfg)
+    return params
+
+
 def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype, remat=False):
     """[B, slots, L] → hidden [B, slots, L, H] via the shared encoder."""
     b, s, l = ids.shape

@@ -9,6 +9,9 @@ Counterpart of ``retrieval_augmented_mds_tpu/train/trainer.py``:
   names. Where the reference returns a new state, the port updates the
   parameters and the optimizer state in place and returns the same
   `TrainState`.
+* `make_retriever_train_step`: the retriever's contrastive step
+  (`retriever.contrastive.contrastive_loss` with gradients, then one
+  optimizer update), in f32 as the JAX package runs it.
 * `encode_corpus` / `build_memory_store`: embed the tokenized corpus under
   the mips encoder and index it (the store-build path of ``predict`` and
   ``fit``).
@@ -24,24 +27,25 @@ import types
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from ..index import build_index_from_factory
 from ..index.ivf import IVFIndex
 from ..models.core import remat_context
 from ..models.longformer import longformer_encode
-from ..models.retriever_generator import RAG, MemoryStore, RAGConfig, rag_forward
+from ..models.retriever_generator import MemoryStore, RAGConfig, rag_forward
 from .loss import summarization_loss
 from .optimizer import AdamW, OptState, param_group
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: RAG
+    params: nn.Module  # a RAG, or a Retriever for its pretraining
     opt_state: OptState
     step: int
 
     @staticmethod
-    def create(params: RAG, tx: AdamW) -> "TrainState":
+    def create(params: nn.Module, tx: AdamW) -> "TrainState":
         return TrainState(params=params, opt_state=tx.init(params), step=0)
 
 
@@ -116,17 +120,11 @@ def make_train_step(
         device = next(params.parameters()).device
         times: dict[str, float] = {}
         t0 = time.perf_counter()
-        for p in params.parameters():
-            p.grad = None
         loss, metrics = loss_fn(params, store, batch)
         if phase_times is not None:
             t0 = mark(times, "forward", t0, device)
-        loss.backward()
+        grads = _backward_grads(params, loss)
         named = list(params.named_parameters())
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in named}
-        for p in params.parameters():
-            p.grad = None
         if phase_times is not None:
             t0 = mark(times, "backward", t0, device)
         with torch.no_grad():
@@ -143,6 +141,36 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _backward_grads(params, loss) -> dict[str, torch.Tensor]:
+    """Every parameter's gradient of ``loss`` by name (zeros where none
+    reaches it), with the parameters' ``.grad`` left empty."""
+    for p in params.parameters():
+        p.grad = None
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    return grads
+
+
+def make_retriever_train_step(cfg, tx: AdamW) -> Callable:
+    """Returns ``step(state, batch) → (state, metrics)``: the contrastive
+    loss in f32 with autograd (the token table gets gradient through the
+    encoder and, with ``token_loss``, through the tied BOW logits), then
+    one update of ``tx``. Metrics are `contrastive_loss`'s, as 0-d
+    tensors."""
+    from ..retriever.contrastive import contrastive_loss
+
+    def step(state: TrainState, batch):
+        loss, metrics = contrastive_loss(state.params, cfg, batch)
+        tx.update(state.params, _backward_grads(state.params, loss), state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return step
 
 
 @torch.no_grad()

@@ -7,7 +7,9 @@ leaves stored as their uint16 bits and listed under ``__bf16_keys__``,
 the 8-bit optimizer's int8/uint8 codes stored and loaded as such;
 ``latest.json`` points at the newest save and ``best.json`` marks the
 checkpoint to keep. A checkpoint written by either package loads in the
-other when both build the same optimizer.
+other when both build the same optimizer. `export_encoders` /
+`import_encoders` write and read the retriever's ``encoders.npz`` (the
+query and mips encoder groups) in the same layout.
 """
 
 from __future__ import annotations
@@ -128,3 +130,33 @@ def load_train_state(ckpt_dir: str, state, tx, prefer: str = "latest"):
     state.opt_state = tx.load_state_arrays(state.params, flat)
     state.step = int(flat[".step"])
     return state, meta["step"]
+
+
+ENCODER_GROUPS = ("query_encoder", "mips_encoder")
+
+
+def export_encoders(path: str, params: torch.nn.Module, groups=ENCODER_GROUPS) -> None:
+    """Write the retriever's encoder groups to ``path`` (``encoders.npz``) in
+    the JAX package's layout: one array per leaf under its ``/``-joined key
+    path (``query_encoder/layers/0/attn/q/kernel``)."""
+    save_arrays(path, {f"{g}/{n.replace('.', '/')}": p
+                       for g in groups for n, p in getattr(params, g).named_parameters()})
+
+
+@torch.no_grad()
+def import_encoders(path: str, params: torch.nn.Module, groups=ENCODER_GROUPS):
+    """Copy the groups of an ``encoders.npz`` (either package's) into
+    ``params`` in place, converted to each parameter's dtype → ``params``.
+    Every leaf of the groups must be in the file with its shape; other
+    keys of the file are ignored, as in the JAX package."""
+    flat = load_arrays(path)
+    for g in groups:
+        for n, p in getattr(params, g).named_parameters():
+            key = f"{g}/{n.replace('.', '/')}"
+            if key not in flat:
+                raise KeyError(f"{path} has no {key}")
+            if tuple(flat[key].shape) != tuple(p.shape):
+                raise ValueError(f"{key}: file shape {tuple(flat[key].shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(flat[key].to(p.dtype))
+    return params

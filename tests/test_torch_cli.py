@@ -95,3 +95,36 @@ def test_fit_writes_the_resolved_config(tmp_path):
     rows = [json.loads(x) for x in (tmp_path / "runs" / "t.metrics.jsonl")
             .read_text().splitlines()]
     assert any("loss" in r for r in rows)
+
+
+_GUARD = """
+import json, sys
+from retrieval_augmented_mds_tpu_torch import cli
+for mode in ("train", "test", "predict"):
+    assert cli.main(["pretrain-retriever", "--mode", mode, "--config", sys.argv[1],
+                     "--device", "cpu"]) == 0
+bad = sorted(k for k, v in sys.modules.items() if v is not None and (
+    k == "jax" or k.startswith("jax.") or k == "retrieval_augmented_mds_tpu"
+    or k.startswith("retrieval_augmented_mds_tpu.")))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_pretrain_retriever_imports_nothing_of_jax(tmp_path):
+    """A fresh interpreter runs `pretrain-retriever --device cpu` in its
+    three modes (the retriever modules, the validation's flat search, the
+    export and import of encoders.npz); neither JAX nor the JAX package is
+    then loaded."""
+    import subprocess
+    import sys
+
+    d = _tiny(tmp_path, max_steps=2, eval_every=1, ckpt_dir=str(tmp_path / "ckpt"),
+              retriever={"token_loss": True, "eval_k": 4})
+    path = tmp_path / "r.yaml"
+    path.write_text(yaml.safe_dump(d))
+    env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+    res = subprocess.run([sys.executable, "-c", _GUARD, str(path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == {"bad": []}
+    assert (tmp_path / "ckpt" / "encoders.npz").exists()

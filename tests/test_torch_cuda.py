@@ -920,6 +920,44 @@ def test_predict_runs_through_both_kernels(gen):
     assert len(cpu["predictions"]) == len(out["predictions"])
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_retriever_validation_runs_through_k1_in_f32(gen, metric):
+    """`validate_retriever` of a small random retriever on the card: one K1
+    launch over the f32 index (D = 64, or 65 with the l2 route's augmented
+    column), the ranking of the CPU run: the score at every rank within
+    rtol 1e-4 + atol 1e-4, 99% of the ids equal, the metrics within 0.01."""
+    import numpy as np
+
+    from retrieval_augmented_mds_tpu_torch.models.config import EncoderConfig
+    from retrieval_augmented_mds_tpu_torch.retriever.contrastive import (
+        RetrieverConfig,
+        init_retriever,
+    )
+    from retrieval_augmented_mds_tpu_torch.retriever.validate import validate_retriever
+
+    enc = EncoderConfig.tiny()  # window 64: the kernels' tile granule
+    rcfg = RetrieverConfig(query_enc=enc, mips_enc=enc)
+    params = init_retriever(rcfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(4, enc.vocab_size, (300, 64)).astype(np.int32)
+    mask = np.ones_like(ids)
+    corpus = {"token_ids": ids, "token_mask": mask}
+    queries = {"query_input_ids": ids[:, ::-1].copy(), "query_attention_mask": mask}
+    aids = np.arange(300, dtype=np.int32)[:, None]
+    args = (rcfg.query_enc, rcfg.mips_enc, corpus, aids, queries, aids[:, 0],
+            np.ones(300, np.int32))
+    mips_topk.launches = 0
+    got, det = validate_retriever(params.cuda(), *args, metric=metric, return_details=True)
+    assert mips_topk.launches == 1
+    ref, rdet = validate_retriever(params.cpu(), *args, metric=metric, return_details=True)
+    np.testing.assert_allclose(det["scores"], rdet["scores"], rtol=1e-4, atol=1e-4)
+    # the value at each rank agrees; ids may swap where two rows' scores lie
+    # within the two devices' summation-order noise
+    assert (det["indices"] == rdet["indices"]).mean() >= 0.99
+    for k, v in ref.items():
+        assert abs(got[k] - v) <= 0.01, k
+
+
 # ---------------------------------------------------------------------------
 # K9: the 8-bit AdamW superleaf update
 # ---------------------------------------------------------------------------

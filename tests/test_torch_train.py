@@ -322,7 +322,8 @@ def _state_arrays(jstate) -> dict[str, torch.Tensor]:
     return {k: tckpt._from_numpy(np.array(v), k in bf16) for k, v in flat.items()}
 
 
-def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dict):
+def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dict,
+                     rel: float = 2.0 ** -22):
     """The port's f32 gradients against the JAX package's, leaf by leaf:
     ||g_port - g_jax|| <= 3 (r_port + r_jax) + 2^-22 ||g_jax||, r being a
     package's own roundoff, ||g - g64||, against its own f64 run from the
@@ -331,8 +332,9 @@ def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dic
     keeps its loss in f32 (its metrics come back f32), so r_jax misses the
     roundoff of the loss's cotangent, which reaches every leaf near the
     logits (measured: a gap of 1.9 (r_port + r_jax) at `led.dec_pos.table`;
-    3 leaves room for it). The last term is a few roundings of the
-    leaf itself (an f32 gradient that both f64 runs give exactly). Each
+    3 leaves room for it). The last term, ``rel`` of the leaf's norm, is a
+    few roundings of the leaf itself (an f32 gradient that both f64 runs
+    give exactly). Each
     leaf is held to its own roundoff, so that a fault in a leaf whose
     gradient is far below the tree's largest (the query encoder's are
     below 1e-6 of it) still shows."""
@@ -341,7 +343,7 @@ def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dic
         gap = float(np.linalg.norm(g - jax_[n]))
         r_port = float(np.linalg.norm(g - port64[n].numpy()))
         r_jax = float(np.linalg.norm(np.asarray(jax_[n], np.float64) - jax64[n]))
-        allowed = 3 * (r_port + r_jax) + 2.0 ** -22 * float(np.linalg.norm(jax_[n]))
+        allowed = 3 * (r_port + r_jax) + rel * float(np.linalg.norm(jax_[n]))
         assert gap <= allowed, f"step {step}: {n} gradient {gap:.3g} apart, {allowed:.3g} allowed"
 
 
