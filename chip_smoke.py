@@ -25,7 +25,10 @@ Phases, in order; any failure exits non-zero:
      The f32 cases of the retriever's path: K1 at its full-KB validation
      (B = N = 1997, D = 768, and D = 769 with the l2 route's augmented
      column), K2 at its train step (B=4) and encode batches (B=64), K3 at
-     its train step, K2/K3 beside SDPA in f32 under the same mask;
+     its train step, and both at the retriever's own padding (four fixture
+     queries of 118-124 valid tokens of 512, K3 with the model's dO), K2/K3
+     beside SDPA in f32 under the same mask and beside both f32 bounds
+     (split TF32 on the tensor cores, which they run; the CUDA cores);
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
      version at K1's serving shape, its top-k against K1's and, on a bf16
      corpus, its scores at K1's hits bit-equal to K1's values;
@@ -99,9 +102,9 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # fit logs, saved indexes
 WARMUP, REPS = 2, 10
 PLAIN_LONG_REPS = 3  # the plain versions at 16384 keys or rows: ~0.1 s a call
 # H100 SXM (NVIDIA data sheet, dense): HBM bytes/s; peak operations/s of
-# the f32 CUDA cores and the bf16 tensor cores
+# the f32 CUDA cores and the bf16 and TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_F32, PEAK_BF16 = 67e12, 989e12
+PEAK_F32, PEAK_BF16, PEAK_TF32 = 67e12, 989e12, 494.7e12
 
 
 class SmokeFailure(AssertionError):
@@ -179,11 +182,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def roofline(n_bytes: float, n_ops: float, f32: bool) -> dict:
+def roofline(n_bytes: float, n_ops: float, f32: bool, split_tf32: bool = False) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the peak rate of the inputs' type."""
+    HBM rate and the operations over the peak rate of the inputs' type.
+    ``split_tf32``: f32 products run as three TF32 tensor-core products
+    each (3 x the operations over the dense TF32 peak)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / (PEAK_F32 if f32 else PEAK_BF16) * 1e3
+    t_ops = (3 * n_ops / PEAK_TF32 if split_tf32
+             else n_ops / (PEAK_F32 if f32 else PEAK_BF16)) * 1e3
     return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
             else {"bound_ms": t_ops, "bound_by": "operations"})
 
@@ -417,6 +423,20 @@ def _dense_reads(key_bias) -> tuple[int, int]:
     return int(open_.sum()), int((~open_.any(1)).sum()) * key_bias.shape[1]
 
 
+def _sliding_bounds(n_bytes: float, flops: float, dtype) -> tuple[dict, str]:
+    """K2/K3's bound for the dtype's route, and for f32 the text of the
+    CUDA-core bound beside it. f32 runs split TF32 on the tensor cores, so
+    its bound is 3 x the operations over the TF32 peak, or the bytes."""
+    import torch
+
+    if dtype != torch.float32:
+        return roofline(n_bytes, flops, False), ""
+    cores = roofline(n_bytes, flops, True)
+    return roofline(n_bytes, flops, True, split_tf32=True), (
+        f" (split TF32: 3 x ops over {PEAK_TF32 / 1e12:.1f} TFLOP/s, or bytes); on the "
+        f"f32 CUDA cores {cores['bound_ms']:.3f} ms ({cores['bound_by']})")
+
+
 def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
     """K2 against `local_rows_plain`; with ``plain_b`` the plain version
     runs (and is timed) on the first ``plain_b`` batches only, against the
@@ -488,7 +508,7 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
                                         torch.ones_like(rows_ok))
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = per_row * (rows + 2 * keys + window) + nbytes(*tensors[3:7], full_out)
-    bound = roofline(n_bytes, flops, dtype == torch.float32)
+    bound, cores = _sliding_bounds(n_bytes, flops, dtype)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}: PASS (out within {tol_out} x each row set's own max|ref|: "
           f"{'; '.join(said)}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; l rtol {tol_l}: "
@@ -496,7 +516,7 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
           + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
-             if timed else "")
+             + cores if timed else "")
           + (f"; SDPA with the [B, 1, T, T] band + global mask {lib_ms:.3f} ms"
              if library else ""))
     return result(err, ms, plain_ms, bound, lib_ms)
@@ -519,6 +539,8 @@ def phase_k2():
     # validation's encode batches (B=64)
     _k2_case("retriever_train", RET_QUERY, torch.float32, library=True)
     _k2_case("retriever_encode", RET_ENCODE, torch.float32, library=True)
+    # the retriever's own padding: a train step's four fixture queries
+    _k2_case("retriever_fixture", RET_FIXTURE, torch.float32, library=True)
     # the LED encoder layer of the long-source slice (the plain version on 2
     # of the 4 batches: its [B, nh, T/w, w, 3w] f32 band tensors)
     _k2_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
@@ -542,6 +564,10 @@ LED_16K = (4, 12, 16384, 64, 512, 64, [16384, 12000, 6000, 2048], [64, 10, 3, 0]
 # valid tokens on average)
 RET_QUERY = (4, 12, 512, 64, 256, 1, [512, 500, 300, 130], [1] * 4)
 RET_ENCODE = (64, 12, 512, 64, 256, 1, [40 + (61 * i) % 160 for i in range(64)], [1] * 64)
+# the queries of the retriever slice's first train step as its pipeline
+# tokenizes them (fixture rows 538, 1020, 1696, 1270 of the 1997 pairs;
+# the pairs' queries hold 119.0 valid tokens of 512 on average)
+RET_FIXTURE = (4, 12, 512, 64, 256, 1, [119, 124, 118, 123], [1] * 4)
 # valid source tokens of four fixture examples (mean 451.7, 306-743 over
 # the long-source slice's steps): the padding the slices' kernels see
 FIXTURE_LENGTHS = [743, 451, 306, 520]
@@ -630,7 +656,7 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None,
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = (per_row * (rows + 2 * (keys + window)) + rows * shape[1] * 3 * m.element_size()
                + nbytes(*tensors[3:7], do, *got))
-    bound = roofline(n_bytes, flops, dtype == torch.float32)
+    bound, cores = _sliding_bounds(n_bytes, flops, dtype)
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}, dO {'zero on padded and global rows' if model_do else 'random'}"
           f": PASS (dq, dk, dv, dkg, dvg on every row, fully masked ones included, within "
@@ -638,7 +664,7 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None,
           + (f"; plain version on the first {pb} batches only" if pb < shape[0] else "")
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, {flops / 1e9:.2f} GFLOP)"
-             if timed else "")
+             + cores if timed else "")
           + (f"; SDPA backward with the band + global mask {lib_ms:.3f} ms"
              if library else ""))
     return result(err, ms, plain_ms, bound, lib_ms)
@@ -655,8 +681,10 @@ def phase_k3():
     served = _k3_case("led_base", led, torch.bfloat16, library=True)
     _k3_case("led_base", led, torch.float32)
     _k3_case("longformer_query", query, torch.bfloat16, library=True)
-    # the retriever's train step: the same shape in f32
+    # the retriever's train step: the same shape in f32, and at its own
+    # padding with the model's dO
     _k3_case("longformer_query", query, torch.float32, library=True)
+    _k3_case("retriever_fixture", RET_FIXTURE, torch.float32, model_do=True, library=True)
     _k3_case("longformer_memory", memory, torch.bfloat16, library=True)
     _k3_case("led_base_16k", LED_16K, torch.bfloat16, plain_b=2, library=True)
     # the fixture's padding, its globals and the model's zero cotangents, at

@@ -1,20 +1,37 @@
-// bf16 tensor-core tiles for the attention kernels (sm_80+ `mma.sync`).
+// Tensor-core tiles for the attention kernels (sm_80+ `mma.sync`).
 //
 // A CTA of 4 warps owns 64 rows (16 per warp) and walks tiles of another
-// matrix. Operands stay bf16 in shared memory, each row padded by 8 bf16
-// (16 bytes), so the 8 row addresses of an `ldmatrix` fall on 8 distinct
-// groups of 4 banks. Products run as m16n8k16 MMAs with f32 accumulators:
+// matrix. The element type of the shared tiles picks the operand policy:
+//
+// - bf16: m16n8k16 MMAs on bf16 operands. Each row is padded by 8 bf16
+//   (16 bytes), so the 8 row addresses of an `ldmatrix` fall on 8 distinct
+//   groups of 4 banks.
+// - float: split TF32 ("3xTF32"), m16n8k8 MMAs. Each f32 operand x is
+//   split in registers into hi = rna(x) and lo = rna(x - hi), rna being
+//   TF32's round to nearest, ties away (x - hi is exact in f32), and a
+//   product runs as lo.hi' + hi.lo' + hi.hi', the dropped lo.lo' and lo's
+//   own rounding leaving ~2^-21 of each |x y|: f32 accuracy, where one
+//   TF32 pass keeps ~2^-11. `ldmatrix` moves b16 only,
+//   so fragments come from 32-bit shared loads; each row is padded by 4
+//   floats (16 bytes), a stride of 4 mod 32 words, so the 32 lanes of a
+//   fragment hit 32 banks whether they read along rows or down columns.
+//
+// Both accumulate in f32 with the same C fragment (lane (g, t): rows g and
+// g + 8, columns 2t and 2t + 1 of each 8-column tile):
 //
 //   mma_xyt: acc += X Y^T  (X the warp's 16 rows, Y the walked tile's rows,
 //            both row-major [*, DH]): the scores Q K^T and dO V^T;
 //   mma_py:  acc += P Y    (P a 16 x N operand held in registers, Y read
-//            transposed by `ldmatrix.trans`): P V, P dO, dS Q, dS K.
+//            down its columns): P V, P dO, dS Q, dS K.
 //
-// The C fragment of a 16 x N product is, pair of n-tiles by pair, the A
-// fragment of the same 16 x N matrix as an operand (`to_a`): probabilities
-// and score gradients never leave registers and are rounded to bf16 only
-// there. Walked tiles arrive by `cp.async` into two buffers, so the next
-// tile loads while this one computes.
+// The C fragment of a 16 x N product is the A operand of the same matrix
+// (`to_a`): probabilities and score gradients never leave registers. bf16
+// rounds them there, pair of n-tiles by pair; split TF32 splits them per
+// k-step and feeds a lane's columns 2t and 2t + 1 as k-slots t and t + 4,
+// with rows 2t and 2t + 1 of Y as B's rows t and t + 4 (the order of a
+// sum's terms changes, not its value), so no shuffle is needed. Walked
+// tiles arrive by `cp.async` into two buffers, so the next tile loads
+// while this one computes.
 
 #pragma once
 
@@ -32,8 +49,16 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;  // rows a CTA owns: 16 per warp
 constexpr int kTile = 64;  // keys per tile; a key tile is skipped or not as a whole
-constexpr int kPad = 8;    // bf16 of padding per shared-memory row
 constexpr int kSub = 32;   // columns of a tile scored at a time (registers)
+
+// Row stride of a shared [*, DH] tile of T: 16 bytes of padding per row.
+template <typename T, int DH>
+constexpr int kLd = DH + 16 / static_cast<int>(sizeof(T));
+
+// CTAs per SM the kernels of a policy are compiled for (registers): f32
+// tiles take twice the shared memory, and split TF32 more registers.
+template <typename T, int DH>
+constexpr int kMinBlocks = sizeof(T) == 2 ? (DH >= 128 ? 2 : 3) : (DH >= 128 ? 1 : 2);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -90,16 +115,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major [*, DH] bf16 matrix into a
-// padded shared tile, asynchronously; rows at or past `end` are zero.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int row0,
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// Copy rows [row0, row0 + ROWS) of a row-major [*, DH] matrix (bf16 or f32)
+// into a padded shared tile, asynchronously; rows at or past `end` are zero.
+template <int DH, int ROWS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0,
                                           int end) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
+  constexpr int kPer = 16 / sizeof(T), kChunks = DH / kPer;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks, pos = row0 + r;
     const bool ok = pos < end;
-    cp_async16(dst + r * (DH + kPad) + c * 8, src + (long)(ok ? pos : 0) * DH + c * 8, ok);
+    cp_async16(dst + r * kLd<T, DH> + c * kPer, src + (long)(ok ? pos : 0) * DH + c * kPer,
+               ok);
   }
 }
 
@@ -116,7 +145,7 @@ __device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ s
 // acc[N/8] += X Y^T: x the warp's 16 rows, y N rows, both padded [*, DH].
 template <int DH, int N>
 __device__ __forceinline__ void mma_xyt(float (&acc)[N / 8][4], const bf16* x, const bf16* y) {
-  constexpr int LD = DH + kPad;
+  constexpr int LD = kLd<bf16, DH>;
   const int lane = threadIdx.x & 31;
   // x4 row addresses: A takes (rows 0-7, 8-15) x (k 0-7, 8-15) as a0..a3;
   // B takes (k 0-7, 8-15) of n-tile 0, then of n-tile 1
@@ -141,7 +170,7 @@ __device__ __forceinline__ void mma_xyt(float (&acc)[N / 8][4], const bf16* x, c
 template <int DH, int N>
 __device__ __forceinline__ void mma_py(float (&acc)[DH / 8][4], const uint32_t (&p)[N / 16][4],
                                        const bf16* y) {
-  constexpr int LD = DH + kPad;
+  constexpr int LD = kLd<bf16, DH>;
   const int lane = threadIdx.x & 31;
   // x4.trans: (rows 0-7, 8-15) of head dims 0-7 give b0, b1 of d-tile 0;
   // those of head dims 8-15 give d-tile 1
@@ -170,6 +199,141 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&c)[
     a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// split TF32 (f32 tiles)
+// ---------------------------------------------------------------------------
+
+// x = hi + lo, both TF32. hi is x rounded to nearest, ties away from zero,
+// as `cvt.rna.tf32.f32` rounds it, but by integer ops on the bits (half of
+// the dropped range added to the magnitude, then the low 13 bits cleared):
+// the cvt also tests for NaN and infinity, which doubles its instructions.
+// Finite values and infinities round alike; a NaN whose payload fills the
+// top mantissa bits may carry into the sign. x - hi is exact in f32, and lo
+// is that remainder rounded the same way, its low 13 bits left to the
+// tensor core, which reads only the top 19 bits of a TF32 operand.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, f32 accumulate. Not
+// volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// n-tiles of a product taken together by `mma1688x3`
+constexpr int kGroup = 4;
+
+// c[j0 + i] += a b[i] for the NG n-tiles of a group, in split TF32: the
+// small terms first, each term over the whole group before the next, so
+// no MMA waits on the one before it.
+template <int NG, int NT>
+__device__ __forceinline__ void mma1688x3(float (&c)[NT][4], int j0, const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[NG][2],
+                                          const uint32_t (&bl)[NG][2]) {
+#pragma unroll
+  for (int i = 0; i < NG; ++i) mma1688(c[j0 + i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < NG; ++i) mma1688(c[j0 + i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < NG; ++i) mma1688(c[j0 + i], ah, bh[i][0], bh[i][1]);
+}
+
+// acc[N/8] += X Y^T: x the warp's 16 rows, y N rows, both padded f32
+// [*, DH]. A lane reads rows g and g + 8 of x (and row g of each 8-row
+// tile of y) at head dims t and t + 4 of each k-step: banks 4g + t.
+template <int DH, int N>
+__device__ __forceinline__ void mma_xyt(float (&acc)[N / 8][4], const float* x, const float* y) {
+  constexpr int LD = kLd<float, DH>, NG = N / 8 < kGroup ? N / 8 : kGroup;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* xa = x + g * LD + kk * 8 + t;
+    uint32_t ah[4], al[4];
+    split_tf32(xa[0], ah[0], al[0]);           // (g, t)
+    split_tf32(xa[8 * LD], ah[1], al[1]);      // (g + 8, t)
+    split_tf32(xa[4], ah[2], al[2]);           // (g, t + 4)
+    split_tf32(xa[8 * LD + 4], ah[3], al[3]);  // (g + 8, t + 4)
+#pragma unroll
+    for (int j0 = 0; j0 < N / 8; j0 += NG) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const float* yb = y + (8 * (j0 + i) + g) * LD + kk * 8 + t;
+        split_tf32(yb[0], bh[i][0], bl[i][0]);  // (k t, n g)
+        split_tf32(yb[4], bh[i][1], bl[i][1]);  // (k t + 4, n g)
+      }
+      mma1688x3(acc, j0, ah, al, bh, bl);
+    }
+  }
+}
+
+// acc[DH/8] += P Y: p the warp's 16 x N operand as f32 C fragments, y N
+// rows of a padded f32 [*, DH] tile (the reduction runs over those N
+// rows). k-step j takes the lane's columns 8j + 2t and + 1 of p as k-slots
+// t and t + 4, and rows 8j + 2t and + 1 of y as B's rows t and t + 4; y is
+// read down its columns, lane (g, t) at banks 8t + g.
+template <int DH, int N>
+__device__ __forceinline__ void mma_py(float (&acc)[DH / 8][4], const float (&p)[N / 8][4],
+                                       const float* y) {
+  constexpr int LD = kLd<float, DH>, NG = DH / 8 < kGroup ? DH / 8 : kGroup;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[j][0], ah[0], al[0]);  // (g, 8j + 2t)
+    split_tf32(p[j][2], ah[1], al[1]);  // (g + 8, 8j + 2t)
+    split_tf32(p[j][1], ah[2], al[2]);  // (g, 8j + 2t + 1)
+    split_tf32(p[j][3], ah[3], al[3]);  // (g + 8, 8j + 2t + 1)
+    const float* yb = y + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int j0 = 0; j0 < DH / 8; j0 += NG) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        split_tf32(yb[8 * (j0 + i)], bh[i][0], bl[i][0]);       // row 8j + 2t, dim 8 jd + g
+        split_tf32(yb[LD + 8 * (j0 + i)], bh[i][1], bl[i][1]);  // row 8j + 2t + 1
+      }
+      mma1688x3(acc, j0, ah, al, bh, bl);
+    }
+  }
+}
+
+// The C fragments of a 16 x N f32 product as the split-TF32 operand of the
+// same matrix: kept in f32 and split per k-step by `mma_py`.
+template <int N>
+__device__ __forceinline__ void to_a(float (&a)[N / 8][4], const float (&c)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = c[j][e];
+  }
+}
+
+// The operand type `to_a` fills for a policy: bf16 A fragments, or f32 C
+// fragments.
+template <typename T, int N>
+struct POperandOf;
+template <int N>
+struct POperandOf<bf16, N> {
+  using type = uint32_t[N / 16][4];
+};
+template <int N>
+struct POperandOf<float, N> {
+  using type = float[N / 8][4];
+};
+template <typename T, int N>
+using POperand = typename POperandOf<T, N>::type;
+
+// ---------------------------------------------------------------------------
+// both policies
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -250,10 +414,11 @@ __device__ __forceinline__ int next_marked_tile(int kt, int n, const Marked& mar
 // the keys a fully masked row has as columns but the walk skipped (its
 // closed form): the keys past a causal block, or, for a sliding block,
 // the window keys out of its walk, one sum per w-block the rows lie in.
-template <int DH>
+template <int DH, typename T = bf16>
 struct FwdTiles {
-  bf16 q[kRows][DH + kPad];
-  bf16 k[2][kTile][DH + kPad], v[2][kTile][DH + kPad];
+  static constexpr int LD = kLd<T, DH>;
+  T q[kRows][LD];
+  T k[2][kTile][LD], v[2][kTile][LD];
   float bias[2][kTile];
   float vsum[2][DH];
   unsigned probe[2][kWarps];
@@ -261,10 +426,11 @@ struct FwdTiles {
 
 // Shared tiles of the dq pass: the CTA's 64 query rows and dO rows, and
 // two buffers of the walked key tile (keys, values, key bias).
-template <int DH>
+template <int DH, typename T = bf16>
 struct DqTiles {
-  bf16 q[kRows][DH + kPad], dout[kRows][DH + kPad];
-  bf16 k[2][kTile][DH + kPad], v[2][kTile][DH + kPad];
+  static constexpr int LD = kLd<T, DH>;
+  T q[kRows][LD], dout[kRows][LD];
+  T k[2][kTile][LD], v[2][kTile][LD];
   float bias[2][kTile];
   unsigned probe[2][kWarps];
 };
@@ -273,11 +439,11 @@ struct DqTiles {
 // buffers of the walked query tile (queries, dO, the rows' raw statistics
 // and delta). At dh 128 the walked tile is 32 rows, to keep the two
 // accumulators, the scores and dP within the register file.
-template <int DH>
+template <int DH, typename T = bf16>
 struct DkvTiles {
-  static constexpr int BN = DH >= 128 ? 32 : 64;
-  bf16 k[kRows][DH + kPad], v[kRows][DH + kPad];
-  bf16 q[2][BN][DH + kPad], dout[2][BN][DH + kPad];
+  static constexpr int BN = DH >= 128 ? 32 : 64, LD = kLd<T, DH>;
+  T k[kRows][LD], v[kRows][LD];
+  T q[2][BN][LD], dout[2][BN][LD];
   float stat[2][3][BN];  // [buffer][raw statistic 0, 1, delta][row]
   unsigned probe[2][kWarps];
 };

@@ -1,7 +1,8 @@
 // Tile routines shared by the attention kernels (forward and backward).
 //
 // All of them work on f32 CUDA cores in CTAs of 4 warps, for the f32
-// attention kernels (the bf16 ones run on tensor cores: attn_mma.cuh).
+// dense attention kernels (K4-K7; the bf16 ones, and the sliding kernels
+// K2/K3 in both dtypes, run on tensor cores: attn_mma.cuh).
 // A forward CTA owns BQ query rows (R per warp) and walks key tiles of 32
 // (lane = key for the scores, lane = head dim for the accumulator), with an
 // online softmax in f32. A backward CTA either owns query rows and walks

@@ -23,18 +23,31 @@
 //   2. dk, dv: a CTA per tile of keys walks the query rows whose band holds
 //      them; the other rows of their window only when one of them is fully
 //      masked (its m is about -1e9);
-//   3. dkg, dvg: a CTA per tile of globals walks the query rows. A second
-//      reduction pass rather than atomics from pass 1: every global key is
-//      summed over all T rows, and atomics would make the sum's order, and
-//      so the result, change from run to run.
+//   3. dkg, dvg: a CTA per (tile of globals, split of the query rows)
+//      walks its rows. A second reduction pass rather than atomics from
+//      pass 1: every global key is summed over all T rows, and atomics
+//      would make the sum's order, and so the result, change from run to
+//      run. Few such CTAs (the Longformer has one global: B*nh CTAs) would
+//      each walk every row tile in a long chain, so the rows split over
+//      more CTAs, whose f32 partials a fourth kernel sums in split order.
 // The scores and dO . v are recomputed in each pass.
 //
-// - bf16 (every led_base slice): tensor-core issue, then bytes. The five
-//   products per tile pair are `mma.sync` m16n8k16 MMAs on bf16 shared-
-//   memory tiles (attn_mma.cuh: 64-row CTAs of 4 warps, 64-row walked
-//   tiles, 32 at dh 128 in passes 2 and 3, double-buffered by `cp.async`),
-//   f32 accumulators; P and dS are rounded to bf16 only as operands. What
-//   is exactly zero is not computed:
+// The passes run on the tensor cores in both dtypes, one template over the
+// operand policy of attn_mma.cuh: bf16 (every led_base slice) as m16n8k16
+// MMAs, f32 (the retriever's Longformer encoders, held to the plain
+// version at 1e-4) as split-TF32 m16n8k8 MMAs, three per product, which
+// keep f32 accuracy. The least time is the operations over the bf16 peak,
+// or in f32 3 x the operations over the 495 TFLOP/s dense TF32 peak, or
+// the bytes; in f32 the instruction count holds it back (one instruction in
+// ten is an MMA in the static SASS of the dh-64 passes, the rest splits,
+// 32-bit shared loads, the softmax and addressing).
+// The five products per tile pair run on shared-memory tiles (64-row CTAs
+// of 4 warps, 64-row walked tiles, 32 at dh 128 in passes 2 and 3,
+// double-buffered by `cp.async`) with f32 accumulators; P and dS become
+// operands only in registers (rounded to bf16, or split). f32 tiles take
+// twice the shared memory: at dh 64 pass 1 105 KB and passes 2 and 3
+// 106 KB a CTA (2 CTAs per SM); at dh 128 203 and 136 KB (1 CTA per SM).
+// What is exactly zero is not computed:
 //   - a 64-row tile whose dO is all zero (the model's padded rows and its
 //     valid global rows: the encoder zeroes or overwrites their outputs)
 //     adds nothing anywhere: dp = 0, delta = 0, so ds = 0 and p dO = 0.
@@ -47,220 +60,44 @@
 //     the rows that are fully masked.
 //   The band mask is applied per key, so a 64-key tile may span two
 //   w-blocks (w = 32).
-// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
-//   tiles of attn_tile.cuh, FMA and shared-memory issue bound, no skips.
+
+#include <algorithm>
 
 #include "attn_mma.cuh"
-#include "attn_tile.cuh"
 
 namespace {
 
 using namespace attn;
 
-// ---------------------------------------------------------------------------
-// f32: CUDA-core passes (attn_tile.cuh)
-// ---------------------------------------------------------------------------
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-sliding_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ key_bias,
-                  const float* __restrict__ kg, const float* __restrict__ vg,
-                  const float* __restrict__ g_bias,
-                  const float* __restrict__ dout, const float* __restrict__ m,
-                  const float* __restrict__ l, const float* __restrict__ delta,
-                  float* __restrict__ dq, int nh, int T_len, int w, int G, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  DqSmem<DH>& sm = *reinterpret_cast<DqSmem<DH>*>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int q0 = blockIdx.x * BQ, r0 = warp * R;
-  const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
-  const float* kb = key_bias + (long)b * T_len;
-
-  stage_block<DH>(sm.q, q + base, q0, T_len, scale);
-  stage_block<DH>(sm.dout, dout + base, q0, T_len, 1.f);
-  RowStats<DH> rs;
-  load_stats<DH>(rs, MLStats{m + (long)bh * T_len, l + (long)bh * T_len},
-                 delta + (long)bh * T_len, q0 + r0, T_len);
-  float acc[R][DV] = {};
-
-  // band: out-of-band columns pass no gradient to q, so only the keys any
-  // row of this tile can see
-  const int lo = max(q0 - w, 0), hi = min(q0 + BQ + w, T_len);
-  for (int k0 = lo; k0 < hi; k0 += kBK) {
-    __syncthreads();
-    stage_t<DH>(sm.k, k + base, k0, hi, 1.f);
-    stage_t<DH>(sm.v, v + base, k0, hi, 1.f);
-    __syncthreads();
-    const int pos = k0 + lane;
-    const bool in = pos < hi;
-    const float bias = in ? kb[pos] : 0.f;
-    const auto mask = [&](int r, float s) {
-      const int d = pos - (q0 + r0 + r);
-      return (d <= w && d >= -w) ? Logit{s + bias, true} : Logit{kMaskVal, false};
-    };
-    dq_tile<DH>(sm, rs, r0, in, mask, acc);
-  }
-
-  for (int g0 = 0; g0 < G; g0 += kBK) {
-    __syncthreads();
-    stage_t<DH>(sm.k, kg + gbase, g0, G, 1.f);
-    stage_t<DH>(sm.v, vg + gbase, g0, G, 1.f);
-    __syncthreads();
-    const int g = g0 + lane;
-    const bool in = g < G;
-    const float bias = in ? g_bias[(long)b * G + g] : 0.f;
-    const auto mask = [&](int, float s) { return Logit{s + bias, true}; };
-    dq_tile<DH>(sm, rs, r0, in, mask, acc);
-  }
-  write_acc<DH>(acc, dq + base, q0 + r0, T_len, scale);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-sliding_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ key_bias,
-                   const float* __restrict__ dout, const float* __restrict__ m,
-                   const float* __restrict__ l, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int nh, int T_len, int w,
-                   float scale) {
-  constexpr int BK = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int k0 = blockIdx.x * BK, r0 = warp * R;
-  const long base = (long)bh * T_len * DH;
-  const float* mr = m + (long)bh * T_len;
-
-  stage_block<DH>(sm.k, k + base, k0, T_len, 1.f);
-  stage_block<DH>(sm.v, v + base, k0, T_len, 1.f);
-  float kbias[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) kbias[r] = key_bias[(long)b * T_len + k0 + r0 + r];
-  float gk[R][DV] = {}, gv[R][DV] = {};
-
-  // rows whose window holds these keys (w-blocks n-1..n+1 of the keys'
-  // block n), and the rows whose band holds one of them
-  const int n = k0 / w;
-  const int wlo = max((n - 1) * w, 0), whi = min((n + 2) * w, T_len);
-  const int blo = max(k0 - w, 0), bhi = min(k0 + BK + w, T_len);
-  for (int qt = wlo; qt < whi; qt += kBK) {
-    if (qt + kBK <= blo || qt >= bhi) {
-      // out of every key's band: only a fully masked row contributes
-      const int row = qt + threadIdx.x;
-      const bool deg = threadIdx.x < kBK && mr[row] < kDegenerate;
-      if (!__syncthreads_or(deg)) continue;
-    }
-    __syncthreads();
-    stage_queries<DH>(sm, q + base, dout + base, MLStats{mr, l + (long)bh * T_len},
-                      delta + (long)bh * T_len, qt, T_len, scale);
-    __syncthreads();
-    const int row = qt + lane;
-    const auto mask = [&](int r, float s) {
-      const int d = k0 + r0 + r - row;
-      return (d <= w && d >= -w) ? Logit{s + kbias[r], true} : Logit{kMaskVal, false};
-    };
-    dkv_tile<DH>(sm, r0, true, mask, gk, gv);
-  }
-  write_acc<DH>(gk, dk + base, k0 + r0, T_len, 1.f);
-  write_acc<DH>(gv, dv + base, k0 + r0, T_len, 1.f);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-sliding_dkvg_kernel(const float* __restrict__ q, const float* __restrict__ kg,
-                    const float* __restrict__ vg, const float* __restrict__ g_bias,
-                    const float* __restrict__ dout, const float* __restrict__ m,
-                    const float* __restrict__ l, const float* __restrict__ delta,
-                    float* __restrict__ dkg, float* __restrict__ dvg, int nh, int T_len,
-                    int G, float scale) {
-  constexpr int BK = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int g0 = blockIdx.x * BK, r0 = warp * R;
-  const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
-
-  stage_block<DH>(sm.k, kg + gbase, g0, G, 1.f);
-  stage_block<DH>(sm.v, vg + gbase, g0, G, 1.f);
-  float gbias[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int g = g0 + r0 + r;
-    gbias[r] = g < G ? g_bias[(long)b * G + g] : 0.f;
-  }
-  float gk[R][DV] = {}, gv[R][DV] = {};
-  for (int qt = 0; qt < T_len; qt += kBK) {
-    __syncthreads();
-    stage_queries<DH>(sm, q + base, dout + base,
-                      MLStats{m + (long)bh * T_len, l + (long)bh * T_len},
-                      delta + (long)bh * T_len, qt, T_len, scale);
-    __syncthreads();
-    const auto mask = [&](int r, float s) { return Logit{s + gbias[r], true}; };
-    dkv_tile<DH>(sm, r0, true, mask, gk, gv);
-  }
-  write_acc<DH>(gk, dkg + gbase, g0 + r0, G, 1.f);
-  write_acc<DH>(gv, dvg + gbase, g0 + r0, G, 1.f);
-}
-
-template <int DH>
-int launch(const void* q, const void* k, const void* v, const void* kb, const void* kg,
-           const void* vg, const void* gb, const void* dout, const void* m, const void* l,
-           const void* delta, void* dq, void* dk, void* dv, void* dkg, void* dvg, int BH,
-           int nh, int T_len, int w, int G, float scale, cudaStream_t s) {
-  constexpr int BQ = Tile<DH>::BQ;
-  const auto cq = [](const void* p) { return static_cast<const float*>(p); };
-  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  int err = launch_dyn(sliding_dq_kernel<DH>, dim3(T_len / BQ, BH), sizeof(DqSmem<DH>),
-                       s, cq(q), cq(k), cq(v), cf(kb), cq(kg), cq(vg), cf(gb), cq(dout),
-                       cf(m), cf(l), cf(delta), static_cast<float*>(dq), nh, T_len, w, G,
-                       scale);
-  if (err) return err;
-  err = launch_dyn(sliding_dkv_kernel<DH>, dim3(T_len / BQ, BH), sizeof(DkvSmem<DH>),
-                   s, cq(q), cq(k), cq(v), cf(kb), cq(dout), cf(m), cf(l), cf(delta),
-                   static_cast<float*>(dk), static_cast<float*>(dv), nh, T_len, w, scale);
-  if (err) return err;
-  return launch_dyn(sliding_dkvg_kernel<DH>, dim3((G + BQ - 1) / BQ, BH),
-                    sizeof(DkvSmem<DH>), s, cq(q), cq(kg), cq(vg), cf(gb), cq(dout), cf(m),
-                    cf(l), cf(delta), static_cast<float*>(dkg), static_cast<float*>(dvg),
-                    nh, T_len, G, scale);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor-core passes
-// ---------------------------------------------------------------------------
-
-// Whether any of rows [r0, min(r0 + 64, end)) of a bf16 [*, DH] matrix has
-// a nonzero element (any bit but the sign set: a NaN counts, -0.0 does
-// not), for the whole CTA.
-template <int DH>
-__device__ bool any_nonzero_rows(const __nv_bfloat16* __restrict__ x, int r0, int end) {
-  const int chunks = (min(r0 + mma::kRows, end) - r0) * DH / 8;  // 16 bytes each
+// Whether any of rows [r0, min(r0 + 64, end)) of a bf16 or f32 [*, DH]
+// matrix has a nonzero element (any bit but the sign set: a NaN counts,
+// -0.0 does not), for the whole CTA.
+template <int DH, typename T>
+__device__ bool any_nonzero_rows(const T* __restrict__ x, int r0, int end) {
+  constexpr unsigned kMagnitude = sizeof(T) == 2 ? 0x7fff7fffu : 0x7fffffffu;
+  const int chunks = (min(r0 + mma::kRows, end) - r0) * DH * (int)sizeof(T) / 16;
   const uint4* p = reinterpret_cast<const uint4*>(x + (long)r0 * DH);
   bool nz = false;
   for (int i = threadIdx.x; i < chunks; i += kThreads) {
     const uint4 c = p[i];
-    nz |= ((c.x | c.y | c.z | c.w) & 0x7fff7fffu) != 0;
+    nz |= ((c.x & kMagnitude) | (c.y & kMagnitude) | (c.z & kMagnitude) |
+           (c.w & kMagnitude)) != 0;
   }
   return __syncthreads_or(nz);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-sliding_mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-                      const __nv_bfloat16* __restrict__ kg, const __nv_bfloat16* __restrict__ vg,
-                      const float* __restrict__ g_bias, const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ m, const float* __restrict__ l,
-                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                      int* __restrict__ live, int nh, int T_len, int w, int G, float scale) {
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+sliding_mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ key_bias, const T* __restrict__ kg,
+                      const T* __restrict__ vg, const float* __restrict__ g_bias,
+                      const T* __restrict__ dout, const float* __restrict__ m,
+                      const float* __restrict__ l, const float* __restrict__ delta,
+                      T* __restrict__ dq, int* __restrict__ live, int nh, int T_len, int w,
+                      int G, float scale) {
   using namespace attn::mma;
   extern __shared__ __align__(16) unsigned char smem[];
-  DqTiles<DH>& sm = *reinterpret_cast<DqTiles<DH>*>(smem);
+  DqTiles<DH, T>& sm = *reinterpret_cast<DqTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, q0 = blockIdx.x * kRows;
   const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
@@ -347,7 +184,7 @@ sliding_mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
           s[j][e] = grad ? p * (dp[j][e] - dl[h]) : 0.f;  // ds
         }
       }
-      uint32_t ds[kSub / 16][4];
+      POperand<T, kSub> ds;
       to_a<kSub>(ds, s);
       mma_py<DH, kSub>(acc, ds, &sm.k[buf][j0][0]);
     }
@@ -359,18 +196,17 @@ sliding_mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   store_rows<DH>(acc, dq + base, q0 + warp * 16, T_len, scale);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-sliding_mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ m,
-                       const float* __restrict__ l, const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+sliding_mma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ key_bias, const T* __restrict__ dout,
+                       const float* __restrict__ m, const float* __restrict__ l,
+                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                        const int* __restrict__ live, int nh, int T_len, int w, float scale) {
   using namespace attn::mma;
-  constexpr int BN = DkvTiles<DH>::BN;
+  constexpr int BN = DkvTiles<DH, T>::BN;
   extern __shared__ __align__(16) unsigned char smem[];
-  DkvTiles<DH>& sm = *reinterpret_cast<DkvTiles<DH>*>(smem);
+  DkvTiles<DH, T>& sm = *reinterpret_cast<DkvTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, k0 = blockIdx.x * kRows;
   const long base = (long)bh * T_len * DH;
@@ -464,7 +300,7 @@ sliding_mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           }
         }
       }
-      uint32_t a[kSub / 16][4];
+      POperand<T, kSub> a;
       to_a<kSub>(a, s);
       mma_py<DH, kSub>(gv, a, &sm.dout[buf][j0][0]);
       to_a<kSub>(a, dp);
@@ -479,18 +315,19 @@ sliding_mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   store_rows<DH>(gv, dv + base, k0 + warp * 16, T_len, 1.f);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-sliding_mma_dkvg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kg,
-                        const __nv_bfloat16* __restrict__ vg, const float* __restrict__ g_bias,
-                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ m,
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+sliding_mma_dkvg_kernel(const T* __restrict__ q, const T* __restrict__ kg,
+                        const T* __restrict__ vg, const float* __restrict__ g_bias,
+                        const T* __restrict__ dout, const float* __restrict__ m,
                         const float* __restrict__ l, const float* __restrict__ delta,
-                        float* __restrict__ dkg, float* __restrict__ dvg,
-                        const int* __restrict__ live, int nh, int T_len, int G, float scale) {
+                        float* __restrict__ dkg, float* __restrict__ dvg, long zstride,
+                        const int* __restrict__ live, int nh, int T_len, int G, int per,
+                        float scale) {
   using namespace attn::mma;
-  constexpr int BN = DkvTiles<DH>::BN;
+  constexpr int BN = DkvTiles<DH, T>::BN;
   extern __shared__ __align__(16) unsigned char smem[];
-  DkvTiles<DH>& sm = *reinterpret_cast<DkvTiles<DH>*>(smem);
+  DkvTiles<DH, T>& sm = *reinterpret_cast<DkvTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, g0 = blockIdx.x * kRows;
   const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
@@ -504,8 +341,11 @@ sliding_mma_dkvg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     gbias[h] = gi[h] < G ? g_bias[(long)b * G + gi[h]] : 0.f;
   }
   // every row is a column of every global; only rows whose dO is not all
-  // zero add anything
-  const int n = (T_len + BN - 1) / BN;
+  // zero add anything. This CTA walks the query tiles of its split,
+  // [it0, n), and writes its partial sums to its split's slice
+  const int it0 = blockIdx.z * per, n = min((T_len + BN - 1) / BN, it0 + per);
+  dkg += blockIdx.z * zstride;
+  dvg += blockIdx.z * zstride;
   const auto tile_live = [&](int it) { return it < n && lv[it * BN / kRows] != 0; };
   int parity = 0;
   const auto next = [&](int it) {
@@ -524,7 +364,7 @@ sliding_mma_dkvg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   };
 
   float gk[DH / 8][4] = {}, gv[DH / 8][4] = {};
-  int cur = next(0), buf = 0;
+  int cur = next(it0), buf = 0;
   if (cur < n) {
     load_rows<DH, kRows>(&sm.k[0][0], kg + gbase, g0, G);
     load_rows<DH, kRows>(&sm.v[0][0], vg + gbase, g0, G);
@@ -557,7 +397,7 @@ sliding_mma_dkvg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
           }
         }
       }
-      uint32_t a[kSub / 16][4];
+      POperand<T, kSub> a;
       to_a<kSub>(a, s);
       mma_py<DH, kSub>(gv, a, &sm.dout[buf][j0][0]);
       to_a<kSub>(a, dp);
@@ -572,72 +412,128 @@ sliding_mma_dkvg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   store_rows<DH>(gv, dvg + gbase, g0 + warp * 16, G, 1.f);
 }
 
-template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, const void* kb, const void* kg,
-               const void* vg, const void* gb, const void* dout, const void* m, const void* l,
-               const void* delta, void* dq, void* dk, void* dv, void* dkg, void* dvg,
-               void* live, int BH, int nh, int T_len, int w, int G, float scale,
-               cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  constexpr int R = mma::kRows;
-  const auto cq = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid((T_len + R - 1) / R, BH);
-  int err = launch_dyn(sliding_mma_dq_kernel<DH>, grid, sizeof(mma::DqTiles<DH>), s, cq(q),
-                       cq(k), cq(v), cf(kb), cq(kg), cq(vg), cf(gb), cq(dout), cf(m), cf(l),
-                       cf(delta), static_cast<bf16*>(dq), static_cast<int*>(live), nh, T_len,
-                       w, G, scale);
-  if (err) return err;
-  err = launch_dyn(sliding_mma_dkv_kernel<DH>, grid, sizeof(mma::DkvTiles<DH>), s, cq(q), cq(k),
-                   cq(v), cf(kb), cq(dout), cf(m), cf(l), cf(delta), static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), static_cast<const int*>(live), nh, T_len, w, scale);
-  if (err) return err;
-  return launch_dyn(sliding_mma_dkvg_kernel<DH>, dim3((G + R - 1) / R, BH),
-                    sizeof(mma::DkvTiles<DH>), s, cq(q), cq(kg), cq(vg), cf(gb), cq(dout),
-                    cf(m), cf(l), cf(delta), static_cast<float*>(dkg),
-                    static_cast<float*>(dvg), static_cast<const int*>(live), nh, T_len, G,
-                    scale);
+// out[i] = the sum over the splits of part[z][i], in split order (so two
+// runs give the same bits): part [splits][2 n] holds each split's dkg
+// partial, then its dvg partial.
+__global__ void __launch_bounds__(256)
+sum_splits_kernel(const float* __restrict__ part, float* __restrict__ dkg,
+                  float* __restrict__ dvg, long n, int splits) {
+  for (long i = blockIdx.x * 256L + threadIdx.x; i < 2 * n; i += gridDim.x * 256L) {
+    float sum = 0.f;
+    for (int z = 0; z < splits; ++z) sum += part[z * 2 * n + i];
+    if (i < n)
+      dkg[i] = sum;
+    else
+      dvg[i - n] = sum;
+  }
 }
 
-// dtype 0 (f32) on the CUDA-core kernels, 1 (bf16) on the tensor-core ones
-int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
-                 const void* kb, const void* kg, const void* vg, const void* gb,
-                 const void* dout, const void* m, const void* l, const void* delta, void* dq,
-                 void* dk, void* dv, void* dkg, void* dvg, void* live, int BH, int nh,
-                 int T_len, int w, int G, float scale, cudaStream_t s) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool bf16 = dtype == 1;
-#define ARGS q, k, v, kb, kg, vg, gb, dout, m, l, delta, dq, dk, dv, dkg, dvg
-#define TAIL BH, nh, T_len, w, G, scale, s
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, const void* kb, const void* kg,
+           const void* vg, const void* gb, const void* dout, const void* m, const void* l,
+           const void* delta, void* dq, void* dk, void* dv, void* dkg, void* dvg, void* live,
+           void* part, int BH, int nh, int T_len, int w, int G, int splits, float scale,
+           cudaStream_t s) {
+  constexpr int R = mma::kRows, BN = mma::DkvTiles<DH, T>::BN;
+  const auto ct = [](const void* p) { return static_cast<const T*>(p); };
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const dim3 grid((T_len + R - 1) / R, BH);
+  int err = launch_dyn(sliding_mma_dq_kernel<T, DH>, grid, sizeof(mma::DqTiles<DH, T>), s,
+                       ct(q), ct(k), ct(v), cf(kb), ct(kg), ct(vg), cf(gb), ct(dout), cf(m),
+                       cf(l), cf(delta), static_cast<T*>(dq), static_cast<int*>(live), nh,
+                       T_len, w, G, scale);
+  if (err) return err;
+  err = launch_dyn(sliding_mma_dkv_kernel<T, DH>, grid, sizeof(mma::DkvTiles<DH, T>), s, ct(q),
+                   ct(k), ct(v), cf(kb), ct(dout), cf(m), cf(l), cf(delta), static_cast<T*>(dk),
+                   static_cast<T*>(dv), static_cast<const int*>(live), nh, T_len, w, scale);
+  if (err) return err;
+  // one split writes dkg, dvg itself; more write partials that a fourth
+  // kernel sums
+  const long n_out = (long)BH * G * DH;
+  float* out_k = splits > 1 ? static_cast<float*>(part) : static_cast<float*>(dkg);
+  float* out_v = splits > 1 ? static_cast<float*>(part) + n_out : static_cast<float*>(dvg);
+  const int n = (T_len + BN - 1) / BN, per = (n + splits - 1) / splits;
+  err = launch_dyn(sliding_mma_dkvg_kernel<T, DH>, dim3((G + R - 1) / R, BH, splits),
+                   sizeof(mma::DkvTiles<DH, T>), s, ct(q), ct(kg), ct(vg), cf(gb), ct(dout),
+                   cf(m), cf(l), cf(delta), out_k, out_v, splits > 1 ? 2 * n_out : 0L,
+                   static_cast<const int*>(live), nh, T_len, G, per, scale);
+  if (err || splits == 1) return err;
+  sum_splits_kernel<<<(int)std::min((2 * n_out + 255) / 256, 1024L), 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dkg), static_cast<float*>(dvg),
+      n_out, splits);
+  return (int)cudaGetLastError();
+}
+
+#define ARGS q, k, v, kb, kg, vg, gb, dout, m, l, delta, dq, dk, dv, dkg, dvg, live, part
+#define TAIL BH, nh, T_len, w, G, splits, scale, s
+
+template <typename T>
+int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
+              const void* kg, const void* vg, const void* gb, const void* dout, const void* m,
+              const void* l, const void* delta, void* dq, void* dk, void* dv, void* dkg,
+              void* dvg, void* live, void* part, int BH, int nh, int T_len, int w, int G,
+              int splits, float scale, cudaStream_t s) {
   switch (dh) {
     case 32:
-      return bf16 ? launch_mma<32>(ARGS, live, TAIL) : launch<32>(ARGS, TAIL);
+      return launch<T, 32>(ARGS, TAIL);
     case 64:
-      return bf16 ? launch_mma<64>(ARGS, live, TAIL) : launch<64>(ARGS, TAIL);
+      return launch<T, 64>(ARGS, TAIL);
     case 128:
-      return bf16 ? launch_mma<128>(ARGS, live, TAIL) : launch<128>(ARGS, TAIL);
+      return launch<T, 128>(ARGS, TAIL);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef TAIL
-#undef ARGS
 }
 
+// dtype 0 (f32: split TF32) or 1 (bf16), both on the tensor cores
+int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
+                 const void* kb, const void* kg, const void* vg, const void* gb,
+                 const void* dout, const void* m, const void* l, const void* delta, void* dq,
+                 void* dk, void* dv, void* dkg, void* dvg, void* live, void* part, int BH,
+                 int nh, int T_len, int w, int G, int splits, float scale, cudaStream_t s) {
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_dh<float>(dh, ARGS, TAIL);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(dh, ARGS, TAIL);
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef TAIL
+#undef ARGS
+
 }  // namespace
+
+// Pass 3's splits of the query rows, either dtype: each (tile of globals,
+// batch*head) walks every live query tile, a long chain when T is long
+// and few such CTAs fill the card (the Longformer's one global: B*nh
+// CTAs), so the rows split until there are about four CTAs per SM, at
+// most 16 splits (the retriever's step: 8 splits of one 64-row tile each).
+extern "C" int sliding_bwd_splits(int dh, int BH, int T_len, int G) {
+  constexpr int kMaxSplits = 16;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int bn = dh >= 128 ? attn::mma::DkvTiles<128>::BN : attn::mma::DkvTiles<64>::BN;
+  const int n = (T_len + bn - 1) / bn, ctas = (G + attn::mma::kRows - 1) / attn::mma::kRows * BH;
+  const int want = std::min({n, kMaxSplits, std::max(1, (4 * sms + ctas - 1) / ctas)});
+  const int per = (n + want - 1) / want;
+  return (n + per - 1) / per;
+}
 
 // dtype: 0 = f32, 1 = bf16. q/k/v/dout/dq/dk/dv [B*nh, T, dh]; key_bias
 // [B, T] f32; kg/vg [B*nh, G, dh]; g_bias [B, G] f32; m/l/delta [B*nh, T]
 // f32; dkg/dvg [B*nh, G, dh] f32; live [B*nh, ceil(T/64)] int32 scratch
-// (bf16: pass 1 marks each 64-row tile whose dO is not all zero). T and w
-// multiples of 32, G in [1, 128].
+// (pass 1 marks each 64-row tile whose dO is not all zero); splits as
+// `sliding_bwd_splits` gives them and, for more than one, part [splits,
+// 2, B*nh, G, dh] f32 scratch (each split's dkg and dvg partials). T and w
+// multiples of 32, w dividing T, G in [1, 128].
 extern "C" int sliding_bwd_launch(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* kg, const void* vg,
                                   const void* g_bias, const void* dout, const void* m,
                                   const void* l, const void* delta, void* dq, void* dk,
-                                  void* dv, void* dkg, void* dvg, void* live, int dtype, int B,
-                                  int nh, int T_len, int dh, int w, int G, float scale,
-                                  void* stream) {
+                                  void* dv, void* dkg, void* dvg, void* live, void* part,
+                                  int splits, int dtype, int B, int nh, int T_len, int dh,
+                                  int w, int G, float scale, void* stream) {
   return launch_dtype(dtype, dh, q, k, v, key_bias, kg, vg, g_bias, dout, m, l, delta, dq, dk,
-                      dv, dkg, dvg, live, B * nh, nh, T_len, w, G, scale,
+                      dv, dkg, dvg, live, part, B * nh, nh, T_len, w, G, splits, scale,
                       static_cast<cudaStream_t>(stream));
 }

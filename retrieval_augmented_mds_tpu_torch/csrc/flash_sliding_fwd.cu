@@ -22,134 +22,60 @@
 // see, [q0 - w, q0 + rows + w) clipped to [0, T), then the globals, in one
 // online softmax; HBM traffic is then about the q/k/v/out streams.
 //
-// - bf16 (every led_base slice): tensor-core issue, then those bytes. One
-//   CTA of 4 warps owns 64 query rows (16 per warp) and walks 64-key tiles
-//   that `cp.async` brings into two buffers (attn_mma.cuh): S = Q K^T and
-//   O += P V are `mma.sync` m16n8k16 MMAs with f32 accumulators; masks and
-//   the online softmax run on the C fragments, P is rounded to bf16 only
-//   as an operand. Masks apply per element: a 64-row block spans two
-//   w-blocks when w is not a multiple of 64, so each row tests a key
-//   against its own band and its own window (a walked key outside the
-//   row's window is no column of it at all).
-//   Padding: a band key tile whose every key_bias is -1e9 adds exactly
-//   nothing to a row with an open column (p = exp(<= -9e8 + s - m) = 0,
-//   and the rescale of an earlier such tile is 0 too). The forward has no
-//   m beforehand, so the block decides from its inputs before the walk:
-//   every row has an open column when the batch has a valid global (every
-//   row sees every global; the LED and the Longformer make token 0 a
-//   global wherever it is not padding). Such a block visits only the
-//   tiles that hold an open key or an open global, marked once in a 64-bit
-//   mask before the walk; the LED's padded rows then cost one tile. A
-//   block of a batch with no valid global walks every tile, and a fully
-//   masked row adds the window keys out of its walk in closed form, per
-//   w-block.
-// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
-//   tiles of attn_tile.cuh, one CTA per (batch*head, tile of BQ query rows)
-//   with BQ dividing w, so all rows of a CTA share one window; 32-key
-//   tiles staged in shared memory (K transposed, padded against bank
-//   conflicts), an online softmax in f32 (lane = key for the scores, lane =
-//   head dim for the accumulator), no skip. Window columns it skipped all
-//   hold exactly -1e9; they only matter for a row whose max is still about
-//   -1e9 (fully masked), so such CTAs add them afterwards in closed form:
-//   their count and the sum of their value rows. FMA and shared-memory
-//   issue bound.
+// The kernel runs on the tensor cores in both dtypes, one template over
+// the operand policy of attn_mma.cuh: bf16 (every led_base slice) as
+// m16n8k16 MMAs, f32 (the retriever's Longformer encoders, held to the
+// plain version at 1e-4) as split-TF32 m16n8k8 MMAs, three per product,
+// which keep f32 accuracy. The least time is the operations over the bf16
+// tensor-core peak, or in f32 3 x the operations over the 495 TFLOP/s
+// dense TF32 peak, or the bytes. What holds it back is the instruction count:
+// in f32 about one instruction in fifteen is an MMA, the rest splitting
+// each fragment element (4 integer and float ops), 32-bit shared loads,
+// the softmax and addressing (static SASS of the dh-64 kernel;
+// tools/torch_profile_dense_bwd.py --f32 times it). One CTA of 4 warps
+// owns 64 query rows (16 per warp) and walks 64-key tiles that `cp.async`
+// brings into two buffers (attn_mma.cuh):
+// S = Q K^T and O += P V run with f32 accumulators; masks and the online
+// softmax run on the C fragments, P becomes an operand only in registers
+// (rounded to bf16, or split). f32 tiles take twice the shared memory:
+// 88 KB a CTA at dh 64 (2 CTAs per SM), 171 KB at dh 128 (1 CTA per SM).
+// Masks apply per element: a 64-row block spans two w-blocks when w is
+// not a multiple of 64, so each row tests a key against its own band and
+// its own window (a walked key outside the row's window is no column of
+// it at all).
+// Padding: a band key tile whose every key_bias is -1e9 adds exactly
+// nothing to a row with an open column (p = exp(<= -9e8 + s - m) = 0, and
+// the rescale of an earlier such tile is 0 too). The forward has no m
+// beforehand, so the block decides from its inputs before the walk: every
+// row has an open column when the batch has a valid global (every row
+// sees every global; the LED and the Longformer make token 0 a global
+// wherever it is not padding). Such a block visits only the tiles that
+// hold an open key or an open global, marked once in a 64-bit mask before
+// the walk; padded rows then cost one tile (the retriever's queries hold
+// ~119 valid tokens of 512). A block of a batch with no valid global walks
+// every tile, and a fully masked row adds the window keys out of its walk
+// in closed form, per w-block.
 
 #include "attn_mma.cuh"
-#include "attn_tile.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-sliding_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ key_bias,
-                   const float* __restrict__ kg, const float* __restrict__ vg,
-                   const float* __restrict__ g_bias, float* __restrict__ out,
-                   float* __restrict__ m_out, float* __restrict__ l_out, int nh,
-                   int T_len, int w, int G, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R;
-  __shared__ Smem<DH> sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int q0 = blockIdx.x * BQ, r0 = warp * R;
-  const long base = (long)bh * T_len * DH;
-  const float* kb = key_bias + (long)b * T_len;
-
-  stage_block<DH>(sm.q, q + base, q0, T_len, scale);
-  Rows<DH> st;
-  init_rows<DH>(st);
-
-  // band: the keys any row of this tile can see
-  const int lo = max(q0 - w, 0), hi = min(q0 + BQ + w, T_len);
-  for (int k0 = lo; k0 < hi; k0 += kBK) {
-    __syncthreads();
-    stage<DH>(sm, k + base, v + base, k0, hi);
-    __syncthreads();
-    float s[R];
-    scores<DH>(sm, r0, s);
-    const int pos = k0 + lane;
-    const bool in = pos < hi;
-    const float bias = in ? kb[pos] : 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int dq = pos - (q0 + r0 + r);
-      s[r] = (dq <= w && dq >= -w) ? s[r] + bias : kMaskVal;
-    }
-    update<DH>(sm, st, s, in);
-  }
-
-  // global-token columns, in the same softmax
-  const long gbase = (long)bh * G * DH;
-  for (int g0 = 0; g0 < G; g0 += kBK) {
-    __syncthreads();
-    stage<DH>(sm, kg + gbase, vg + gbase, g0, G);
-    __syncthreads();
-    float s[R];
-    scores<DH>(sm, r0, s);
-    const int g = g0 + lane;
-    const bool in = g < G;
-    const float bias = in ? g_bias[(long)b * G + g] : 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] += bias;
-    update<DH>(sm, st, s, in);
-  }
-
-  // fully masked rows: add the skipped window columns (all exactly -1e9)
-  bool degenerate = false;
-#pragma unroll
-  for (int r = 0; r < R; ++r) degenerate |= st.m[r] < kDegenerate;
-  if (__syncthreads_or(degenerate)) {
-    const int n = q0 / w, wlo = (n - 1) * w, whi = (n + 2) * w;
-    for (int d = threadIdx.x; d < DH; d += kThreads) {
-      float sum = 0.f;
-      for (int pos = max(wlo, 0); pos < min(whi, T_len); ++pos)
-        if (pos < lo || pos >= hi) sum += v[base + (long)pos * DH + d];
-      sm.v[0][d] = sum;
-    }
-    __syncthreads();
-    add_masked_columns<DH>(st, static_cast<float>(3 * w - (hi - lo)), sm.v[0]);
-  }
-  write_rows<DH>(st, out + base, m_out + (long)bh * T_len, l_out + (long)bh * T_len,
-                 q0 + r0, T_len);
-}
-
-// bf16 on the tensor cores: 64 rows a CTA, any T and w that are multiples
-// of 32 with w dividing T.
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-sliding_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-                       const __nv_bfloat16* __restrict__ kg,
-                       const __nv_bfloat16* __restrict__ vg, const float* __restrict__ g_bias,
-                       __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int nh, int T_len, int w, int G,
-                       float scale) {
+// T = bf16 or float (the operand policy): 64 rows a CTA, any T_len and w
+// that are multiples of 32 with w dividing T_len.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+sliding_mma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ key_bias,
+                       const T* __restrict__ kg, const T* __restrict__ vg,
+                       const float* __restrict__ g_bias, T* __restrict__ out,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int nh, int T_len,
+                       int w, int G, float scale) {
   using namespace attn::mma;
   static_assert(kThreads >= 2 * kTile, "a thread per global tests the globals");
   extern __shared__ __align__(16) unsigned char smem[];
-  FwdTiles<DH>& sm = *reinterpret_cast<FwdTiles<DH>*>(smem);
+  FwdTiles<DH, T>& sm = *reinterpret_cast<FwdTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, q0 = blockIdx.x * kRows;
   const long base = (long)bh * T_len * DH, gbase = (long)bh * G * DH;
@@ -275,7 +201,7 @@ sliding_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
     }
-    uint32_t pa[kTile / 16][4];
+    POperand<T, kTile> pa;
     to_a<kTile>(pa, s);
     mma_py<DH, kTile>(acc, pa, &sm.v[buf][0][0]);
     __syncthreads();
@@ -298,10 +224,8 @@ sliding_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       const int wb = n0 + i / DH, d = i % DH;
       const int a = max((wb - 1) * w, 0), z = min((wb + 2) * w, T_len);
       float sum = 0.f;
-      for (int pos = a; pos < min(z, lo); ++pos)
-        sum += __bfloat162float(v[base + (long)pos * DH + d]);
-      for (int pos = max(a, hi); pos < z; ++pos)
-        sum += __bfloat162float(v[base + (long)pos * DH + d]);
+      for (int pos = a; pos < min(z, lo); ++pos) sum += to_f32(v[base + (long)pos * DH + d]);
+      for (int pos = max(a, hi); pos < z; ++pos) sum += to_f32(v[base + (long)pos * DH + d]);
       sm.vsum[i / DH][d] = sum;
     }
     __syncthreads();
@@ -337,66 +261,54 @@ sliding_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-template <int DH>
+template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* kb, const void* kg,
            const void* vg, const void* gb, void* out, void* m, void* l, int BH, int nh,
            int T_len, int w, int G, float scale, cudaStream_t s) {
+  const auto ct = [](const void* p) { return static_cast<const T*>(p); };
   const auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid(T_len / Tile<DH>::BQ, BH);
-  sliding_fwd_kernel<DH><<<grid, kThreads, 0, s>>>(
-      cf(q), cf(k), cf(v), cf(kb), cf(kg), cf(vg), cf(gb), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), nh, T_len, w, G, scale);
-  return (int)cudaGetLastError();
+  return launch_dyn(sliding_mma_fwd_kernel<T, DH>,
+                    dim3((T_len + mma::kRows - 1) / mma::kRows, BH),
+                    sizeof(mma::FwdTiles<DH, T>), s, ct(q), ct(k), ct(v), cf(kb), ct(kg),
+                    ct(vg), cf(gb), static_cast<T*>(out), static_cast<float*>(m),
+                    static_cast<float*>(l), nh, T_len, w, G, scale);
 }
 
-template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, const void* kb, const void* kg,
-               const void* vg, const void* gb, void* out, void* m, void* l, int BH, int nh,
-               int T_len, int w, int G, float scale, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  const auto cq = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  return launch_dyn(sliding_mma_fwd_kernel<DH>,
-                    dim3((T_len + mma::kRows - 1) / mma::kRows, BH), sizeof(mma::FwdTiles<DH>),
-                    s, cq(q), cq(k), cq(v), cf(kb), cq(kg), cq(vg), cf(gb),
-                    static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
-                    nh, T_len, w, G, scale);
-}
-
-// dtype 0 (f32) on the CUDA cores, 1 (bf16) on the tensor cores
-int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
-                 const void* kb, const void* kg, const void* vg, const void* gb, void* out,
-                 void* m, void* l, int BH, int nh, int T_len, int w, int G, float scale,
-                 cudaStream_t s) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool bf16 = dtype == 1;
+template <typename T>
+int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
+              const void* kg, const void* vg, const void* gb, void* out, void* m, void* l,
+              int BH, int nh, int T_len, int w, int G, float scale, cudaStream_t s) {
 #define ARGS q, k, v, kb, kg, vg, gb, out, m, l, BH, nh, T_len, w, G, scale, s
   switch (dh) {
     case 32:
-      return bf16 ? launch_mma<32>(ARGS) : launch<32>(ARGS);
+      return launch<T, 32>(ARGS);
     case 64:
-      return bf16 ? launch_mma<64>(ARGS) : launch<64>(ARGS);
+      return launch<T, 64>(ARGS);
     case 128:
-      return bf16 ? launch_mma<128>(ARGS) : launch<128>(ARGS);
+      return launch<T, 128>(ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef ARGS
 }
 
-}  // namespace
-
-// The granule of the window for a dtype and head dim: w must be a multiple
-// of it, and T a multiple of w. f32: the CUDA-core kernel's query tile (32
-// rows; 16 at dh 128); bf16: 32 (a 64-row block then spans at most two
-// w-blocks).
-extern "C" int sliding_fwd_block_rows(int dtype, int dh) {
-  if (dtype == 1) return 32;
-  return dh >= 128 ? attn::Tile<128>::BQ : attn::Tile<64>::BQ;
+// dtype 0 (f32: split TF32) or 1 (bf16), both on the tensor cores
+int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
+                 const void* kb, const void* kg, const void* vg, const void* gb, void* out,
+                 void* m, void* l, int BH, int nh, int T_len, int w, int G, float scale,
+                 cudaStream_t s) {
+#define ARGS dh, q, k, v, kb, kg, vg, gb, out, m, l, BH, nh, T_len, w, G, scale, s
+  if (dtype == 0) return launch_dh<float>(ARGS);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(ARGS);
+  return (int)cudaErrorInvalidValue;
+#undef ARGS
 }
+
+}  // namespace
 
 // dtype: 0 = f32, 1 = bf16. q/k/v/out [B*nh, T, dh]; key_bias [B, T] f32;
 // kg/vg [B*nh, G, dh]; g_bias [B, G] f32 (1 <= G <= 128); m/l [B*nh, T] f32.
+// T and w multiples of 32, w dividing T.
 extern "C" int sliding_fwd_launch(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* kg,
                                   const void* vg, const void* g_bias, void* out,

@@ -13,12 +13,13 @@ delta = rowsum(dO * out) and calls the backward of
 ``flash_sliding_bwd.py`` (kernel K3 on the card). Routing is by device: a
 CPU tensor goes to `local_rows_plain` and the plain backward, a CUDA
 tensor to the kernels in ``csrc/flash_sliding_fwd.cu`` (K2) and
-``csrc/flash_sliding_bwd.cu`` (K3); no fallback. In bf16 both run on the
-tensor cores and skip the band key tiles that ``key_bias`` masks whole
-for a block of rows that each have an open column (K2 decides it from
-the inputs: the batch has a valid global, or a key open to every row of
-the block); in f32 both run on the CUDA cores and compute every key.
-The masks ``key_bias`` and ``g_bias`` get zero gradients.
+``csrc/flash_sliding_bwd.cu`` (K3); no fallback. Both run on the tensor
+cores, bf16 as bf16 MMAs and f32 (the retriever's encoders) as split-TF32
+MMAs that keep f32 accuracy, and skip the band key tiles that
+``key_bias`` masks whole for a block of rows that each have an open
+column (K2 decides it from the inputs: the batch has a valid global, or a
+key open to every row of the block). The masks ``key_bias`` and
+``g_bias`` get zero gradients.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import torch
 
 NEG_INF = -1e9
 MAX_GLOBALS = 128
+# the kernels' window granule: a 64-row block spans at most two w-blocks
+GRANULE = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -88,10 +91,8 @@ def local_rows_plain(q, k, v, key_bias, kg, vg, g_bias, window,
 def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
                             return_stats: bool = False):
     """Kernel K2. Same arguments and results as `local_rows_plain`; needs
-    dh in {32, 64, 128}, 1 <= G <= 128 and T a multiple of the window. The
-    window is a multiple of 32 in bf16 (the tensor-core kernel, as K3
-    takes it), and of the f32 kernel's query tile (32 rows; 16 at dh=128)
-    in f32."""
+    dh in {32, 64, 128}, 1 <= G <= 128, T a multiple of the window and the
+    window a multiple of 32 (as K3 takes it), in f32 and bf16 alike."""
     from .cuda_build import check, load
 
     b, nh, t, dh = q.shape
@@ -115,22 +116,16 @@ def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
         raise ValueError(f"G={g} must lie in [1, {MAX_GLOBALS}]")
     if dh not in (32, 64, 128):
         raise ValueError(f"head dim {dh} not in (32, 64, 128)")
-    lib = load("flash_sliding_fwd")
-    lib.sliding_fwd_block_rows.restype = ctypes.c_int
-    lib.sliding_fwd_block_rows.argtypes = [ctypes.c_int, ctypes.c_int]
-    granule = lib.sliding_fwd_block_rows(_DTYPE_CODE[q.dtype], dh)
-    if t % window or window % granule:
-        raise ValueError(
-            f"T={t} must be a multiple of window={window}, and the window a "
-            f"multiple of {granule} ({q.dtype}, dh={dh})"
-        )
+    if t % window or window % GRANULE:
+        raise ValueError(f"T={t} must be a multiple of window={window}, and the "
+                         f"window a multiple of {GRANULE}")
 
     q, k, v, kg, vg = (x.contiguous() for x in (q, k, v, kg, vg))
     key_bias, g_bias = key_bias.contiguous(), g_bias.contiguous()
     out = torch.empty_like(q)
     m = torch.empty((b * nh, 1, t), dtype=torch.float32, device=dev)
     l = torch.empty((b * nh, 1, t), dtype=torch.float32, device=dev)
-    fn = lib.sliding_fwd_launch
+    fn = load("flash_sliding_fwd").sliding_fwd_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_void_p]

@@ -19,15 +19,17 @@ reference composite `_local_rows_xla`.
 
 `sliding_backward_plain` is what CPU tensors take; `flash_sliding_backward`
 is kernel K3 (``csrc/flash_sliding_bwd.cu``) for CUDA tensors, three
-passes that each own their outputs (dq; dk, dv; dkg, dvg), so two runs
-give the same bits. In f32 they run on the CUDA cores and compute every
-tile. In bf16 they run on the tensor cores and skip what adds exactly
-nothing: a 64-row tile whose dO is all zero (the model's padded rows and
-its valid global rows, whose outputs the encoder zeroes or overwrites;
-the test is on dO itself, a NaN counts and -0.0 does not) gets dq = 0 and
-is skipped by the other two passes; and a band key tile that the key bias
-masks whole is skipped for rows that each have an open column (only a
-fully masked row, uniform over its window, still reaches it).
+passes that each own their outputs (dq; dk, dv; dkg, dvg, whose splits of
+the query rows are summed in a fixed order), so two runs give the same
+bits. They run on the tensor cores, bf16 as bf16 MMAs and f32 (the
+retriever's encoders) as split-TF32 MMAs that keep f32 accuracy, and
+skip what adds exactly nothing: a 64-row tile whose dO is all zero (the
+model's padded rows and its valid global rows, whose outputs the encoder
+zeroes or overwrites; the test is on dO itself, a NaN counts and -0.0
+does not) gets dq = 0 and is skipped by the other two passes; and a band
+key tile that the key bias masks whole is skipped for rows that each
+have an open column (only a fully masked row, uniform over its window,
+still reaches it).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import ctypes
 
 import torch
 
-from .flash_sliding import _DTYPE_CODE, MAX_GLOBALS, NEG_INF, _scale
+from .flash_sliding import _DTYPE_CODE, GRANULE, MAX_GLOBALS, NEG_INF, _scale
 
 
 def _window_fold(xw: torch.Tensor, t: int, w: int) -> torch.Tensor:
@@ -98,8 +100,8 @@ def sliding_backward_plain(q, k, v, key_bias, kg, vg, g_bias, do, m, l, delta, w
 def flash_sliding_backward(q, k, v, key_bias, kg, vg, g_bias, do, m, l, delta, *,
                            window):
     """Kernel K3. Same arguments and results as `sliding_backward_plain`;
-    needs dh in {32, 64, 128}, 1 <= G <= 128, and T and the window
-    multiples of 32."""
+    needs dh in {32, 64, 128}, 1 <= G <= 128, T a multiple of the window
+    and the window a multiple of 32, in f32 and bf16 alike."""
     from .cuda_build import check, load
 
     b, nh, t, dh = q.shape
@@ -126,27 +128,35 @@ def flash_sliding_backward(q, k, v, key_bias, kg, vg, g_bias, do, m, l, delta, *
         raise ValueError(f"G={g} must lie in [1, {MAX_GLOBALS}]")
     if dh not in (32, 64, 128):
         raise ValueError(f"head dim {dh} not in (32, 64, 128)")
-    if t % window or window % 32:
+    if t % window or window % GRANULE:
         raise ValueError(f"T={t} must be a multiple of window={window}, and the "
-                         "window a multiple of 32")
+                         f"window a multiple of {GRANULE}")
 
     q, k, v, kg, vg, do = (x.contiguous() for x in (q, k, v, kg, vg, do))
     key_bias, g_bias, m, l, delta = (x.contiguous() for x in (key_bias, g_bias, m, l, delta))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dkg = torch.empty(kg.shape, dtype=torch.float32, device=dev)
     dvg = torch.empty(vg.shape, dtype=torch.float32, device=dev)
-    # one flag per 64-row tile: does its dO hold a nonzero (bf16 passes)
+    # one flag per 64-row tile: does its dO hold a nonzero
     live = torch.empty((b * nh, -(-t // 64)), dtype=torch.int32, device=dev)
-    fn = load("flash_sliding_bwd").sliding_bwd_launch
+    lib = load("flash_sliding_bwd")
+    lib.sliding_bwd_splits.restype = ctypes.c_int
+    lib.sliding_bwd_splits.argtypes = [ctypes.c_int] * 4
+    # the dkg/dvg partials of each split of the query rows, when pass 3
+    # splits them
+    splits = lib.sliding_bwd_splits(dh, b * nh, t, g)
+    part = torch.empty((splits, 2, b * nh, g, dh) if splits > 1 else (0,),
+                       dtype=torch.float32, device=dev)
+    fn = lib.sliding_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), kg.data_ptr(),
         vg.data_ptr(), g_bias.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkg.data_ptr(),
-        dvg.data_ptr(), live.data_ptr(), _DTYPE_CODE[q.dtype], b, nh, t, dh, window, g,
-        _scale(dh),
+        dvg.data_ptr(), live.data_ptr(), part.data_ptr(), splits, _DTYPE_CODE[q.dtype], b,
+        nh, t, dh, window, g, _scale(dh),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "flash_sliding_backward")

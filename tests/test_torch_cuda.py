@@ -671,17 +671,18 @@ def test_bf16_blocked_forward_on_tensor_cores(gen, causal, t, s, dh):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
-def _led_inputs(gen, t, dh, w, nh=2, g=8):
+def _led_inputs(gen, t, dh, w, nh=2, g=8, dtype=torch.bfloat16):
     """Sliding-window inputs as the LED makes them: batch 0 open, batch 1
     a padded source, batch 2 a padded source with no valid global (its
     padded rows are fully masked), batch 3 all padding; the valid globals
-    are token 0 and a few positions inside each source, masked out of the
-    band. Returns (args, padded rows, valid global rows)."""
+    are token 0 and a few positions inside each source (all g in batch 0),
+    masked out of the band. Returns (args, padded rows, valid global
+    rows)."""
     lengths = [t, t * 3 // 5, t * 3 // 10, 0]
     n_valid = [g, 3, 0, 0]
     b = len(lengths)
-    q, k, v = (torch.randn((b, nh, t, dh), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
     padded = torch.arange(t, device="cuda")[None, :] >= torch.tensor(lengths,
                                                                       device="cuda")[:, None]
     g_idx = torch.zeros((b, g), dtype=torch.long, device="cuda")
@@ -699,6 +700,41 @@ def _led_inputs(gen, t, dh, w, nh=2, g=8):
     return (q, k, v, key_bias, take(k), take(v), g_bias), padded, is_global
 
 
+# (out, m, l) tolerances of the tensor-core sliding kernels against their
+# plain versions: bf16 rounds P (and dS) as operands; f32 runs split TF32,
+# f32 accuracy up to the order of the sums
+SLIDING_TOL = {torch.bfloat16: (2e-2, 1e-3, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
+# (T, w, G) of the f32 cases: w = 32 (a 64-row block spans two w-blocks, a
+# ragged last block at T = 96 and 224), 96, 512, and 128 globals
+F32_SHAPES = [(96, 32, 8), (224, 32, 8), (480, 96, 128), (1536, 512, 8), (1536, 32, 128)]
+
+
+def _sliding_backward_case(gen, t, w, dh, model_do, dtype, g=8):
+    """K3 against its plain version from the same m, l, delta: each of dq,
+    dk, dv, dkg, dvg within tol x its own max|ref|; dq = 0 exactly on
+    zero-dO rows, dk = dv = 0 exactly at the masked keys of batches whose
+    every row has an open column, and the same bits on a second run."""
+    args, padded, is_global = _led_inputs(gen, t, dh, w, g=g, dtype=dtype)
+    tol = SLIDING_TOL[dtype][0]
+    out, m, l = flash_sliding_attention(*args, window=w, return_stats=True)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    if model_do:
+        do = do.masked_fill((padded | is_global)[:, None, :, None], 0.0)
+    bwd = (*args, do, m, l, row_delta(do, out))
+    got = flash_sliding_backward(*bwd, window=w)
+    want = sliding_backward_plain(*bwd, w)
+    assert [x.dtype for x in got] == [dtype] * 5
+    for a, r in zip(got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item()
+    if model_do:
+        assert not got[0].masked_select((padded | is_global)[:, None, :, None]).any()
+    for i in (0, 1):  # every row has an open column (a valid global)
+        masked = args[3][i] < 0
+        assert not got[1][i][:, masked].any() and not got[2][i][:, masked].any()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, flash_sliding_backward(*bwd, window=w)))
+
+
 @pytest.mark.parametrize("t,w", [(96, 32), (224, 32), (480, 96), (1536, 512)])
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("model_do", [True, False])
@@ -713,24 +749,79 @@ def test_bf16_sliding_backward_on_tensor_cores(gen, t, w, dh, model_do):
     exactly on zero-dO rows, dk = dv = 0 exactly at the masked keys of
     batches whose every row has an open column, and the same bits on a
     second run (no atomics)."""
-    args, padded, is_global = _led_inputs(gen, t, dh, w)
+    _sliding_backward_case(gen, t, w, dh, model_do, torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,w,g", F32_SHAPES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("model_do", [True, False])
+def test_f32_sliding_backward_on_tensor_cores(gen, t, w, g, dh, model_do):
+    """f32 K3 (the bf16 passes on split-TF32 tiles, with their skips)
+    against its plain version: each gradient within 1e-4 x its own
+    max|ref|, at w = 32 (a 64-row block spans two w-blocks), up to 128
+    globals, a batch with no valid global and an all-padding one (fully
+    masked rows), 64-row tiles of zero dO (the model's) or a random dO; the
+    exact zeros of the skips and a bit-equal rerun."""
+    _sliding_backward_case(gen, t, w, dh, model_do, torch.float32, g=g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliding_backward_in_one_split(gen, dtype):
+    """At T = 64 pass 3 walks its one query tile in one split, writing dkg
+    and dvg itself (longer T splits the rows and sums the partials)."""
+    from retrieval_augmented_mds_tpu_torch.ops.cuda_build import load
+
+    lib = load("flash_sliding_bwd")
+    assert lib.sliding_bwd_splits(64, 8, 64, 8) == 1 < lib.sliding_bwd_splits(64, 8, 128, 8)
+    _sliding_backward_case(gen, 64, 32, 64, True, dtype)
+
+
+def _sliding_forward_case(gen, t, w, dh, dtype, g=8):
+    """K2 against its plain version: out within tol x max|ref| on each of
+    three row sets apart (non-padded rows; padded rows of batches with a
+    valid global; the other padded rows), m and l on every row; the fully
+    masked rows of the all-padding batch uniform over their 3w + G columns
+    (m = -1e9, l = 3w + G); the padded rows of a batch with a valid global
+    and no open key in their band equal to the softmax over the valid
+    globals alone; the same bits on a second run."""
+    args, padded, is_global = _led_inputs(gen, t, dh, w, g=g, dtype=dtype)
+    tol, tol_m, tol_l = SLIDING_TOL[dtype]
+    q, k, v, kb, kg, vg, gb = args
     out, m, l = flash_sliding_attention(*args, window=w, return_stats=True)
-    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    if model_do:
-        do = do.masked_fill((padded | is_global)[:, None, :, None], 0.0)
-    bwd = (*args, do, m, l, row_delta(do, out))
-    got = flash_sliding_backward(*bwd, window=w)
-    want = sliding_backward_plain(*bwd, w)
-    assert [x.dtype for x in got] == [torch.bfloat16] * 5
-    for a, r in zip(got, want):
-        err = (a.float() - r.float()).abs().max().item()
-        assert err <= 2e-2 * r.float().abs().max().item()
-    if model_do:
-        assert not got[0].masked_select((padded | is_global)[:, None, :, None]).any()
-    for i in (0, 1):  # every row has an open column (a valid global)
-        masked = args[3][i] < 0
-        assert not got[1][i][:, masked].any() and not got[2][i][:, masked].any()
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, flash_sliding_backward(*bwd, window=w)))
+    ref, ref_m, ref_l = local_rows_plain(*args, w, return_stats=True)
+    assert out.dtype == dtype
+    # each row set within tol x its own max|ref|: the non-padded rows (up
+    # to 2w + 1 keys, small outputs) apart from the padded rows of a batch
+    # with a valid global (a few globals, large outputs) and from the
+    # padded rows of the others
+    with_global = (gb == 0).any(1, keepdim=True)
+    for rows in (~padded, padded & with_global, padded & ~with_global):
+        sel = rows[:, None, :].expand(out.shape[:3])
+        err = (out.float() - ref.float()).abs()[sel].max().item()
+        assert err <= tol * ref.float().abs()[sel].max().item()
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=tol_m)
+    torch.testing.assert_close(l, ref_l, rtol=tol_l, atol=0.0)
+    b, nh, _, _ = q.shape
+    # batch 3: every row fully masked, the mean over its window and globals
+    pos = torch.arange(t, device="cuda")
+    lo = torch.clamp((pos // w - 1) * w, min=0)
+    hi = torch.clamp((pos // w + 2) * w, max=t)
+    cum = torch.nn.functional.pad(v[3].float().cumsum(1), (0, 0, 1, 0))
+    uniform = (cum[:, hi] - cum[:, lo] + vg[3].float().sum(1, keepdim=True)) / (3 * w + g)
+    _close([out[3]], [uniform], tol)
+    assert bool((m.reshape(b, nh, t)[3] == -1e9).all())
+    torch.testing.assert_close(l.reshape(b, nh, t)[3],
+                               torch.full((nh, t), 3.0 * w + g, device="cuda"),
+                               rtol=1e-6, atol=0.0)
+    # batch 1: padded rows with no open key within w see only its globals
+    open_ = torch.nn.functional.pad((kb[1] == 0).long().cumsum(0), (1, 0))
+    blind = (open_[torch.clamp(pos + w + 1, max=t)] - open_[torch.clamp(pos - w, min=0)]) == 0
+    assert bool(blind.any())
+    sg = torch.einsum("hrd,hjd->hrj", q[1].float(), kg[1].float()) * dh ** -0.5 + gb[1]
+    only = torch.einsum("hrj,hjd->hrd", torch.softmax(sg, -1), vg[1].float())
+    _close([out[1][:, blind]], [only[:, blind]], tol)
+    again = flash_sliding_attention(*args, window=w, return_stats=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again))
 
 
 @pytest.mark.parametrize("t,w", [(96, 32), (224, 32), (480, 96), (1536, 512)])
@@ -747,44 +838,28 @@ def test_bf16_sliding_forward_on_tensor_cores(gen, t, w, dh):
     3w + G columns (m = -1e9, l = 3w + G); the padded rows of a batch with
     a valid global and no open key in their band equal to the softmax over
     the valid globals alone; the same bits on a second run."""
-    args, padded, is_global = _led_inputs(gen, t, dh, w)
-    q, k, v, kb, kg, vg, gb = args
-    out, m, l = flash_sliding_attention(*args, window=w, return_stats=True)
-    ref, ref_m, ref_l = local_rows_plain(*args, w, return_stats=True)
-    assert out.dtype == torch.bfloat16
-    # each row set within 2e-2 x its own max|ref|: the non-padded rows
-    # (up to 2w + 1 keys, small outputs) apart from the padded rows of a
-    # batch with a valid global (a few globals, large outputs) and from
-    # the padded rows of the others
-    with_global = (gb == 0).any(1, keepdim=True)
-    for rows in (~padded, padded & with_global, padded & ~with_global):
-        sel = rows[:, None, :].expand(out.shape[:3])
-        err = (out.float() - ref.float()).abs()[sel].max().item()
-        assert err <= 2e-2 * ref.float().abs()[sel].max().item()
-    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
-    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
-    b, nh, _, _ = q.shape
-    g = kg.shape[2]
-    # batch 3: every row fully masked, the mean over its window and globals
-    pos = torch.arange(t, device="cuda")
-    lo = torch.clamp((pos // w - 1) * w, min=0)
-    hi = torch.clamp((pos // w + 2) * w, max=t)
-    cum = torch.nn.functional.pad(v[3].float().cumsum(1), (0, 0, 1, 0))
-    uniform = (cum[:, hi] - cum[:, lo] + vg[3].float().sum(1, keepdim=True)) / (3 * w + g)
-    _close([out[3]], [uniform], 2e-2)
-    assert bool((m.reshape(b, nh, t)[3] == -1e9).all())
-    torch.testing.assert_close(l.reshape(b, nh, t)[3],
-                               torch.full((nh, t), 3.0 * w + g, device="cuda"),
-                               rtol=1e-6, atol=0.0)
-    # batch 1: padded rows with no open key within w see only its globals
-    open_ = torch.nn.functional.pad((kb[1] == 0).long().cumsum(0), (1, 0))
-    blind = (open_[torch.clamp(pos + w + 1, max=t)] - open_[torch.clamp(pos - w, min=0)]) == 0
-    assert bool(blind.any())
-    sg = torch.einsum("hrd,hjd->hrj", q[1].float(), kg[1].float()) * dh ** -0.5 + gb[1]
-    only = torch.einsum("hrj,hjd->hrd", torch.softmax(sg, -1), vg[1].float())
-    _close([out[1][:, blind]], [only[:, blind]], 2e-2)
-    again = flash_sliding_attention(*args, window=w, return_stats=True)
-    assert all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again))
+    _sliding_forward_case(gen, t, w, dh, torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,w,g", F32_SHAPES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_f32_sliding_forward_on_tensor_cores(gen, t, w, g, dh):
+    """f32 K2 (the bf16 kernel on split-TF32 tiles, with its skip) against
+    its plain version: out within 1e-4 x each row set's own max|ref|, m
+    atol 1e-4, l rtol 1e-4, at w = 32 (a 64-row block spans two w-blocks),
+    up to 128 globals, with a batch with no valid global and an all-padding
+    one (fully masked rows uniform over 3w + G columns); a bit-equal rerun."""
+    _sliding_forward_case(gen, t, w, dh, torch.float32, g=g)
+
+
+def test_f32_sliding_kernels_reject_window_16_at_dh_128(gen):
+    """The f32 window granule is the bf16 one, 32, at every head dim."""
+    args = _sliding_inputs(gen, torch.float32, t=480, dh=128)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        flash_sliding_attention(*args, window=16)
+    out, m, l = local_rows_plain(*args, 16, return_stats=True)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        flash_sliding_backward(*args, out, m, l, row_delta(out, out), window=16)
 
 
 def test_bf16_sliding_forward_rejects_untiled_window(gen):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device time of the port's bf16 attention kernels, per pass, on one
 NVIDIA GPU: the dense backward (K5, K7), the long-source dense forward
-(K6) and the sliding-window backward (K3).
+(K6) and the sliding-window backward (K3); with ``--f32``, those of the
+retriever's f32 sliding-window kernels (K2, K3) instead.
 
-    python3 tools/torch_profile_dense_bwd.py
+    python3 tools/torch_profile_dense_bwd.py [--f32]
 
 Builds the kernels, then for each case of ``chip_smoke.py``'s phases
 (K5/K7: the decoder's causal self-attention, its cross-attention over a
@@ -14,7 +15,10 @@ one, with the fixture's own padding) prints the mean time of one call
 (CUDA events, as chip_smoke times it) and each CUDA kernel's mean device
 time over 10 calls from ``torch.profiler``: K3's three passes (dq; dk, dv;
 dkg, dvg) and K5/K7's two apart, and the small PyTorch kernels around
-them (delta = rowsum(g * out)).
+them (delta = rowsum(g * out)). ``--f32``: K3 and K2 in f32 (split TF32)
+at the retriever's train step (chip_smoke's ``RET_QUERY``, random dO),
+its own padding (``RET_FIXTURE``, the model's dO) and, K2 only, its
+validation's encode batch (``RET_ENCODE``).
 """
 
 from __future__ import annotations
@@ -77,12 +81,12 @@ def dense_call(b, t, s, causal, lengths, blocked, forward=False):
     return lambda: flash_dense_backward(*args, causal=causal)
 
 
-def sliding_backward_call(shape, model_do):
-    args, rows_ok, is_global = c._k2_inputs(*shape, dtype=torch.bfloat16, seed=11)
+def sliding_backward_call(shape, model_do, dtype=torch.bfloat16):
+    args, rows_ok, is_global = c._k2_inputs(*shape, dtype=dtype, seed=11)
     *tensors, w = args
     out, m, l = flash_sliding_attention(*tensors, window=w, return_stats=True)
     g = torch.Generator(device="cuda").manual_seed(12)
-    do = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     if model_do:
         do = do.masked_fill(~(rows_ok & ~is_global)[:, None, :, None], 0.0)
     bwd = (*tensors, do, m, l, row_delta(do, out))
@@ -108,6 +112,19 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     c.phase_env()
+    if "--f32" in sys.argv[1:]:
+        for name, shape, model_do in (("retriever_train", c.RET_QUERY, False),
+                                      ("retriever_fixture", c.RET_FIXTURE, True)):
+            report(f"K3 f32 {name} (lengths={shape[6]} dO "
+                   f"{'zero on padded and global rows' if model_do else 'random'})",
+                   sliding_backward_call(shape, model_do, torch.float32))
+        for name, shape in (("retriever_train", c.RET_QUERY),
+                            ("retriever_fixture", c.RET_FIXTURE),
+                            ("retriever_encode", c.RET_ENCODE)):
+            (*tensors, w), _, _ = c._k2_inputs(*shape, dtype=torch.float32, seed=7)
+            report(f"K2 f32 {name} (B={shape[0]})",
+                   lambda: flash_sliding_attention(*tensors, window=w))
+        return 0
     for name, b, t, s, causal, lengths, blocked in DENSE_CASES:
         shape = f"B={b} T={t} S={s} causal={causal} lengths={lengths}"
         report(f"{'K7' if blocked else 'K5'} {name} ({shape})",
