@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero:
      length 0 among them) and at S = 8192 in f32, and K2/K3 at the LED
      shape of that slice (T = 16384); K2-K7 also at the fixture's own
      padding (sources of 306-743 tokens in T or S = 2048 and 16384), where
-     the bf16 kernels skip the key tiles the bias masks whole;
+     the kernels skip the key tiles the bias masks whole; K4-K7 in f32 at
+     the decoder's cross shapes (S = 2048 and 8192, with an empty source)
+     and at the fixture's padding (S = 2048 and 16384), beside SDPA in f32
+     and both f32 bounds (split TF32, which they run; the CUDA cores);
      The f32 cases of the retriever's path: K1 at its full-KB validation
      (B = N = 1997, D = 768, and D = 769 with the l2 route's augmented
      column), K2 at its train step (B=4) and encode batches (B=64), K3 at
@@ -59,6 +62,9 @@ Phases, in order; any failure exits non-zero:
      ``configs/led_base_multi_x_science.yaml`` (its ``IVF256,SQ8`` index,
      no pretrained weights, the hash tokenizer, the same fixture) for 4
      steps with one store refresh, with the launch counts read around it;
+ 10b. the same slice in f32 (``precision: float32``, the default): f32
+     K4/K5 launched by every decoder layer on every step, its losses in
+     full;
  11. the capacity training slice: the same with ``train.adam_8bit`` and
      ``train.remat`` on, its peak memory and step time beside 10's;
  12. the long-source training slice: 10's config with ``data.max_length``
@@ -74,7 +80,7 @@ Phases, in order; any failure exits non-zero:
      summarizer's ``predict`` with ``model.encoder_state_path`` set to it.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the five slices, K10's from its own phase, as no path calls it; ms,
+over the six slices, K10's from its own phase, as no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -423,10 +429,11 @@ def _dense_reads(key_bias) -> tuple[int, int]:
     return int(open_.sum()), int((~open_.any(1)).sum()) * key_bias.shape[1]
 
 
-def _sliding_bounds(n_bytes: float, flops: float, dtype) -> tuple[dict, str]:
-    """K2/K3's bound for the dtype's route, and for f32 the text of the
-    CUDA-core bound beside it. f32 runs split TF32 on the tensor cores, so
-    its bound is 3 x the operations over the TF32 peak, or the bytes."""
+def _attention_bounds(n_bytes: float, flops: float, dtype) -> tuple[dict, str]:
+    """An attention kernel's (K2-K7) bound for the dtype's route, and for
+    f32 the text of the CUDA-core bound beside it. f32 runs split TF32 on
+    the tensor cores, so its bound is 3 x the operations over the TF32
+    peak, or the bytes."""
     import torch
 
     if dtype != torch.float32:
@@ -508,7 +515,7 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
                                         torch.ones_like(rows_ok))
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = per_row * (rows + 2 * keys + window) + nbytes(*tensors[3:7], full_out)
-    bound, cores = _sliding_bounds(n_bytes, flops, dtype)
+    bound, cores = _attention_bounds(n_bytes, flops, dtype)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}: PASS (out within {tol_out} x each row set's own max|ref|: "
           f"{'; '.join(said)}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; l rtol {tol_l}: "
@@ -656,7 +663,7 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None,
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = (per_row * (rows + 2 * (keys + window)) + rows * shape[1] * 3 * m.element_size()
                + nbytes(*tensors[3:7], do, *got))
-    bound, cores = _sliding_bounds(n_bytes, flops, dtype)
+    bound, cores = _attention_bounds(n_bytes, flops, dtype)
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}, dO {'zero on padded and global rows' if model_do else 'random'}"
           f": PASS (dq, dk, dv, dkg, dvg on every row, fully masked ones included, within "
@@ -744,7 +751,7 @@ def _sdpa_ms(q, k, v, kb, do, causal) -> list[float]:
                                                 retain_graph=True))]
 
 
-def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
+def _dense_case(name, b, t, s, causal, lengths, dtype):
     """K4 against `dense_rows_plain` (out, m, l) and K5 against
     `dense_backward_plain` (dq, dk, dv from the same m, l, delta); a source
     of length 0 is all padding (its rows are uniform over the S keys)."""
@@ -777,31 +784,29 @@ def _dense_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     check(bool(((l - ref_l).abs() / ref_l).max() <= 1e-3), f"K4 {what}: l differs")
     err5 = _compare(f"K5 {what}", got, ref_g, tol)
     pairs = _dense_pairs(b, nh, t, s, causal, lengths)
-    f32 = dtype == torch.float32
     # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
     open_keys, blind_keys = _dense_reads(kb)
     per_key = nh * dh * k.element_size()
-    bound4 = roofline(nbytes(q, kb, out, m, l) + per_key * (2 * open_keys + blind_keys),
-                      4 * dh * pairs, f32)
-    bound5 = roofline(nbytes(q, *bwd[3:], *got) + per_key * 2 * (open_keys + blind_keys),
-                      10 * dh * pairs, f32)
-    times = [None] * 6
-    if timed:
-        times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
-                 cuda_ms(lambda: dense_rows_plain(q, k, v, kb, causal)),
-                 cuda_ms(lambda: flash_dense_backward(*bwd, causal=causal)),
-                 cuda_ms(lambda: dense_backward_plain(*bwd, causal)),
-                 *_sdpa_ms(q, k, v, kb, do, causal)]
+    bound4, cores4 = _attention_bounds(
+        nbytes(q, kb, out, m, l) + per_key * (2 * open_keys + blind_keys), 4 * dh * pairs,
+        dtype)
+    bound5, cores5 = _attention_bounds(
+        nbytes(q, *bwd[3:], *got) + per_key * 2 * (open_keys + blind_keys), 10 * dh * pairs,
+        dtype)
+    times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
+             cuda_ms(lambda: dense_rows_plain(q, k, v, kb, causal)),
+             cuda_ms(lambda: flash_dense_backward(*bwd, causal=causal)),
+             cuda_ms(lambda: dense_backward_plain(*bwd, causal)),
+             *_sdpa_ms(q, k, v, kb, do, causal)]
     shape = f"B={b} nh={nh} T={t} S={s} dh={dh} causal={causal} lengths={lengths}"
     print(f"[K4] {what}: {shape}: PASS (out within {tol} x max|ref|: {err4:.3e}; "
-          f"m atol 1e-3, l rtol 1e-3; a second run bit-equal)"
-          + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
-             f"bound {bound4['bound_ms']:.3f} ms ({bound4['bound_by']})" if timed else ""))
-    print(f"[K5] {what}: {shape}: PASS (dq, dk, dv within {tol} x max|ref|: "
-          f"{err5:.3e})"
-          + (f"; kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms, sdpa backward "
-             f"{times[5]:.3f} ms, bound {bound5['bound_ms']:.3f} ms ({bound5['bound_by']})"
-             if timed else ""))
+          f"m atol 1e-3, l rtol 1e-3; a second run bit-equal); kernel {times[0]:.3f} ms, "
+          f"plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, bound {bound4['bound_ms']:.3f} "
+          f"ms ({bound4['bound_by']}, {4 * dh * pairs / 1e9:.2f} GFLOP)" + cores4)
+    print(f"[K5] {what}: {shape}: PASS (dq, dk, dv within {tol} x max|ref|: {err5:.3e}); "
+          f"kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms, sdpa backward {times[5]:.3f} "
+          f"ms, bound {bound5['bound_ms']:.3f} ms ({bound5['bound_by']}, "
+          f"{10 * dh * pairs / 1e9:.2f} GFLOP)" + cores5)
     return (result(err4, times[0], times[1], bound4, times[4]),
             result(err5, times[2], times[3], bound5, times[5]))
 
@@ -814,11 +819,15 @@ def phase_k45():
     _dense_case("decoder_self", 4, 512, 512, True, [512] * 4, torch.bfloat16)
     cross = _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0],
                         torch.bfloat16)
-    _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0],
-                torch.float32, timed=False)
     # the fixture's own padding: sources of its order of length, none empty
     _dense_case("decoder_cross_fixture", 4, 512, 2048, False, FIXTURE_LENGTHS,
                 torch.bfloat16)
+    # f32 (the decoder of a config that keeps the default precision, as
+    # `[train_f32]` runs it), at the same shapes
+    _dense_case("decoder_self", 4, 512, 512, True, [512] * 4, torch.float32)
+    _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0], torch.float32)
+    _dense_case("decoder_cross_fixture", 4, 512, 2048, False, FIXTURE_LENGTHS,
+                torch.float32)
     return cross
 
 
@@ -865,14 +874,15 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
         pad = (f"; the all-padding batch's dv uniform over the S keys within {tol} x "
                f"its max {uniform.abs().max().item():.3e}: {pad_err:.3e}")
     pairs = _dense_pairs(b, nh, t, s, causal, lengths)
-    f32 = dtype == torch.float32
     # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
     open_keys, blind_keys = _dense_reads(kb)
     per_key = nh * dh * k.element_size()
-    bound6 = roofline(nbytes(q, kb, out, lse) + per_key * (2 * open_keys + blind_keys),
-                      4 * dh * pairs, f32)
-    bound7 = roofline(nbytes(q, kb, out, lse, do, *got)
-                      + per_key * 2 * (open_keys + blind_keys), 10 * dh * pairs, f32)
+    bound6, cores6 = _attention_bounds(
+        nbytes(q, kb, out, lse) + per_key * (2 * open_keys + blind_keys), 4 * dh * pairs,
+        dtype)
+    bound7, cores7 = _attention_bounds(
+        nbytes(q, kb, out, lse, do, *got) + per_key * 2 * (open_keys + blind_keys),
+        10 * dh * pairs, dtype)
     times = [None] * 6
     if timed:
         times = [cuda_ms(lambda: flash_dense_blocked(q, k, v, kb, causal=causal)),
@@ -889,12 +899,13 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
           f"1e-3" + (", the all-padding batch's lse <= -1e8" if empty else "")
           + "; a second run bit-equal)"
           + (f"; kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms, sdpa {times[4]:.3f} ms, "
-             f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']})" if timed else ""))
+             f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']}, "
+             f"{4 * dh * pairs / 1e9:.2f} GFLOP)" + cores6 if timed else ""))
     print(f"[K7] {what}: {shape}: PASS (dq, dk, dv each within {tol} x its max|ref|: "
           f"{err7:.3e}{pad})"
           + (f"; kernel {times[2]:.3f} ms, plain {times[3]:.3f} ms, sdpa backward "
-             f"{times[5]:.3f} ms, bound {bound7['bound_ms']:.3f} ms ({bound7['bound_by']})"
-             if timed else ""))
+             f"{times[5]:.3f} ms, bound {bound7['bound_ms']:.3f} ms ({bound7['bound_by']}, "
+             f"{10 * dh * pairs / 1e9:.2f} GFLOP)" + cores7 if timed else ""))
     return (result(err6, times[0], times[1], bound6, times[4]),
             result(err7, times[2], times[3], bound7, times[5]))
 
@@ -903,15 +914,17 @@ def phase_k67():
     import torch
 
     # the decoder's cross-attention of the long-source slice: B=4 sources
-    # padded to 16384 tokens, one of them empty; then f32 at S = 8192
+    # padded to 16384 tokens, one of them empty; then f32 at S = 8192; the
+    # fixture's padding in both dtypes
     cross = _blocked_case("decoder_cross_16k", 4, 512, 16384, False,
                           [16384, 11000, 3000, 0], torch.bfloat16)
-    _blocked_case("decoder_cross_8k", 2, 256, 8192, False, [8192, 0], torch.float32,
-                  timed=False)
+    _blocked_case("decoder_cross_8k", 2, 256, 8192, False, [8192, 0], torch.float32)
     _blocked_case("causal_ragged", 2, 4500, 4500, True, [4500, 4500], torch.bfloat16,
                   timed=False)
     _blocked_case("decoder_cross_16k_fixture", 4, 512, 16384, False, FIXTURE_LENGTHS,
                   torch.bfloat16)
+    _blocked_case("decoder_cross_16k_fixture", 4, 512, 16384, False, FIXTURE_LENGTHS,
+                  torch.float32)
     return cross
 
 
@@ -1665,6 +1678,31 @@ def phase_train_slice() -> tuple[dict, dict]:
                       off_path=("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH))
 
 
+def phase_train_f32_slice() -> tuple[dict, dict]:
+    """The train slice in f32: `train_slice_config` with ``precision:
+    float32``, the JAX package's and the port's default, so the decoder's
+    attention runs f32 K4/K5 (split TF32) and the encoders f32 K2/K3. Each
+    decoder layer launches K4 and K5 once for its causal self-attention and
+    once for its cross-attention on every step. Its losses are printed in
+    full, for an A/B of two trees (steps 0 and 1 run before the store
+    refresh)."""
+    cfg = train_slice_config()
+    cfg = dataclasses.replace(
+        cfg, precision="float32",
+        logging=dataclasses.replace(cfg.logging, run_name="led_base_f32"))
+    launches, summary = _train_run(
+        cfg, "train_f32", off_path=("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH))
+    per_run = 2 * cfg.model.led.dec_layers * TRAIN_STEPS
+    for name in ("flash_dense_attention", "flash_dense_backward"):
+        check(launches[name] == per_run,
+              f"train_f32: {name} launched {launches[name]} times, not {per_run} (self "
+              f"and cross per decoder layer and step)")
+    print(f"[train_f32] f32 K4/K5 launched {per_run} times each ({cfg.model.led.dec_layers} "
+          f"decoder layers x self + cross x {TRAIN_STEPS} steps); losses in full "
+          f"{[repr(x) for x in summary['losses']]}")
+    return launches, summary
+
+
 def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
     """The train slice with the capacity knobs on: ``train.adam_8bit``
     (kernel K9, one launch per step) and ``train.remat: true`` (every layer
@@ -1950,6 +1988,7 @@ def main() -> int:
         phase_small_ivf()
         served = phase_slice()
         standing = phase_train_slice()
+        train_f32, _ = phase_train_f32_slice()
         capacity = phase_capacity_slice(standing)
         long = phase_long_slice(standing)
         retriever = phase_retriever_slice()
@@ -1970,10 +2009,10 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths (the five slices); K10's paths launch it 0 times (checked), so its
+    # launches on the paths (the six slices); K10's paths launch it 0 times (checked), so its
     # count is that of its own phase
-    launches = {name: served[name] + standing[0][name] + capacity[name] + long[name]
-                + retriever[name] for name, _, _ in sources}
+    launches = {name: served[name] + standing[0][name] + train_f32[name] + capacity[name]
+                + long[name] + retriever[name] for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

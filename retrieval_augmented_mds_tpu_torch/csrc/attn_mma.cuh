@@ -1,4 +1,8 @@
-// Tensor-core tiles for the attention kernels (sm_80+ `mma.sync`).
+// The attention kernels' tiles and what they share (forward and backward,
+// sliding and dense, both dtypes): the mask value and the tests for fully
+// masked rows, the CTA shape, how a backward reads the forward's row
+// statistics (MLStats, LseStats), the launch of a kernel with large shared
+// memory, and the tensor-core tiles themselves (sm_80+ `mma.sync`).
 //
 // A CTA of 4 warps owns 64 rows (16 per warp) and walks tiles of another
 // matrix. The element type of the shared tiles picks the operand policy:
@@ -37,12 +41,63 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attn_tile.cuh"
-
 namespace attn {
+
+constexpr float kMaskVal = -1e9f;
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kWarps = 4;
+// a row whose max is within this of -1e9 saw no unmasked column
+constexpr float kDegenerate = kMaskVal + 1000.f;
+// the same for a row's log-sum-exp: -1e9 + log S rounds to -1e9 in f32
+constexpr float kLseDegenerate = -1e8f;
+
+// How a backward reads the forward's statistics of a query row, as the pair
+// (m, l) of p = exp(s - m) / l. MLStats: the row max and the denominator
+// (K2, K4 keep them apart). `kRaw` arrays hold them per row; `decode`
+// turns a row's raw values into (m, l), so a kernel may stage the raw
+// arrays in shared memory.
+struct MLStats {
+  static constexpr int kRaw = 2;
+  const float* m;
+  const float* l;
+  __device__ MLStats shifted(long o) const { return {m + o, l + o}; }
+  __device__ const float* raw(int a) const { return a == 0 ? m : l; }
+  __device__ float2 decode(float a, float b) const { return make_float2(a, b); }
+  __device__ float2 operator[](int i) const { return make_float2(m[i], l[i]); }
+};
+
+// LseStats: one log-sum-exp per row (K6). A row with an open key reads
+// (lse, 1). A fully masked row has every logit at exactly -1e9, so its
+// lse = -1e9 + log S rounds to -1e9 and exp(s - lse) would give each key
+// 1, not 1/S; it reads the closed form (-1e9, S): uniform over the S keys.
+struct LseStats {
+  static constexpr int kRaw = 1;
+  const float* lse;
+  float s_len;
+  __device__ LseStats shifted(long o) const { return {lse + o, s_len}; }
+  __device__ const float* raw(int) const { return lse; }
+  __device__ float2 decode(float x, float) const {
+    return x <= kLseDegenerate ? make_float2(kMaskVal, s_len) : make_float2(x, 1.f);
+  }
+  __device__ float2 operator[](int i) const { return decode(lse[i], 0.f); }
+};
+
+// Launch a kernel whose shared memory may pass the 48 KB static limit.
+template <typename Kernel, typename... Args>
+int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 namespace mma {
 
 using bf16 = __nv_bfloat16;
@@ -330,6 +385,15 @@ struct POperandOf<float, N> {
 };
 template <typename T, int N>
 using POperand = typename POperandOf<T, N>::type;
+
+// Whether a policy keeps a long sum out of the MMA accumulator: the tensor
+// cores add into their f32 accumulator rounding toward zero, and over the
+// thousands of MMAs of a sum over 8192+ keys that drift passes the f32
+// tolerance (f32 K6 at S = 16384: 1.07e-4 x max|ref|). So in f32 a tile's
+// product goes into a zeroed accumulator, added to the running sum by
+// FADD or FFMA; bf16, held to 2e-2, keeps the sum in the MMA.
+template <typename T>
+constexpr bool kTileSums = sizeof(T) == 4;
 
 // ---------------------------------------------------------------------------
 // both policies

@@ -11,7 +11,7 @@
 // one log-sum-exp per row (K6): p = exp(s - lse). There the JAX kernels
 // give a fully masked row (an all-padding source) p = 1 per key, since its
 // lse rounds to -1e9; K7 reads such a row (lse <= -1e8) as uniform over
-// the S keys, p = 1/S, what the composite's VJP gives (attn_tile.cuh
+// the S keys, p = 1/S, what the composite's VJP gives (attn_mma.cuh
 // `LseStats`).
 //
 // Given delta = rowsum(dO * out), both recompute p tile by tile and return
@@ -31,14 +31,28 @@
 //
 // What bounds it on an H100, and what the design does about it:
 //
-// - bf16 (every led_base slice): tensor-core issue, then bytes. The five
-//   products per tile pair (S = Q K^T, dP = dO V^T, dV += P^T dO,
-//   dK += dS^T Q, dQ += dS K) are `mma.sync` m16n8k16 MMAs on bf16
-//   shared-memory tiles (attn_mma.cuh), f32 accumulators; P and dS are
-//   rounded to bf16 only as operands, the statistics, delta and the
-//   exponentials stay f32. 64 x 64 tiles, 4 warps of 16 rows; the walked
-//   tile is double-buffered by `cp.async` with its key bias or row
-//   statistics, so it loads while the previous one computes.
+// - The passes run on the tensor cores in both dtypes, one template over
+//   the operand policy of attn_mma.cuh: bf16 (every led_base slice) as
+//   m16n8k16 MMAs, f32 (the decoder of a config that keeps the default
+//   f32 precision, held to the plain version at 1e-4) as split-TF32
+//   m16n8k8 MMAs, three per product, which keep f32 accuracy. The least
+//   time is the operations over the bf16 peak, or in f32 3 x the
+//   operations over the 495 TFLOP/s dense TF32 peak, or the bytes; in f32
+//   the instruction count holds it back (the splits and 32-bit shared
+//   loads beside each MMA). The five products per tile pair (S = Q K^T,
+//   dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K) run on
+//   shared-memory tiles with f32 accumulators; P and dS become operands
+//   only in registers (rounded to bf16, or split), the statistics, delta
+//   and the exponentials stay f32. In f32 the dq pass sums each key
+//   tile's dS K apart and adds it to dq by FADD (`kTileSums`: the tensor
+//   cores' f32 accumulation truncates, which over 16384 keys drifts past
+//   1e-4); the dk/dv pass sums over the T query rows (512 in the decoder)
+//   in the MMA accumulator. 64 x 64 tiles (the dk/dv pass walks
+//   32-row query tiles at dh 128), 4 warps of 16 rows; the walked tile is
+//   double-buffered by `cp.async` with its key bias or row statistics, so
+//   it loads while the previous one computes. f32 tiles take twice the
+//   shared memory: at dh 64 105 KB (dq) and 106 KB (dk/dv) a CTA, 2 CTAs
+//   per SM; at dh 128 203 and 136 KB, 1 CTA per SM.
 // - Padding: sources are mostly padding (97% of a 16384-token one on the
 //   fixture). A key tile whose every bias is <= -1e9 gives each row with
 //   an open key p = exp(<= -9e8 + s) = 0 in f32, so ds = 0 and the tile
@@ -48,30 +62,23 @@
 //   tiles that hold a fully masked row (as it already does for query
 //   tiles wholly before its keys under the causal mask). Fully masked rows
 //   are computed over every key, as the uniform row needs.
-// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
-//   tiles of attn_tile.cuh, FMA-bound, shared with K3; no TF32.
 
 #include "attn_mma.cuh"
-#include "attn_tile.cuh"
 
 namespace {
 
 using namespace attn;
 
-// ---------------------------------------------------------------------------
-// bf16: tensor-core passes
-// ---------------------------------------------------------------------------
-
-template <int DH, typename Stats>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-              const __nv_bfloat16* __restrict__ dout, Stats stats,
-              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int nh,
-              int T_len, int S_len, int causal, float scale) {
+// T = bf16 or float (the operand policy) in both passes.
+template <typename T, int DH, typename Stats>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const float* __restrict__ key_bias, const T* __restrict__ dout, Stats stats,
+              const float* __restrict__ delta, T* __restrict__ dq, int nh, int T_len,
+              int S_len, int causal, float scale) {
   using namespace attn::mma;
   extern __shared__ __align__(16) unsigned char smem[];
-  DqTiles<DH>& sm = *reinterpret_cast<DqTiles<DH>*>(smem);
+  DqTiles<DH, T>& sm = *reinterpret_cast<DqTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, q0 = blockIdx.x * kRows;
   const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
@@ -123,6 +130,8 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     fetch(nxt, buf ^ 1);
     cp_async_wait<1>();
     __syncthreads();
+    float part[DH / 8][4] = {};  // this tile's dS K, in f32 (kTileSums)
+    float(&sum)[DH / 8][4] = kTileSums<T> ? part : acc;
 #pragma unroll
     for (int j0 = 0; j0 < kTile; j0 += kSub) {  // kSub keys at a time
       float s[kSub / 8][4] = {}, dp[kSub / 8][4] = {};
@@ -138,9 +147,16 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
           s[j][e] = grad ? p * (dp[j][e] - dl[h]) : 0.f;  // ds
         }
       }
-      uint32_t ds[kSub / 16][4];
+      POperand<T, kSub> ds;
       to_a<kSub>(ds, s);
-      mma_py<DH, kSub>(acc, ds, &sm.k[buf][j0][0]);
+      mma_py<DH, kSub>(sum, ds, &sm.k[buf][j0][0]);
+    }
+    if constexpr (kTileSums<T>) {
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jd][e] += part[jd][e];
+      }
     }
     __syncthreads();
     cur = nxt;
@@ -150,18 +166,16 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   store_rows<DH>(acc, dq + qbase, q0 + warp * 16, T_len, scale);
 }
 
-template <int DH, typename Stats>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-               const __nv_bfloat16* __restrict__ dout, Stats stats,
-               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, int nh, int T_len, int S_len, int causal,
-               float scale) {
+template <typename T, int DH, typename Stats>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+mma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ key_bias, const T* __restrict__ dout, Stats stats,
+               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+               int nh, int T_len, int S_len, int causal, float scale) {
   using namespace attn::mma;
-  constexpr int BN = DkvTiles<DH>::BN;
+  constexpr int BN = DkvTiles<DH, T>::BN;
   extern __shared__ __align__(16) unsigned char smem[];
-  DkvTiles<DH>& sm = *reinterpret_cast<DkvTiles<DH>*>(smem);
+  DkvTiles<DH, T>& sm = *reinterpret_cast<DkvTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, k0 = blockIdx.x * kRows;
   const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
@@ -243,7 +257,7 @@ mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           }
         }
       }
-      uint32_t a[kSub / 16][4];
+      POperand<T, kSub> a;
       to_a<kSub>(a, s);
       mma_py<DH, kSub>(gv, a, &sm.dout[buf][j0][0]);
       to_a<kSub>(a, dp);
@@ -258,163 +272,54 @@ mma_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   store_rows<DH>(gv, dv + kbase, k0 + warp * 16, S_len, 1.f);
 }
 
-template <int DH, typename Stats>
-int launch_mma(const void* q, const void* k, const void* v, const void* kb, const void* dout,
-               Stats stats, const void* delta, void* dq, void* dk, void* dv, int BH, int nh,
-               int T_len, int S_len, int causal, float scale, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
+template <typename T, int DH, typename Stats>
+int launch(const void* q, const void* k, const void* v, const void* kb, const void* dout,
+           Stats stats, const void* delta, void* dq, void* dk, void* dv, int BH, int nh,
+           int T_len, int S_len, int causal, float scale, cudaStream_t s) {
   constexpr int R = mma::kRows;
-  int err = launch_dyn(mma_dq_kernel<DH, Stats>, dim3((T_len + R - 1) / R, BH),
-                       sizeof(mma::DqTiles<DH>), s, static_cast<const bf16*>(q),
-                       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                       static_cast<const float*>(kb), static_cast<const bf16*>(dout), stats,
-                       static_cast<const float*>(delta), static_cast<bf16*>(dq), nh, T_len,
-                       S_len, causal, scale);
+  const auto ct = [](const void* p) { return static_cast<const T*>(p); };
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  int err = launch_dyn(mma_dq_kernel<T, DH, Stats>, dim3((T_len + R - 1) / R, BH),
+                       sizeof(mma::DqTiles<DH, T>), s, ct(q), ct(k), ct(v), cf(kb), ct(dout),
+                       stats, cf(delta), static_cast<T*>(dq), nh, T_len, S_len, causal, scale);
   if (err) return err;
-  return launch_dyn(mma_dkv_kernel<DH, Stats>, dim3((S_len + R - 1) / R, BH),
-                    sizeof(mma::DkvTiles<DH>), s, static_cast<const bf16*>(q),
-                    static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                    static_cast<const float*>(kb), static_cast<const bf16*>(dout), stats,
-                    static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                    static_cast<bf16*>(dv), nh, T_len, S_len, causal, scale);
+  return launch_dyn(mma_dkv_kernel<T, DH, Stats>, dim3((S_len + R - 1) / R, BH),
+                    sizeof(mma::DkvTiles<DH, T>), s, ct(q), ct(k), ct(v), cf(kb), ct(dout),
+                    stats, cf(delta), static_cast<T*>(dk), static_cast<T*>(dv), nh, T_len,
+                    S_len, causal, scale);
 }
 
-// ---------------------------------------------------------------------------
-// f32: CUDA-core passes (attn_tile.cuh)
-// ---------------------------------------------------------------------------
+#define ARGS q, k, v, kb, dout, stats, delta, dq, dk, dv, BH, nh, T_len, S_len, causal, scale, s
 
-template <int DH, typename Stats>
-__global__ void __launch_bounds__(kThreads)
-dense_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ key_bias,
-                const float* __restrict__ dout, Stats stats, const float* __restrict__ delta,
-                float* __restrict__ dq, int nh, int T_len, int S_len, int causal, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  DqSmem<DH>& sm = *reinterpret_cast<DqSmem<DH>*>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int q0 = blockIdx.x * BQ, r0 = warp * R;
-  const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
-  const float* kb = key_bias + (long)b * S_len;
-
-  stage_block<DH>(sm.q, q + qbase, q0, T_len, scale);
-  stage_block<DH>(sm.dout, dout + qbase, q0, T_len, 1.f);
-  RowStats<DH> rs;
-  load_stats<DH>(rs, stats.shifted((long)bh * T_len), delta + (long)bh * T_len, q0 + r0,
-                 T_len);
-  float acc[R][DV] = {};
-
-  // causal-masked keys pass no gradient to q: stop at the tile's last row
-  const int hi = causal ? min(S_len, q0 + BQ) : S_len;
-  for (int k0 = 0; k0 < hi; k0 += kBK) {
-    __syncthreads();
-    stage_t<DH>(sm.k, k + kbase, k0, hi, 1.f);
-    stage_t<DH>(sm.v, v + kbase, k0, hi, 1.f);
-    __syncthreads();
-    const int pos = k0 + lane;
-    const bool in = pos < hi;
-    const float bias = in ? kb[pos] : 0.f;
-    const auto mask = [&](int r, float s) {
-      return (causal && pos > q0 + r0 + r) ? Logit{kMaskVal, false} : Logit{s + bias, true};
-    };
-    dq_tile<DH>(sm, rs, r0, in, mask, acc);
+template <typename T, typename Stats>
+int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb,
+              const void* dout, Stats stats, const void* delta, void* dq, void* dk, void* dv,
+              int BH, int nh, int T_len, int S_len, int causal, float scale, cudaStream_t s) {
+  switch (dh) {
+    case 32:
+      return launch<T, 32>(ARGS);
+    case 64:
+      return launch<T, 64>(ARGS);
+    case 128:
+      return launch<T, 128>(ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  write_acc<DH>(acc, dq + qbase, q0 + r0, T_len, scale);
 }
 
-template <int DH, typename Stats>
-__global__ void __launch_bounds__(kThreads)
-dense_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ key_bias,
-                 const float* __restrict__ dout, Stats stats, const float* __restrict__ delta,
-                 float* __restrict__ dk, float* __restrict__ dv, int nh, int T_len, int S_len,
-                 int causal, float scale) {
-  constexpr int BK = Tile<DH>::BQ, R = Tile<DH>::R, DV = Tile<DH>::DV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int k0 = blockIdx.x * BK, r0 = warp * R;
-  const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
-  const Stats st = stats.shifted((long)bh * T_len);
-
-  stage_block<DH>(sm.k, k + kbase, k0, S_len, 1.f);
-  stage_block<DH>(sm.v, v + kbase, k0, S_len, 1.f);
-  float kbias[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int kp = k0 + r0 + r;
-    kbias[r] = kp < S_len ? key_bias[(long)b * S_len + kp] : 0.f;
-  }
-  float gk[R][DV] = {}, gv[R][DV] = {};
-
-  for (int qt = 0; qt < T_len; qt += kBK) {
-    if (causal && qt + kBK <= k0) {
-      // every row of this tile is before every key of the CTA: only a
-      // fully masked row (uniform, so its p reaches dv) contributes
-      const int row = qt + threadIdx.x;
-      const bool deg = threadIdx.x < kBK && row < T_len && st[row].x < kDegenerate;
-      if (!__syncthreads_or(deg)) continue;
-    }
-    __syncthreads();
-    stage_queries<DH>(sm, q + qbase, dout + qbase, st, delta + (long)bh * T_len, qt, T_len,
-                      scale);
-    __syncthreads();
-    const int row = qt + lane;
-    const auto mask = [&](int r, float s) {
-      const int kp = k0 + r0 + r;
-      return (kp >= S_len || (causal && kp > row)) ? Logit{kMaskVal, false}
-                                                   : Logit{s + kbias[r], true};
-    };
-    dkv_tile<DH>(sm, r0, row < T_len, mask, gk, gv);
-  }
-  write_acc<DH>(gk, dk + kbase, k0 + r0, S_len, 1.f);
-  write_acc<DH>(gv, dv + kbase, k0 + r0, S_len, 1.f);
-}
-
-template <int DH, typename Stats>
-int launch_f32(const void* q, const void* k, const void* v, const void* kb, const void* dout,
-               Stats stats, const void* delta, void* dq, void* dk, void* dv, int BH, int nh,
-               int T_len, int S_len, int causal, float scale, cudaStream_t s) {
-  constexpr int BQ = Tile<DH>::BQ;
-  int err = launch_dyn(dense_dq_kernel<DH, Stats>, dim3((T_len + BQ - 1) / BQ, BH),
-                       sizeof(DqSmem<DH>), s, static_cast<const float*>(q),
-                       static_cast<const float*>(k), static_cast<const float*>(v),
-                       static_cast<const float*>(kb), static_cast<const float*>(dout), stats,
-                       static_cast<const float*>(delta), static_cast<float*>(dq), nh, T_len,
-                       S_len, causal, scale);
-  if (err) return err;
-  return launch_dyn(dense_dkv_kernel<DH, Stats>, dim3((S_len + BQ - 1) / BQ, BH),
-                    sizeof(DkvSmem<DH>), s, static_cast<const float*>(q),
-                    static_cast<const float*>(k), static_cast<const float*>(v),
-                    static_cast<const float*>(kb), static_cast<const float*>(dout), stats,
-                    static_cast<const float*>(delta), static_cast<float*>(dk),
-                    static_cast<float*>(dv), nh, T_len, S_len, causal, scale);
-}
-
-// dtype 0 (f32) on the CUDA-core kernels, 1 (bf16) on the tensor-core ones
+// dtype 0 (f32: split TF32) or 1 (bf16), both on the tensor cores
 template <typename Stats>
 int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
                  const void* kb, const void* dout, Stats stats, const void* delta, void* dq,
                  void* dk, void* dv, int BH, int nh, int T_len, int S_len, int causal,
                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool bf16 = dtype == 1;
-#define ARGS q, k, v, kb, dout, stats, delta, dq, dk, dv, BH, nh, T_len, S_len, causal, scale, s
-  switch (dh) {
-    case 32:
-      return bf16 ? launch_mma<32>(ARGS) : launch_f32<32>(ARGS);
-    case 64:
-      return bf16 ? launch_mma<64>(ARGS) : launch_f32<64>(ARGS);
-    case 128:
-      return bf16 ? launch_mma<128>(ARGS) : launch_f32<128>(ARGS);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef ARGS
+  if (dtype == 0) return launch_dh<float>(dh, ARGS);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(dh, ARGS);
+  return (int)cudaErrorInvalidValue;
 }
+
+#undef ARGS
 
 }  // namespace
 

@@ -22,26 +22,33 @@
 // here one CTA walks all key tiles of its rows itself, an online softmax,
 // so S has no cap and the LSE comes out of the CTA's own loop.
 //
-// - bf16 (K4 on every led_base slice, K6 on the long-source one): tensor-
-//   core issue, then the bytes of K and V (read once per 64-row block).
-//   One CTA of 4 warps owns 64 query rows (16 per warp) and walks 64-key
-//   tiles that `cp.async` brings into two buffers, so the next tile loads
-//   while this one computes (attn_mma.cuh). S = Q K^T and O += P V are
-//   `mma.sync` m16n8k16 MMAs on bf16 shared-memory tiles with f32
-//   accumulators; the bias, the causal mask and the online softmax (row
-//   max and sum over the 4 lanes of a quad) run on the C fragments, P is
-//   rounded to bf16 only as an operand.
-//   Padding: the fixture's sources are 64-97% padding. A key tile whose
-//   every bias is -1e9 gives a row with an open key p = exp(<= -9e8 +
-//   s - m) = 0, and the rescale exp(m_old - m_new) of an earlier such tile
-//   is 0 as well, so skipping it gives the same sums: a block whose every
-//   row has an open key (its first row sees one) visits only the tiles
-//   that hold one, found by a ballot probe of 16 tiles per barrier. A block
-//   with a fully masked row walks every tile, as the uniform row needs.
-//   The stats output (lse for K6, m and l for K4) is a template parameter.
-// - f32 (the tiny smoke config, held to the CPU at 1e-4): the CUDA-core
-//   tiles of attn_tile.cuh (one CTA per (batch*head, 32 or 16 query rows),
-//   32-key tiles, no skip), FMA and shared-memory issue bound.
+// One template over the operand policy of attn_mma.cuh serves both dtypes:
+// bf16 (K4 on every led_base slice, K6 on the long-source one) as m16n8k16
+// MMAs, f32 (the decoder of a config that keeps the default f32
+// precision, held to the plain version at 1e-4) as split-TF32 m16n8k8
+// MMAs, three per product, which keep f32 accuracy. The least time is the
+// operations over the bf16 tensor-core peak, or in f32 3 x the operations
+// over the 495 TFLOP/s dense TF32 peak, or the bytes of K and V (read once
+// per 64-row block); in f32 the instruction count holds it back (the
+// splits and 32-bit shared loads beside each MMA). One CTA of 4 warps owns
+// 64 query rows (16 per warp) and walks 64-key tiles that `cp.async`
+// brings into two buffers, so the next tile loads while this one computes
+// (attn_mma.cuh). S = Q K^T and O += P V run with f32 accumulators; the
+// bias, the causal mask and the online softmax (row max and sum over the
+// 4 lanes of a quad) run on the C fragments, and P becomes an operand only
+// in registers (rounded to bf16, or split); in f32 each tile's P V goes
+// into a zeroed accumulator, added to the running one by FFMA
+// (`kTileSums`: the tensor cores' f32 accumulation truncates, which over
+// 16384 keys drifts past 1e-4). f32 tiles take twice the shared memory:
+// 88 KB a CTA at dh 64 (2 CTAs per SM), 171 KB at dh 128 (1 CTA per SM).
+// Padding: the fixture's sources are 64-97% padding. A key tile whose
+// every bias is -1e9 gives a row with an open key p = exp(<= -9e8 + s - m)
+// = 0, and the rescale exp(m_old - m_new) of an earlier such tile is 0 as
+// well, so skipping it gives the same sums: a block whose every row has an
+// open key (its first row sees one) visits only the tiles that hold one,
+// found by a ballot probe of 16 tiles per barrier. A block with a fully
+// masked row walks every tile, as the uniform row needs. The stats output
+// (lse for K6, m and l for K4) is a template parameter.
 //
 // Ragged T and S are masked inside the kernels. With `causal` a CTA walks
 // only the keys up to its last row; when one of its rows is fully masked
@@ -50,79 +57,22 @@
 // out uniform over all S keys, as the plain composite makes it.
 
 #include "attn_mma.cuh"
-#include "attn_tile.cuh"
 
 namespace {
 
 using namespace attn;
 
-// f32 on the CUDA cores. kLse: write lse = m + log l into m_out (K6)
-// instead of m and l (K4).
-template <int DH, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-dense_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ key_bias,
-                 float* __restrict__ out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int nh, int T_len, int S_len,
-                 int causal, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, R = Tile<DH>::R;
-  __shared__ Smem<DH> sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / nh;
-  const int q0 = blockIdx.x * BQ, r0 = warp * R;
-  const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
-  const float* kb = key_bias + (long)b * S_len;
-
-  stage_block<DH>(sm.q, q + qbase, q0, T_len, scale);
-  Rows<DH> st;
-  init_rows<DH>(st);
-
-  const int hi = causal ? min(S_len, q0 + BQ) : S_len;
-  for (int k0 = 0; k0 < hi; k0 += kBK) {
-    __syncthreads();
-    stage<DH>(sm, k + kbase, v + kbase, k0, hi);
-    __syncthreads();
-    float s[R];
-    scores<DH>(sm, r0, s);
-    const int pos = k0 + lane;
-    const bool in = pos < hi;
-    const float bias = in ? kb[pos] : 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      s[r] = (causal && pos > q0 + r0 + r) ? kMaskVal : s[r] + bias;
-    update<DH>(sm, st, s, in);
-  }
-
-  if (hi < S_len) {  // causal: keys past the tile's last row, all -1e9
-    bool degenerate = false;
-#pragma unroll
-    for (int r = 0; r < R; ++r) degenerate |= st.m[r] < kDegenerate;
-    if (__syncthreads_or(degenerate)) {
-      for (int d = threadIdx.x; d < DH; d += kThreads) {
-        float sum = 0.f;
-        for (int pos = hi; pos < S_len; ++pos) sum += v[kbase + (long)pos * DH + d];
-        sm.v[0][d] = sum;
-      }
-      __syncthreads();
-      add_masked_columns<DH>(st, static_cast<float>(S_len - hi), sm.v[0]);
-    }
-  }
-  write_rows<DH>(st, out + qbase, m_out + (long)bh * T_len,
-                 kLse ? nullptr : l_out + (long)bh * T_len, q0 + r0, T_len);
-}
-
-// bf16 on the tensor cores. kLse: write lse = m + log l into m_out (K6)
-// instead of m and l (K4).
-template <int DH, bool kLse>
-__global__ void __launch_bounds__(kThreads, DH >= 128 ? 2 : 3)
-mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-               float* __restrict__ l_out, int nh, int T_len, int S_len, int causal,
-               float scale) {
+// T = bf16 or float (the operand policy). kLse: write lse = m + log l
+// into m_out (K6) instead of m and l (K4).
+template <typename T, int DH, bool kLse>
+__global__ void __launch_bounds__(kThreads, mma::kMinBlocks<T, DH>)
+mma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ key_bias, T* __restrict__ out,
+               float* __restrict__ m_out, float* __restrict__ l_out, int nh, int T_len,
+               int S_len, int causal, float scale) {
   using namespace attn::mma;
   extern __shared__ __align__(16) unsigned char smem[];
-  FwdTiles<DH>& sm = *reinterpret_cast<FwdTiles<DH>*>(smem);
+  FwdTiles<DH, T>& sm = *reinterpret_cast<FwdTiles<DH, T>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / nh, q0 = blockIdx.x * kRows;
   const long qbase = (long)bh * T_len * DH, kbase = (long)bh * S_len * DH;
@@ -198,14 +148,24 @@ mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         lr[h] += s[j][e];
       }
     }
-#pragma unroll
-    for (int jd = 0; jd < DH / 8; ++jd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
-    }
-    uint32_t pa[kTile / 16][4];
+    POperand<T, kTile> pa;
     to_a<kTile>(pa, s);
-    mma_py<DH, kTile>(acc, pa, &sm.v[buf][0][0]);
+    if constexpr (kTileSums<T>) {  // acc = acc * alpha + this tile's P V
+      float pv[DH / 8][4] = {};
+      mma_py<DH, kTile>(pv, pa, &sm.v[buf][0][0]);
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jd][e] = fmaf(acc[jd][e], alpha[e >> 1], pv[jd][e]);
+      }
+    } else {
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+      }
+      mma_py<DH, kTile>(acc, pa, &sm.v[buf][0][0]);
+    }
     __syncthreads();
     cur = nxt;
     buf ^= 1;
@@ -222,7 +182,7 @@ mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       for (int d = threadIdx.x; d < DH; d += kThreads) {
         float sum = 0.f;
         for (int pos = hi; pos < S_len; ++pos)
-          sum += __bfloat162float(v[kbase + (long)pos * DH + d]);
+          sum += to_f32(v[kbase + (long)pos * DH + d]);
         sm.vsum[0][d] = sum;
       }
       __syncthreads();
@@ -260,51 +220,47 @@ mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
-template <int DH, bool kLse>
-int launch_mma(const void* q, const void* k, const void* v, const void* kb, void* out,
-               void* m, void* l, int BH, int nh, int T_len, int S_len, int causal,
-               float scale, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  return launch_dyn(mma_fwd_kernel<DH, kLse>, dim3((T_len + mma::kRows - 1) / mma::kRows, BH),
-                    sizeof(mma::FwdTiles<DH>), s, static_cast<const bf16*>(q),
-                    static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                    static_cast<const float*>(kb), static_cast<bf16*>(out),
+template <typename T, int DH, bool kLse>
+int launch(const void* q, const void* k, const void* v, const void* kb, void* out, void* m,
+           void* l, int BH, int nh, int T_len, int S_len, int causal, float scale,
+           cudaStream_t s) {
+  const auto ct = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dyn(mma_fwd_kernel<T, DH, kLse>,
+                    dim3((T_len + mma::kRows - 1) / mma::kRows, BH),
+                    sizeof(mma::FwdTiles<DH, T>), s, ct(q), ct(k), ct(v),
+                    static_cast<const float*>(kb), static_cast<T*>(out),
                     static_cast<float*>(m), static_cast<float*>(l), nh, T_len, S_len, causal,
                     scale);
 }
 
-template <int DH, bool kLse>
-int launch(const void* q, const void* k, const void* v, const void* kb, void* out,
-           void* m, void* l, int BH, int nh, int T_len, int S_len, int causal,
-           float scale, cudaStream_t s) {
-  const dim3 grid((T_len + Tile<DH>::BQ - 1) / Tile<DH>::BQ, BH);
-  dense_fwd_kernel<DH, kLse><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(kb),
-      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l), nh, T_len,
-      S_len, causal, scale);
-  return (int)cudaGetLastError();
+template <typename T, bool kLse>
+int launch_dh(int dh, const void* q, const void* k, const void* v, const void* kb, void* out,
+              void* m, void* l, int BH, int nh, int T_len, int S_len, int causal,
+              float scale, cudaStream_t s) {
+#define ARGS q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s
+  switch (dh) {
+    case 32:
+      return launch<T, 32, kLse>(ARGS);
+    case 64:
+      return launch<T, 64, kLse>(ARGS);
+    case 128:
+      return launch<T, 128, kLse>(ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
 }
 
-// dtype 0 (f32) on the CUDA cores, 1 (bf16) on the tensor cores
+// dtype 0 (f32: split TF32) or 1 (bf16), both on the tensor cores
 template <bool kLse>
 int launch_dtype(int dtype, int dh, const void* q, const void* k, const void* v,
                  const void* kb, void* out, void* m, void* l, int BH, int nh, int T_len,
                  int S_len, int causal, float scale, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool bf16 = dtype == 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s
-  switch (dh) {
-    case 32:
-      return bf16 ? launch_mma<32, kLse>(ARGS) : launch<32, kLse>(ARGS);
-    case 64:
-      return bf16 ? launch_mma<64, kLse>(ARGS) : launch<64, kLse>(ARGS);
-    case 128:
-      return bf16 ? launch_mma<128, kLse>(ARGS) : launch<128, kLse>(ARGS);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define ARGS dh, q, k, v, kb, out, m, l, BH, nh, T_len, S_len, causal, scale, s
+  if (dtype == 0) return launch_dh<float, kLse>(ARGS);
+  if (dtype == 1) return launch_dh<__nv_bfloat16, kLse>(ARGS);
+  return (int)cudaErrorInvalidValue;
 #undef ARGS
 }
 

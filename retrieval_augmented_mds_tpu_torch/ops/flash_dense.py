@@ -29,12 +29,14 @@ Routing is by device: CPU tensors take the plain versions
 `dense_rows_blocked_plain`/`dense_blocked_backward_plain`); CUDA tensors
 the kernels in ``csrc/flash_dense_fwd.cu`` (K4, K6) and
 ``csrc/flash_dense_bwd.cu`` (K5, K7), which take any T and S; no
-fallback. By dtype: in bf16 all four run on the tensor cores and skip
-the 64-key tiles that the bias masks whole for a block of rows that each
-have an open key (exactly: such a tile adds nothing to their sums; a
+fallback. All four run on the tensor cores in both dtypes, one template
+over the operand policy of ``csrc/attn_mma.cuh`` (bf16 MMAs, or in f32
+split TF32: three TF32 MMAs per product, which keep f32 accuracy), and
+skip the 64-key tiles that the bias masks whole for a block of rows that
+each have an open key (exactly: such a tile adds nothing to their sums; a
 block with a fully masked row walks every tile, as its uniform row
 needs); K4 and K6 share one forward kernel, which writes m and l or the
-LSE. In f32 all four run on the CUDA cores and compute every key.
+LSE.
 ``key_bias`` gets a zero gradient.
 """
 
@@ -48,7 +50,7 @@ from .flash_sliding import _DTYPE_CODE, NEG_INF, _scale, device_route, row_delta
 
 # above this many keys the JAX package takes its blocked kernels
 MAX_S = 4096
-# a row whose LSE is at most this saw only -1e9 logits (csrc/attn_tile.cuh)
+# a row whose LSE is at most this saw only -1e9 logits (csrc/attn_mma.cuh)
 LSE_DEGENERATE = -1e8
 
 
@@ -109,7 +111,7 @@ def dense_rows_blocked_plain(q, k, v, key_bias, causal: bool):
 def _stats_from_lse(lse, s: int):
     """The (m, l) with exp(logit - m) / l = exp(logit - lse): (lse, 1) on a
     row with an open key; (-1e9, S) on a fully masked row, whose S logits
-    are all exactly -1e9 (the uniform row; csrc/attn_tile.cuh `LseStats`)."""
+    are all exactly -1e9 (the uniform row; csrc/attn_mma.cuh `LseStats`)."""
     degenerate = lse <= LSE_DEGENERATE
     m = torch.where(degenerate, torch.full_like(lse, NEG_INF), lse)
     l = torch.where(degenerate, torch.full_like(lse, float(s)), torch.ones_like(lse))

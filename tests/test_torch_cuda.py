@@ -604,24 +604,33 @@ def _padded_bias(s, b=3):
     return kb
 
 
+# the operand policies of the attention kernels' tensor-core tiles and the
+# tolerance of each against its plain version (relative to each output's
+# own max|ref|): bf16 rounds P and dS as operands; f32 runs split TF32
+DENSE_POLICIES = [("bfloat16", 2e-2), ("float32", 1e-4)]
+
+
+@pytest.mark.parametrize("dtype,tol", DENSE_POLICIES)
 @pytest.mark.parametrize("kernel", ["K5", "K7"])
 @pytest.mark.parametrize("causal,t,s", [(False, 40, 300), (False, 130, 4500),
-                                        (True, 100, 100), (True, 4500, 4500)])
+                                        (False, 130, 16384), (True, 100, 100),
+                                        (True, 4500, 4500)])
 @pytest.mark.parametrize("dh", [32, 64, 128])
-def test_bf16_dense_backward_on_tensor_cores(gen, kernel, causal, t, s, dh):
-    """bf16 K5/K7 (tensor-core tiles that skip key tiles the bias masks
-    whole) against their plain versions from the same statistics: each of
-    dq, dk, dv within 2e-2 x its own max|ref| (P and dS are rounded to bf16
-    as operands); T < 64 and S not a multiple of 64; masked-whole tiles in
-    the middle of S and at its end; the all-padding batch's dv uniform over
-    S; dk = dv = 0 exactly at the masked keys of rows that each have an
-    open key; and the same bits on a second run (no atomics)."""
+def test_dense_backward_on_tensor_cores(gen, dtype, tol, kernel, causal, t, s, dh):
+    """K5/K7 (tensor-core tiles, bf16 or split TF32, that skip key tiles
+    the bias masks whole) against their plain versions from the same
+    statistics: each of dq, dk, dv within tol x its own max|ref|; T < 64
+    and S not a multiple of 64; sums over 16384 keys; masked-whole tiles in
+    the middle of S and at its end; the all-padding batch's dv uniform over S; dk = dv = 0
+    exactly at the masked keys of rows that each have an open key; and the
+    same bits on a second run (no atomics)."""
+    dtype = getattr(torch, dtype)
     b, nh = 3, 2
-    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     kb = _padded_bias(s, b)
-    g = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
     if kernel == "K5":
         out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
         args = (q, k, v, kb, g, m, l, row_delta(g, out))
@@ -633,40 +642,42 @@ def test_bf16_dense_backward_on_tensor_cores(gen, kernel, causal, t, s, dh):
                                                    causal=causal)
         want = dense_blocked_backward_plain(q, k, v, kb, out, lse, g, causal)
     got = run()
-    assert [x.dtype for x in got] == [torch.bfloat16] * 3
+    assert [x.dtype for x in got] == [dtype] * 3
     for a, r in zip(got, want):
         err = (a.float() - r.float()).abs().max().item()
-        assert err <= 2e-2 * r.float().abs().max().item()
+        assert err <= tol * r.float().abs().max().item()
     dv0 = g[0].float().sum(1, keepdim=True).expand(-1, s, -1) / s
-    _close([got[2][0]], [dv0], 2e-2)
+    _close([got[2][0]], [dv0], tol)
     masked = kb[1] < 0
     assert not got[1][1][:, masked].any() and not got[2][1][:, masked].any()
     assert all(torch.equal(a, b_) for a, b_ in zip(got, run()))
 
 
+@pytest.mark.parametrize("dtype,tol", DENSE_POLICIES)
 @pytest.mark.parametrize("causal,t,s", [(False, 77, 4500), (False, 130, 16384),
                                         (True, 100, 100), (True, 4500, 4500)])
 @pytest.mark.parametrize("dh", [32, 64, 128])
-def test_bf16_blocked_forward_on_tensor_cores(gen, causal, t, s, dh):
-    """bf16 K6 (tensor-core tiles that skip key tiles the bias masks whole)
-    against its plain version: out within 2e-2 x max|ref| (P is rounded to
-    bf16 as an operand), lse to 1e-3; T not a multiple of 64 and S not
-    either; masked-whole tiles in the middle of S and at its end; the
-    all-padding batch's rows uniform over the S keys (out = the mean of v,
-    lse <= -1e8); the same bits on a second run."""
+def test_blocked_forward_on_tensor_cores(gen, dtype, tol, causal, t, s, dh):
+    """K6 (tensor-core tiles, bf16 or split TF32, that skip key tiles the
+    bias masks whole) against its plain version: out within tol x
+    max|ref|, lse to 1e-3; T not a multiple of 64 and S not either;
+    masked-whole tiles in the middle of S and at its end; the all-padding
+    batch's rows uniform over the S keys (out = the mean of v, lse <=
+    -1e8); the same bits on a second run."""
+    dtype = getattr(torch, dtype)
     b, nh = 3, 2
-    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     kb = _padded_bias(s, b)
     out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
     ref, ref_lse = dense_rows_blocked_plain(q, k, v, kb, causal)
     err = (out.float() - ref.float()).abs().max().item()
-    assert err <= 2e-2 * ref.float().abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
     torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-3)
     if not causal:
         assert bool((lse[:nh] <= -1e8).all())
-        _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], 2e-2)
+        _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], tol)
     again = flash_dense_blocked(q, k, v, kb, causal=causal)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
@@ -871,37 +882,39 @@ def test_bf16_sliding_forward_rejects_untiled_window(gen):
         flash_sliding_attention(*args, window=64)  # 480 % 64
 
 
+@pytest.mark.parametrize("dtype,tol", DENSE_POLICIES)
 @pytest.mark.parametrize("causal,t,s", [(True, 100, 100), (True, 512, 512),
                                         (False, 77, 300), (False, 130, 2048)])
 @pytest.mark.parametrize("dh", [32, 64, 128])
-def test_bf16_dense_forward_on_tensor_cores(gen, causal, t, s, dh):
-    """bf16 K4 (the tensor-core forward of K6, writing m and l) against its
-    plain version: out within 2e-2 x max|ref|, m atol 1e-3, l rtol 1e-3;
-    causal self-attention and cross-attention, T and S not multiples of
-    64; masked-whole tiles in the middle of S and at its end; a source of
-    length 0 (its rows uniform over the S keys, m = -1e9, l = S); K5 fed
-    K4's m and l against the plain backward from the same statistics; the
-    same bits on a second run."""
+def test_dense_forward_on_tensor_cores(gen, dtype, tol, causal, t, s, dh):
+    """K4 (the tensor-core forward of K6, writing m and l; bf16 or split
+    TF32) against its plain version: out within tol x max|ref|, m atol
+    1e-3, l rtol 1e-3; causal self-attention and cross-attention, T and S
+    not multiples of 64; masked-whole tiles in the middle of S and at its
+    end; a source of length 0 (its rows uniform over the S keys, m = -1e9,
+    l = S); K5 fed K4's m and l against the plain backward from the same
+    statistics; the same bits on a second run."""
+    dtype = getattr(torch, dtype)
     b, nh = 3, 2
-    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     kb = _padded_bias(s, b)
     out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
     ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
     err = (out.float() - ref.float()).abs().max().item()
-    assert err <= 2e-2 * ref.float().abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
     torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
     torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
-    _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], 2e-2)
+    _close([out[0]], [v[0].float().mean(1, keepdim=True).expand(-1, t, -1)], tol)
     assert bool((m[:nh] == -1e9).all())
     torch.testing.assert_close(l[:nh], torch.full_like(l[:nh], float(s)), rtol=1e-6,
                                atol=0.0)
-    g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     bwd = (q, k, v, kb, g, m, l, row_delta(g, out))
     got = flash_dense_backward(*bwd, causal=causal)
     for a, r in zip(got, dense_backward_plain(*bwd, causal)):
-        assert (a.float() - r.float()).abs().max().item() <= 2e-2 * r.float().abs().max().item()
+        assert (a.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
     again = flash_dense_attention(q, k, v, kb, causal=causal)
     assert all(torch.equal(a, b_) for a, b_ in zip((out, m, l), again))
 

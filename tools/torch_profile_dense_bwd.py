@@ -2,7 +2,8 @@
 """Device time of the port's bf16 attention kernels, per pass, on one
 NVIDIA GPU: the dense backward (K5, K7), the long-source dense forward
 (K6) and the sliding-window backward (K3); with ``--f32``, those of the
-retriever's f32 sliding-window kernels (K2, K3) instead.
+f32 attention kernels instead: the decoder's dense ones (K4-K7) and the
+retriever's sliding-window ones (K2, K3).
 
     python3 tools/torch_profile_dense_bwd.py [--f32]
 
@@ -15,10 +16,12 @@ one, with the fixture's own padding) prints the mean time of one call
 (CUDA events, as chip_smoke times it) and each CUDA kernel's mean device
 time over 10 calls from ``torch.profiler``: K3's three passes (dq; dk, dv;
 dkg, dvg) and K5/K7's two apart, and the small PyTorch kernels around
-them (delta = rowsum(g * out)). ``--f32``: K3 and K2 in f32 (split TF32)
-at the retriever's train step (chip_smoke's ``RET_QUERY``, random dO),
-its own padding (``RET_FIXTURE``, the model's dO) and, K2 only, its
-validation's encode batch (``RET_ENCODE``).
+them (delta = rowsum(g * out)). ``--f32``: K4 and K5 in f32 (split
+TF32) at the decoder's cross shape and the fixture's padding (S = 2048),
+K6 and K7 at S = 8192 (an empty source) and at the fixture's padding
+(S = 16384); K3 and K2 at the retriever's train step (chip_smoke's
+``RET_QUERY``, random dO), its own padding (``RET_FIXTURE``, the model's
+dO) and, K2 only, its validation's encode batch (``RET_ENCODE``).
 """
 
 from __future__ import annotations
@@ -67,16 +70,27 @@ SLIDING_CASES = [
 ]
 
 
-def dense_call(b, t, s, causal, lengths, blocked, forward=False):
-    g, q, k, v, kb = c._dense_inputs(b, t, s, lengths, torch.bfloat16, seed=21)
+# the f32 cases (``--f32``), as DENSE_CASES: the K4/K5 and K6/K7 shapes of
+# chip_smoke's phases
+F32_DENSE_CASES = [
+    ("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0], False),
+    ("decoder_cross_fixture", 4, 512, 2048, False, c.FIXTURE_LENGTHS, False),
+    ("decoder_cross_8k", 2, 256, 8192, False, [8192, 0], True),
+    ("decoder_cross_16k_fixture", 4, 512, 16384, False, c.FIXTURE_LENGTHS, True),
+]
+
+
+def dense_call(b, t, s, causal, lengths, blocked, forward=False, dtype=torch.bfloat16):
+    g, q, k, v, kb = c._dense_inputs(b, t, s, lengths, dtype, seed=21)
     if forward:
-        return lambda: flash_dense_blocked(q, k, v, kb, causal=causal)
+        fwd = flash_dense_blocked if blocked else flash_dense_attention
+        return lambda: fwd(q, k, v, kb, causal=causal)
     if blocked:
         out, lse = flash_dense_blocked(q, k, v, kb, causal=causal)
-        do = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+        do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
         return lambda: flash_dense_blocked_backward(q, k, v, kb, out, lse, do, causal=causal)
     out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
-    do = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     args = (q, k, v, kb, do, m, l, row_delta(do, out))
     return lambda: flash_dense_backward(*args, causal=causal)
 
@@ -113,6 +127,12 @@ def main() -> int:
         return 2
     c.phase_env()
     if "--f32" in sys.argv[1:]:
+        for name, b, t, s, causal, lengths, blocked in F32_DENSE_CASES:
+            shape = f"B={b} T={t} S={s} causal={causal} lengths={lengths}"
+            for forward in (True, False):
+                kernel = ("K6" if forward else "K7") if blocked else ("K4" if forward else "K5")
+                report(f"{kernel} f32 {name} ({shape})",
+                       dense_call(b, t, s, causal, lengths, blocked, forward, torch.float32))
         for name, shape, model_do in (("retriever_train", c.RET_QUERY, False),
                                       ("retriever_fixture", c.RET_FIXTURE, True)):
             report(f"K3 f32 {name} (lengths={shape[6]} dO "

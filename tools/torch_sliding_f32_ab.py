@@ -22,13 +22,12 @@ retriever slice (step and validation wall times, peak memory, launches).
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
-import re
-import sys
-import time
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_ab_common import HERE, profile_window, start
+
+# this tree's kernel names, or the CUDA-core ones of earlier trees
+CLASSES = {"K2": r"sliding_(mma_)?fwd", "K3": r"sliding_(mma_)?d(q|kv)|sum_splits"}
 
 
 def main() -> None:
@@ -37,27 +36,10 @@ def main() -> None:
     ap.add_argument("--profile-step", action="store_true",
                     help="profile three retriever train steps")
     args = ap.parse_args()
-    tree = os.path.abspath(args.tree)
-    sys.path.insert(0, tree)  # the port's package from the tree
-    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    c = start(os.path.abspath(args.tree), "torch_sliding_f32_ab")
 
     import torch
 
-    import retrieval_augmented_mds_tpu_torch as port
-
-    # chip_smoke from this file's tree (it imports the port only in its
-    # functions, so they reach the tree's)
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    c = importlib.util.module_from_spec(spec)
-    sys.modules["chip_smoke"] = c
-    spec.loader.exec_module(c)
-
-    if not torch.cuda.is_available():
-        sys.exit("torch_sliding_f32_ab: CUDA is not available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[tree] {tree} (port {os.path.dirname(port.__file__)})")
-    c.phase_env()
     f32 = torch.float32
     c._k2_case("retriever_train", c.RET_QUERY, f32, library=True)
     c._k2_case("retriever_encode", c.RET_ENCODE, f32, library=True)
@@ -74,8 +56,6 @@ def profile_steps(c, steps: int = 3) -> None:
     ones, by kernel (``torch.profiler``), against their wall time."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from retrieval_augmented_mds_tpu_torch import cli
     from retrieval_augmented_mds_tpu_torch.train.optimizer import build_optimizer
@@ -104,26 +84,9 @@ def profile_steps(c, steps: int = 3) -> None:
 
     for i in range(2):
         step(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(2, 2 + steps):
-            step(i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-    # the kernels alone: an operator's entry repeats its kernels' time
-    kernels = [(e.key, e.self_device_time_total / steps / 1e3, e.count // steps)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(ms for _, ms, _ in kernels)
-    # this tree's kernel names, or the CUDA-core ones of earlier trees
-    k2 = sum(ms for k, ms, _ in kernels if re.search(r"sliding_(mma_)?fwd", k))
-    k3 = sum(ms for k, ms, _ in kernels if re.search(r"sliding_(mma_)?d(q|kv)|sum_splits", k))
-    top = sorted(kernels, key=lambda r: -r[1])[:8]
-    print(f"[step] retriever train step under torch.profiler (mean of {steps}): wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); K2 "
-          f"{k2:.3f} ms, K3 {k3:.3f} ms, the rest {busy - k2 - k3:.3f} ms; largest: "
-          + "; ".join(f"{k[:48]} {ms:.3f} ms x{cnt}" for k, ms, cnt in top))
+    steady = iter(range(2, 2 + steps))
+    profile_window("retriever train step", lambda: step(next(steady)), steps, CLASSES,
+                   top=8)
 
 
 if __name__ == "__main__":
