@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
   2. kernel K1 (MIPS top-k) against its plain PyTorch version, each case
      run twice (bit-equal), with the worst case of its selection: scores
      that rise with the row index, so that every score passes its
-     threshold;
+     threshold; f32 (split TF32 on the score tile) at the serving shape
+     too, beside both f32 bounds, its ids equal to plain's but where a
+     near-tie swaps two rows (`_near_tie_swaps`);
   3. kernel K2 (sliding-window local rows, forward) against its plain version;
   4. kernel K3 (its backward) against the plain backward, at the LED and
      Longformer shapes of the train step;
@@ -33,10 +35,11 @@ Phases, in order; any failure exits non-zero:
      beside SDPA in f32 under the same mask and beside both f32 bounds
      (split TF32 on the tensor cores, which they run; the CUDA cores);
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
-     version at K1's serving shape, its top-k against K1's and, on a bf16
-     corpus, its scores at K1's hits bit-equal to K1's values;
+     version at K1's serving shape, bf16 and f32 (beside ``torch.mm`` of
+     the scores), its top-k against K1's and its scores at K1's hits
+     bit-equal to K1's values;
   6. kernel K8 (the per-query IVF probe top-k) against its plain version on
-     the same probe ids, on IVF indexes (C = 1024, SQ8 and bf16) built by
+     the same probe ids, on IVF indexes (C = 1024, SQ8, bf16 and f32) built by
      the port over 1,048,576 rows of the ``bench-index`` Gaussian mixture
      (D = 768), at B = 4 and 16, nprobe = 32, k = 10, and with 16 queries
      that all probe the same 32 clusters; with its read amplification and
@@ -200,6 +203,21 @@ def roofline(n_bytes: float, n_ops: float, f32: bool, split_tf32: bool = False) 
             else {"bound_ms": t_ops, "bound_by": "operations"})
 
 
+def _route_bounds(n_bytes: float, flops: float, dtype) -> tuple[dict, str]:
+    """A tensor-core kernel's (K1-K7, K10) bound for the dtype's route, and
+    for f32 the text of the CUDA-core bound beside it. f32 runs split TF32
+    on the tensor cores, so its bound is 3 x the operations over the TF32
+    peak, or the bytes."""
+    import torch
+
+    if dtype != torch.float32:
+        return roofline(n_bytes, flops, False), ""
+    cores = roofline(n_bytes, flops, True)
+    return roofline(n_bytes, flops, True, split_tf32=True), (
+        f" (split TF32: 3 x ops over {PEAK_TF32 / 1e12:.1f} TFLOP/s, or bytes); on the "
+        f"f32 CUDA cores {cores['bound_ms']:.3f} ms ({cores['bound_by']})")
+
+
 def result(err, ms, plain_ms, bound, library_ms=None) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": library_ms}
@@ -288,11 +306,15 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False,
         check(torch.equal(ids, last.expand(b, k)), f"K1 {name}: not the last {k} rows")
     err = (vals - ref_v).abs().max().item()
     if dtype == torch.float32:
-        # f32: the same ids; values to f32 summation-order noise
-        check(torch.equal(ids, ref_i), f"K1 {name}: ids differ from plain")
+        # f32: values to f32 summation-order noise; the same ids, but where
+        # a near-tie swaps two rows (`_near_tie_swaps`)
         check(torch.allclose(vals, ref_v, rtol=1e-5, atol=1e-4),
               f"K1 {name}: values differ (max abs err {err})")
-        tol = "ids equal, values rtol 1e-5 atol 1e-4"
+        swapped, gap, exact = _near_tie_swaps(name, q, e, rb, ids, ref_i, ref_v)
+        tol = ("ids equal" + (f" but {swapped} ranks of near-tied rows in the other order "
+                              f"(largest exact gap {gap:.3e}; in the exact order in "
+                              f"{exact} of their queries)" if swapped else "")
+               + ", values rtol 1e-5 atol 1e-4")
     else:
         # bf16 / int8 payloads: near-ties may swap at the last ranks
         hits = sum(len(set(a) & set(r)) for a, r in zip(ids.tolist(), ref_i.tolist()))
@@ -308,13 +330,49 @@ def _k1_case(name, b, n, d, k, dtype, *, bias=False, ignore=False, timed=False,
     if timed:
         ms = cuda_ms(lambda: mips_topk(q, e, k, rb, ign, scale))
         plain_ms = cuda_ms(lambda: mips_topk_plain(q, e, k, rb, ign, scale))
-    bound = roofline(nbytes(q, e, rb, scale, ign, vals, ids), 2.0 * b * n * d,
-                     dtype == torch.float32)
+    bound, cores = _route_bounds(nbytes(q, e, rb, scale, ign, vals, ids), 2.0 * b * n * d,
+                                 dtype)
     print(f"[K1] {name}: B={b} N={n} D={d} k={k} {dtype}: PASS ({tol}; rerun "
           f"bit-equal); max_abs_err {err:.3e}"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})" if timed else ""))
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}){cores}, "
+             f"{bound['bound_ms'] / ms:.1%} of it" if timed else ""))
     return result(err, ms, plain_ms, bound)
+
+
+def _near_tie_swaps(name, q, e, rb, ids, ref_i, ref_v) -> tuple[int, float, int]:
+    """f32 K1's ids against plain's: equal, except at ranks where the two
+    lists hold the same rows of a query in another order and the exact (f64)
+    scores of the two rows at each such rank differ by less than the values'
+    tolerance (rtol 1e-5, atol 1e-4): rows the values' accuracy cannot rank
+    (an f32 score's rounding, a few ulps, decides their order in either
+    version). A row missing or added, or a swap across a wider gap, fails.
+    Returns (ranks swapped, the largest exact gap among them, the queries
+    among those whose swapped rows the kernel holds in their exact
+    order)."""
+    import torch
+
+    differ = ids != ref_i
+    if not bool(differ.any()):
+        return 0, 0.0, 0
+    bias = torch.zeros(e.shape[0], dtype=torch.float64, device=e.device) if rb is None \
+        else rb.double()
+    exact_order = 0
+    for b in differ.any(1).nonzero().flatten().tolist():
+        got, want = ids[b][differ[b]], ref_i[b][differ[b]]
+        check(torch.equal(torch.sort(got).values, torch.sort(want).values),
+              f"K1 {name}: query {b} holds other rows than plain: {got.tolist()} vs "
+              f"{want.tolist()}")
+        exact = e[got.long()].double() @ q[b].double() + bias[got.long()]
+        exact_order += bool((exact[:-1] >= exact[1:]).all())
+    bi, ri = differ.nonzero(as_tuple=True)
+    exact = lambda i: (q[bi].double() * e[i].double()).sum(-1) + bias[i]  # noqa: E731
+    gap = (exact(ids[bi, ri].long()) - exact(ref_i[bi, ri].long())).abs()
+    allowed = 1e-5 * ref_v[bi, ri].double().abs() + 1e-4
+    check(bool((gap <= allowed).all()),
+          f"K1 {name}: ids differ from plain where the exact scores differ by "
+          f"{gap.max().item():.3e} (tolerance {allowed.min().item():.3e})")
+    return int(differ.sum()), gap.max().item(), exact_order
 
 
 def phase_k1():
@@ -331,6 +389,8 @@ def phase_k1():
     # encoded positives, f32; the l2 route's φ-augmented D = 769
     _k1_case("retriever_val", 1997, 1997, 768, 10, torch.float32, timed=True)
     _k1_case("retriever_val_l2", 1997, 1997, 769, 10, torch.float32, bias=True, timed=True)
+    # the serving shape in f32: bound by split TF32's operations
+    _k1_case("serving_f32", 256, 131072, 768, 10, torch.float32, timed=True)
     return serving
 
 
@@ -429,21 +489,6 @@ def _dense_reads(key_bias) -> tuple[int, int]:
     return int(open_.sum()), int((~open_.any(1)).sum()) * key_bias.shape[1]
 
 
-def _attention_bounds(n_bytes: float, flops: float, dtype) -> tuple[dict, str]:
-    """An attention kernel's (K2-K7) bound for the dtype's route, and for
-    f32 the text of the CUDA-core bound beside it. f32 runs split TF32 on
-    the tensor cores, so its bound is 3 x the operations over the TF32
-    peak, or the bytes."""
-    import torch
-
-    if dtype != torch.float32:
-        return roofline(n_bytes, flops, False), ""
-    cores = roofline(n_bytes, flops, True)
-    return roofline(n_bytes, flops, True, split_tf32=True), (
-        f" (split TF32: 3 x ops over {PEAK_TF32 / 1e12:.1f} TFLOP/s, or bytes); on the "
-        f"f32 CUDA cores {cores['bound_ms']:.3f} ms ({cores['bound_by']})")
-
-
 def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
     """K2 against `local_rows_plain`; with ``plain_b`` the plain version
     runs (and is timed) on the first ``plain_b`` batches only, against the
@@ -515,7 +560,7 @@ def _k2_case(name, shape, dtype, *, timed=True, library=False, plain_b=None):
                                         torch.ones_like(rows_ok))
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = per_row * (rows + 2 * keys + window) + nbytes(*tensors[3:7], full_out)
-    bound, cores = _attention_bounds(n_bytes, flops, dtype)
+    bound, cores = _route_bounds(n_bytes, flops, dtype)
     print(f"[K2] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}: PASS (out within {tol_out} x each row set's own max|ref|: "
           f"{'; '.join(said)}; m atol {tol_m}+rtol 1e-6: {m_err:.3e}; l rtol {tol_l}: "
@@ -663,7 +708,7 @@ def _k3_case(name, shape, dtype, *, timed=True, library=False, plain_b=None,
     per_row = shape[1] * shape[3] * tensors[0].element_size()
     n_bytes = (per_row * (rows + 2 * (keys + window)) + rows * shape[1] * 3 * m.element_size()
                + nbytes(*tensors[3:7], do, *got))
-    bound, cores = _attention_bounds(n_bytes, flops, dtype)
+    bound, cores = _route_bounds(n_bytes, flops, dtype)
     print(f"[K3] {name} {dtype}: B,nh,T,dh,w,G={shape[:6]} lengths {shape[6]} valid "
           f"globals {shape[7]}, dO {'zero on padded and global rows' if model_do else 'random'}"
           f": PASS (dq, dk, dv, dkg, dvg on every row, fully masked ones included, within "
@@ -787,10 +832,10 @@ def _dense_case(name, b, t, s, causal, lengths, dtype):
     # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
     open_keys, blind_keys = _dense_reads(kb)
     per_key = nh * dh * k.element_size()
-    bound4, cores4 = _attention_bounds(
+    bound4, cores4 = _route_bounds(
         nbytes(q, kb, out, m, l) + per_key * (2 * open_keys + blind_keys), 4 * dh * pairs,
         dtype)
-    bound5, cores5 = _attention_bounds(
+    bound5, cores5 = _route_bounds(
         nbytes(q, *bwd[3:], *got) + per_key * 2 * (open_keys + blind_keys), 10 * dh * pairs,
         dtype)
     times = [cuda_ms(lambda: flash_dense_attention(q, k, v, kb, causal=causal)),
@@ -877,10 +922,10 @@ def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     # bytes: K and V of the keys the rows need (`_dense_reads`), the rest in full
     open_keys, blind_keys = _dense_reads(kb)
     per_key = nh * dh * k.element_size()
-    bound6, cores6 = _attention_bounds(
+    bound6, cores6 = _route_bounds(
         nbytes(q, kb, out, lse) + per_key * (2 * open_keys + blind_keys), 4 * dh * pairs,
         dtype)
-    bound7, cores7 = _attention_bounds(
+    bound7, cores7 = _route_bounds(
         nbytes(q, kb, out, lse, do, *got) + per_key * 2 * (open_keys + blind_keys),
         10 * dh * pairs, dtype)
     times = [None] * 6
@@ -937,8 +982,10 @@ def _k10_case(name, b, n, d, k, dtype, *, timed=False):
     scores and chunk maxima within 1e-4 x max|score| (f32 sums of the same
     products in another order); the two-phase top-k against K1's (random
     data: no equal scores, so K1's distinct-value rule and the all-hits
-    rule agree): equal ids, values within rtol 1e-5 + atol 1e-4. Returns
-    (result, launches of the top-k call)."""
+    rule agree): equal ids, values within rtol 1e-5 + atol 1e-4; K10's
+    scores at K1's hits bit-equal to K1's values (one tile, one walk, in
+    both types); a rerun bit-equal. Returns (result, launches of the top-k
+    call)."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (
@@ -967,26 +1014,31 @@ def _k10_case(name, b, n, d, k, dtype, *, timed=False):
     check(err <= tol, f"K10 {name}: max abs err {err} > {tol}")
     check(torch.equal(ids, k1_ids), f"K10 {name}: top-{k} ids differ from K1's")
     check(torch.allclose(vals, k1_vals, rtol=1e-5, atol=1e-4), f"K10 {name}: values")
-    if dtype == torch.bfloat16:  # one tensor-core tile: K1's values bit for bit
-        check(torch.equal(torch.gather(scores, 1, k1_ids.long()), k1_vals),
-              f"K10 {name}: scores at K1's hits differ from K1's values")
-    same_bits = (", its scores there bit-equal to K1's values"
-                 if dtype == torch.bfloat16 else "")
+    # one tensor-core tile, one walk: K1's values bit for bit
+    check(torch.equal(torch.gather(scores, 1, k1_ids.long()), k1_vals),
+          f"K10 {name}: scores at K1's hits differ from K1's values")
+    again = mips_chunkmax(q, e, rb, ign)
+    check(torch.equal(again[0], scores) and torch.equal(again[1], cmax),
+          f"K10 {name}: a rerun differs")
     ms = plain_ms = lib_ms = None
     if timed:
         ms = cuda_ms(lambda: mips_chunkmax(q, e, rb, ign))
         plain_ms = cuda_ms(lambda: mips_chunkmax_plain(q, e, rb, ign))
-        # the yardstick: the same f32 scores from one bf16 GEMM (no single
-        # PyTorch call also gives the chunk maxima or the masks)
-        lib_ms = cuda_ms(lambda: torch.mm(q.to(dtype), e.T, out_dtype=torch.float32))
-    bound = roofline(nbytes(q.to(dtype), e, rb, ign, scores, cmax), 2.0 * b * n * d,
-                     dtype == torch.float32)
+        # the yardstick: the same f32 scores from one GEMM, bf16 in and f32
+        # out, or f32 with TF32 off (no single PyTorch call also gives the
+        # chunk maxima or the masks)
+        qd = q.to(dtype)
+        lib_ms = cuda_ms(lambda: torch.mm(qd, e.T) if dtype == torch.float32
+                         else torch.mm(qd, e.T, out_dtype=torch.float32))
+    bound, cores = _route_bounds(nbytes(q.to(dtype), e, rb, ign, scores, cmax),
+                                 2.0 * b * n * d, dtype)
     print(f"[K10] {name}: B={b} N={n} D={d} k={k} {dtype}, bias, 8 ignored ids: PASS "
           f"(scores and chunk maxima within {tol:.3e}: max abs err {err:.3e}; masked "
-          f"cells equal; top-{k} ids equal to K1's{same_bits})"
+          f"cells equal; top-{k} ids equal to K1's, its scores there bit-equal to K1's "
+          f"values; rerun bit-equal)"
           + (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.mm of the scores "
              f"{lib_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})"
-             if timed else ""))
+             f"{cores}, {bound['bound_ms'] / ms:.1%} of it" if timed else ""))
     return result(err, ms, plain_ms, bound, lib_ms), launches["mips_chunkmax"]
 
 
@@ -995,6 +1047,7 @@ def phase_k10():
 
     measured, launches = _k10_case("serving", 256, 131072, 768, 10, torch.bfloat16,
                                    timed=True)
+    _k10_case("serving_f32", 256, 131072, 768, 10, torch.float32, timed=True)
     _k10_case("ragged_f32", 37, 777, 50, 7, torch.float32)
     return measured, launches
 
@@ -1070,8 +1123,14 @@ def _k8_case(what, args):
     plain_ms = cuda_ms(lambda: ivf_probe_topk_plain(*args, K8_K))
     n_probed = int(torch.unique(probes).numel())
     row_bytes = d * clustered.element_size() + 4 * (1 if scale is None else 2)
-    bound = roofline(n_probed * L * row_bytes + nbytes(q, probes) + b * K8_K * 8,
-                     2.0 * b * K8_NPROBE * L * d, False)
+    # f32 payloads run CUDA-core products; bf16 and int8 the bf16 tensor cores
+    f32 = clustered.dtype == torch.float32
+    ops = 2.0 * b * K8_NPROBE * L * d
+    bound = roofline(n_probed * L * row_bytes + nbytes(q, probes) + b * K8_K * 8, ops, f32)
+    # f32: the operations alone, on the CUDA cores and as split TF32
+    ops_ms = (f"; operations alone {roofline(0, ops, True)['bound_ms']:.4f} ms on the f32 "
+              f"CUDA cores, {roofline(0, ops, True, split_tf32=True)['bound_ms']:.4f} ms as "
+              f"split TF32" if f32 else "")
     split = device_ms_by_kernel(lambda: ivf_probe_topk(*args, K8_K))
     pass1 = sum(v for n, v in split.items() if "ivf_partial_kernel" in n)
     merge = sum(v for n, v in split.items() if "ivf_merge" in n)
@@ -1080,8 +1139,8 @@ def _k8_case(what, args):
           f"{n_swapped} swapped near-ties within tol {tol:.3e}; values max abs err "
           f"{err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {n_probed} distinct clusters "
-          f"of {b * K8_NPROBE} probes, read amplification {b * K8_NPROBE / n_probed:.2f}), "
-          f"{bound['bound_ms'] / ms:.1%} of it; device time per call (profiler): pass 1 "
+          f"of {b * K8_NPROBE} probes, read amplification {b * K8_NPROBE / n_probed:.2f}"
+          f"{ops_ms}), {bound['bound_ms'] / ms:.1%} of it; device time per call (profiler): pass 1 "
           f"{pass1:.4f} ms, merge {merge:.4f} ms, grouping and query copy {rest:.4f} ms")
     return err, ms, plain_ms, bound
 
@@ -1112,7 +1171,7 @@ def phase_k8() -> dict:
           f"(numpy, seed 0), made in {time.perf_counter() - t0:.1f} s")
     _, exact = mips_topk_plain(queries, x, K8_K)  # exact top-10 over the f32 rows
     measured = None
-    for payload in ("int8", "bfloat16"):
+    for payload in ("int8", "bfloat16", "float32"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         idx = build_ivf_index(x, K8_C, dtype=payload, alpha=1.5, train_size=65536, seed=0,
@@ -1124,7 +1183,7 @@ def phase_k8() -> dict:
         if payload == "int8":  # the same rows as one flat payload, for K1
             flat, flat_scale = quantize_corpus_sq8(x)
         else:
-            flat, flat_scale = x.to(torch.bfloat16), None
+            flat, flat_scale = x.to(getattr(torch, payload)), None
         print(f"[K8] IVF{K8_C},{'SQ8' if payload == 'int8' else 'Flat'} ({payload}) built in "
               f"{build_s:.3f} s (k-means on 65536 rows, 15 iterations; every row "
               f"assigned): L = {L}, spill rows {idx.n_spill}")
@@ -1135,8 +1194,8 @@ def phase_k8() -> dict:
             err, ms, plain_ms, bound = _k8_case(f"{payload} B={b}", args)
             flat_ms = cuda_ms(lambda: mips_topk(q, flat, K8_K, None, None, flat_scale))
             # K1's flat scan: the payload and its scales read once
-            flat_bound = roofline(nbytes(q, flat, flat_scale) + b * K8_K * 8,
-                                  2.0 * b * K8_N * d, False)["bound_ms"]
+            flat_bound = _route_bounds(nbytes(q, flat, flat_scale) + b * K8_K * 8,
+                                       2.0 * b * K8_N * d, flat.dtype)[0]["bound_ms"]
             # the whole per-query route: probes, K8, ids, the spill by K1, merge
             route_ms = cuda_ms(lambda: ivf_search_serving(idx, queries[:b], k=K8_K,
                                                           nprobe=K8_NPROBE))
@@ -1843,7 +1902,7 @@ def _skips(fn):
     return out, [str(x.message) for x in w if "[weights] SKIPPING" in str(x.message)]
 
 
-def phase_retriever_slice() -> dict:
+def phase_retriever_slice(report: dict | None = None) -> dict:
     """``pretrain-retriever`` at full width: the Longformer-base query and
     mips encoders of the led_base preset (768 wide, 12 heads, 12 layers,
     window 256; queries and positives 512 tokens), B=4, f32 (as the JAX
@@ -1858,7 +1917,8 @@ def phase_retriever_slice() -> dict:
     (no hub is reachable here). Checks: finite losses; the file holds the
     weights of the exporting validation; test's metrics equal that
     validation's; the handoff's query and mips encoders equal the file; K1,
-    K2 and K3 launched in training, and K10 nowhere."""
+    K2 and K3 launched in training, and K10 nowhere. ``report`` receives
+    the training run's report (losses, validations and their wall times)."""
     import numpy as np
     import torch
 
@@ -1866,7 +1926,7 @@ def phase_retriever_slice() -> dict:
     from retrieval_augmented_mds_tpu_torch.utils.checkpoint import load_arrays
 
     cfg = led_base_config("retriever", max_steps=RET_STEPS, eval_every=RET_EVAL_EVERY)
-    report: dict = {}
+    report = {} if report is None else report
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (out, launches), skipped = _skips(lambda: run_counted(

@@ -7,30 +7,39 @@
 //   the result is the top-k of the DISTINCT score values, each reported with
 //   the lowest corpus index that holds it; leftover slots are (-3e38, -1).
 //
-// What bounds it on an H100: bytes, at both shapes that matter. At the
-// serving shape (B = 256 queries, N = 131072 rows, D = 768, bf16) the
-// corpus is 201 MB, ~60 us at 3.35 TB/s, against 25.8 G multiply-adds,
-// ~52 us at the bf16 tensor-core peak: the products must run on the tensor
-// cores and the corpus must come from HBM about once. On the path's own
-// shape (the IVF spill or a flat SQ8 scan, B = 4 over 0.5-1M int8 rows) it
-// is the corpus alone: 805 MB of int8 at 1M rows, ~0.24 ms.
+// What bounds it on an H100: bytes at the bf16/int8 shapes that matter,
+// operations in f32. At the serving shape (B = 256 queries, N = 131072
+// rows, D = 768, bf16) the corpus is 201 MB, ~60 us at 3.35 TB/s, against
+// 25.8 G multiply-adds, ~52 us at the bf16 tensor-core peak: the products
+// must run on the tensor cores and the corpus must come from HBM about
+// once. On the path's own shape (the IVF spill or a flat SQ8 scan, B = 4
+// over 0.5-1M int8 rows) it is the corpus alone: 805 MB of int8 at 1M
+// rows, ~0.24 ms. f32 at the retriever's full-KB validation (B = N = 1997,
+// D = 768): 6.1 GFLOP, 0.091 ms on the CUDA cores, 0.037 ms as split TF32
+// (three TF32 products each at 495 TFLOP/s), against 0.004 ms of bytes;
+// at the serving shape in f32, 51.5 GFLOP, 0.313 ms in split TF32 against
+// 0.120 ms of bytes.
 //
-// Design. bf16 and int8 corpora: pass 1 is `mma.sync` on the shared score
-// tile of mips_tile.cuh (grid.x = groups of NQ queries, grid.y = splits of
-// the corpus, so the query groups that read one corpus slab run together
-// and share it through L2). The f32 corpus keeps CUDA-core products (a
-// register-tiled f32 GEMM over 256-row tiles, 16 queries a CTA): TF32 would
-// change its numerics. `mips_topk_layout` reports each instance's layout
-// and occupancy, from which ops/mips_topk.py plans the splits.
+// Design. Pass 1 is `mma.sync` on the shared score tile of mips_tile.cuh
+// (grid.x = groups of NQ queries, grid.y = splits of the corpus, so the
+// query groups that read one corpus slab run together and share it
+// through L2): bf16 and int8 corpora in bf16 products, f32 in split TF32
+// against f32 queries, each 32-dim slab summed apart and added by FADD.
+// Split TF32 keeps the f32 kernel's values at f32 accuracy (each product
+// to ~2^-21 of |q_i e_i|, the sums rounded to nearest once a slab; one
+// TF32 pass would lose ~2^-11) and its ids equal to the plain f32 scores'
+// but where two scores lie within that error. `mips_topk_layout` reports
+// each instance's layout and occupancy, from which ops/mips_topk.py plans
+// the splits.
 //
-// Both feed one selection, per (split, query): a running list of up to k
-// distinct values in shared memory, each with its lowest row, and a
-// threshold, the list's k-th value (-3e38 while it holds fewer). The rows
+// The tile's scores feed one selection, per (split, query): a running list
+// of up to k distinct values in shared memory, each with its lowest row, and
+// a threshold, the list's k-th value (-3e38 while it holds fewer). The rows
 // are offered in parts of 128, in ascending order: a part's scores are
 // staged in shared memory, and a CTA-wide vote (`__syncthreads_or`) skips
-// every part in which no score beats its query's threshold, which is most
-// of them once the lists are full and the splits long. Otherwise one plain
-// loop over the staged scores offers each score strictly greater than the
+// every part in which no score beats its query's threshold, which is most of
+// them once the lists are full and the splits long. Otherwise one plain loop
+// over the staged scores offers each score strictly greater than the
 // threshold whose row is not among the query's ignored ids (the ignore test
 // runs on candidates only) to the query's candidate buffer, a slot taken
 // with a shared-memory atomicAdd. When a buffer is half full after a part,
@@ -218,12 +227,13 @@ struct Selector {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 / int8 corpus: tensor-core score tiles
+// pass 1: tensor-core score tiles
 // ---------------------------------------------------------------------------
 
 template <typename ET, int NQ, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-mips_mma_partial_kernel(const bf16* __restrict__ q, const ET* __restrict__ E,
+mips_mma_partial_kernel(const typename mips::Slab<ET, NQ>::QT* __restrict__ q,
+                        const ET* __restrict__ E,
                         const float* __restrict__ bias, const float* __restrict__ scale,
                         const int* __restrict__ ignore, int n_ignore, int B, int N, int D,
                         int k, int rows_per_split, float* __restrict__ part_v,
@@ -288,99 +298,6 @@ mips_mma_partial_kernel(const bf16* __restrict__ q, const ET* __restrict__ E,
   sel.write(qb0, B, split, splits, part_v, part_i);
 }
 
-// ---------------------------------------------------------------------------
-// f32 corpus: CUDA-core register tiles
-// ---------------------------------------------------------------------------
-
-constexpr int kQB = 16;   // queries per CTA
-constexpr int kRT = 256;  // corpus rows per tile
-constexpr int kKC = 16;   // depth staged per step
-constexpr size_t kF32Stage = sizeof(float) * (kQB * kKC + kKC * (kRT + 1));
-
-// A CTA runs a register-tiled f32 GEMM over its rows in 256-row tiles: each
-// thread owns 4 queries x 4 rows, the corpus tile is staged transposed in
-// shared memory 16 dims at a time. The tile's scores then go to the
-// selection in two parts of 128 rows, staged where the corpus tile was.
-__global__ void __launch_bounds__(kThreads)
-mips_f32_partial_kernel(const float* __restrict__ q, const float* __restrict__ E,
-                        const float* __restrict__ bias, const float* __restrict__ scale,
-                        const int* __restrict__ ignore, int n_ignore, int B, int N, int D,
-                        int k, int rows_per_split, float* __restrict__ part_v,
-                        int* __restrict__ part_i) {
-  extern __shared__ __align__(16) char smem[];
-  float(*Qs)[kKC] = reinterpret_cast<float(*)[kKC]>(smem);
-  float* Es = reinterpret_cast<float*>(smem) + kQB * kKC;
-  static_assert(kQB * kStageLD <= kKC * (kRT + 1), "a staged part fits the corpus tile");
-  Selector<kQB> sel(smem + kF32Stage, k, ignore, n_ignore);
-
-  const int tid = threadIdx.x;
-  const int split = blockIdx.x, splits = gridDim.x;
-  const int qb0 = blockIdx.y * kQB;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-  const int tq = tid >> 6, tr = tid & 63;  // 4 query groups x 64 row lanes
-  sel.init();
-  __syncthreads();
-
-  for (int row0 = row_begin; row0 < row_end; row0 += kRT) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kKC) {
-      __syncthreads();
-      {
-        const int qi = tid / kKC, c = tid % kKC, b = qb0 + qi, d = d0 + c;
-        Qs[qi][c] = (b < B && d < D) ? q[(long)b * D + d] : 0.f;
-      }
-      for (int e = tid; e < kRT * kKC; e += kThreads) {
-        const int r = e / kKC, c = e % kKC, row = row0 + r, d = d0 + c;
-        Es[c * (kRT + 1) + r] = (row < row_end && d < D) ? E[(long)row * D + d] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kKC; ++c) {
-        float qv[4], ev[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = Qs[tq * 4 + i][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ev[j] = Es[c * (kRT + 1) + tr + 64 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], ev[j], acc[i][j]);
-      }
-    }
-
-    // part h holds rows 128 h .. 128 h + 127 of the tile: j = 2h, 2h + 1
-    float* st = Es;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      __syncthreads();  // every thread is done with Es (h = 0) or its last part
-      bool any = false;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * h + jj, r = tr + 64 * jj, row = row0 + tr + 64 * j;
-        const bool ok = row < row_end;
-        const float sc = !ok ? 0.f : scale ? scale[row] : 1.f;
-        const float bi = !ok ? kNegInf : bias ? bias[row] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = tq * 4 + i;
-          const float s = mips::score(acc[i][j], sc, bi);
-          st[qi * kStageLD + r] = s;
-          any |= qb0 + qi < B && s > sel.thr[qi];
-        }
-      }
-      sel.take_part(st, row0 + h * mips::kPartRows, qb0, B, any);
-    }
-  }
-  sel.flush();
-  sel.write(qb0, B, split, splits, part_v, part_i);
-}
-
 // One warp per query: k selection rounds over its splits*k candidates.
 // Removed candidates are overwritten in the scratch buffer.
 __global__ void __launch_bounds__(kThreads)
@@ -423,9 +340,10 @@ struct Args {
 // Each instance below either launches (layout null) or describes itself.
 template <typename ET, int NQ, bool VEC>
 cudaError_t run_mma(const Args& a, cudaStream_t s, int* layout) {
+  using S = mips::Slab<ET, NQ>;
   auto kern = mips_mma_partial_kernel<ET, NQ, VEC>;
-  constexpr int kRows = mips::Slab<ET, NQ>::ROWS;
-  const size_t smem = mips::kStages * mips::Slab<ET, NQ>::kBytes + Selector<NQ>::bytes(a.k);
+  constexpr int kRows = S::ROWS;
+  const size_t smem = mips::kStages * S::kBytes + Selector<NQ>::bytes(a.k);
   if (layout) return mips::describe(kern, NQ, kRows, smem, layout);
   if (a.rows_per_split % kRows != 0) return cudaErrorInvalidValue;
   cudaError_t err =
@@ -433,7 +351,7 @@ cudaError_t run_mma(const Args& a, cudaStream_t s, int* layout) {
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + NQ - 1) / NQ, a.splits);
   kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(a.q), static_cast<const ET*>(a.corpus),
+      static_cast<const typename S::QT*>(a.q), static_cast<const ET*>(a.corpus),
       static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
       static_cast<const int*>(a.ignore), a.n_ignore, a.B, a.N, a.D, a.k, a.rows_per_split,
       static_cast<float*>(a.part_v), static_cast<int*>(a.part_i));
@@ -456,26 +374,10 @@ cudaError_t run_mma_vec(int nq, int vec, const Args& a, cudaStream_t s, int* lay
   return vec ? run_mma_nq<ET, true>(nq, a, s, layout) : run_mma_nq<ET, false>(nq, a, s, layout);
 }
 
-cudaError_t run_f32(const Args& a, cudaStream_t s, int* layout) {
-  const size_t smem = kF32Stage + Selector<kQB>::bytes(a.k);
-  if (layout) return mips::describe(mips_f32_partial_kernel, kQB, kRT, smem, layout);
-  if (a.rows_per_split % kRT != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mips_f32_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.splits, (a.B + kQB - 1) / kQB);
-  mips_f32_partial_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.corpus),
-      static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
-      static_cast<const int*>(a.ignore), a.n_ignore, a.B, a.N, a.D, a.k, a.rows_per_split,
-      static_cast<float*>(a.part_v), static_cast<int*>(a.part_i));
-  return cudaGetLastError();
-}
-
 cudaError_t run(int dtype, int nq, int vec, const Args& a, cudaStream_t s, int* layout) {
   if (a.k < 1 || a.k > kMaxK) return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return run_f32(a, s, layout);
+    case 0: return run_mma_vec<float>(nq, vec, a, s, layout);
     case 1: return run_mma_vec<bf16>(nq, vec, a, s, layout);
     case 2: return run_mma_vec<int8_t>(nq, vec, a, s, layout);
     default: return cudaErrorInvalidValue;
@@ -484,14 +386,14 @@ cudaError_t run(int dtype, int nq, int vec, const Args& a, cudaStream_t s, int* 
 
 }  // namespace
 
-// dtype: 0 = f32 (q f32 [B, D]; 256-row tiles, groups of 16 queries
-// whatever nq), 1 = bf16, 2 = int8 (q bf16 [B, D], rounded by the caller;
-// groups of nq = 8, 16 (128-row tiles), 32 or 64 queries (256-row tiles));
-// vec = 1 when D * sizeof(corpus element) and D * 2 are multiples of 16 and
-// both pointers 16-byte aligned. layout receives the instance's {queries
-// per CTA, corpus rows per tile, dynamic shared memory in bytes, CTAs per
-// SM on the current device (0: it does not fit)}, which the caller plans
-// its splits from.
+// dtype: 0 = f32 (q f32 [B, D], split TF32), 1 = bf16, 2 = int8 (q bf16
+// [B, D], rounded by the caller); groups of nq = 8, 16 (128-row tiles), 32
+// or 64 queries (256-row tiles); vec = 1 when D * sizeof(corpus element)
+// and D * sizeof(query element) are multiples of 16 and both pointers
+// 16-byte aligned. layout receives the instance's {queries per CTA, corpus
+// rows per tile, dynamic shared memory in bytes, CTAs per SM on the
+// current device (0: it does not fit)}, which the caller plans its splits
+// from.
 extern "C" int mips_topk_layout(int dtype, int nq, int vec, int k, int* layout) {
   Args a{};
   a.k = k;

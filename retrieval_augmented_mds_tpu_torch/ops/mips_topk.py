@@ -8,9 +8,9 @@ index holding it (bit-identical scores, e.g. duplicate rows, collapse to
 one hit). Leftover slots are (-3e38, -1).
 
 Routing is by device: a CPU tensor goes to `mips_topk_plain`, a CUDA
-tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback. A
-bf16 or int8 corpus is scored on the tensor cores (``csrc/mips_tile.cuh``,
-bf16 queries), an f32 one on the CUDA cores (f32 queries).
+tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback. Every
+corpus is scored on the tensor cores (``csrc/mips_tile.cuh``): bf16 or int8
+against bf16 queries, f32 against f32 queries in split TF32.
 
 `mips_topk_blocked` is the JAX package's two-phase exact top-k, which no
 path calls (there as here): phase 1 writes every score and the maximum
@@ -179,8 +179,7 @@ def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
     if corpus.device != dev:
         raise ValueError("queries and corpus must be on the same device")
 
-    # bf16 queries for the tensor cores (int8 corpora score against bf16
-    # queries), f32 for the CUDA cores
+    # bf16 queries for a bf16 or int8 corpus, f32 for an f32 one
     q = queries.to(_query_dtype(corpus)).contiguous()
     nq, rows, splits, vec = _k1_plan(q, corpus, k)
     part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
@@ -295,10 +294,9 @@ def mips_chunkmax(queries, corpus, row_bias=None, ignore=None):
     n_pad = _chunked(n)
     q = queries.to(corpus.dtype).contiguous()
     vec = int(_vec_ok(d, q, corpus))
-    nq, rows, splits = 0, 0, 0  # f32: one CTA per 256 rows, no splits
-    if corpus.dtype == torch.bfloat16:
-        nq, rows, splits = _splits(b, n, _sm_count(dev), lambda nq: _kernel_layout(
-            "mips_chunkmax", dev.index, nq, vec))
+    code = _DTYPE_CODE[corpus.dtype]
+    nq, rows, splits = _splits(b, n, _sm_count(dev), lambda nq: _kernel_layout(
+        "mips_chunkmax", dev.index, code, nq, vec))
     scores = torch.empty((b, n_pad), dtype=torch.float32, device=dev)
     cmax = torch.empty((b, n_pad // CHUNK), dtype=torch.float32, device=dev)
     fn = load("mips_chunkmax").mips_chunkmax_launch
@@ -306,10 +304,9 @@ def mips_chunkmax(queries, corpus, row_bias=None, ignore=None):
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 \
         + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(q.data_ptr(), corpus.data_ptr(), 0 if corpus.dtype == torch.float32 else 1,
-             ptr(row_bias), ptr(ignore), 0 if ignore is None else ignore.shape[1], b, n, d,
-             n_pad, nq, vec, rows, splits, scores.data_ptr(),
-             cmax.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(q.data_ptr(), corpus.data_ptr(), code, ptr(row_bias), ptr(ignore),
+             0 if ignore is None else ignore.shape[1], b, n, d, n_pad, nq, vec, rows, splits,
+             scores.data_ptr(), cmax.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mips_chunkmax")
     mips_chunkmax.launches += 1
     return scores, cmax

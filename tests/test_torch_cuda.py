@@ -179,9 +179,10 @@ def test_mips_kernel_buffer_overflow(gen, dtype):
     tiles overflow the buffers, which are merged, and the part is offered
     again (tests/test_torch_mips_select.py counts the overflows). Small
     integers, so every score is an exact integer on both sides: many exact
-    ties, which go to the lowest row, and no rounding near-ties."""
-    tile = 256 if dtype == "float32" else 128
-    n = (600000 if dtype == "float32" else 300000) // (2 * tile) * 2 * tile
+    ties, which go to the lowest row, and no rounding near-ties. Three
+    queries take 128-row tiles in every dtype."""
+    tile = 128
+    n = 300000 // (2 * tile) * 2 * tile
     small = lambda *shape: torch.randint(-3, 4, shape, generator=gen, device="cuda")  # noqa: E731
     e = small(n, 32).to(getattr(torch, dtype))
     scale = torch.ones(n, device="cuda") if dtype == "int8" else None
@@ -224,11 +225,12 @@ def test_mips_layout_matches_the_h100_stand_in(gen):
 
     dev = torch.cuda.current_device()
     cases = [("mips_topk", dt, k) for dt in _DTYPE_CODE for k in (1, 10, 64, 128)]
-    for kernel, dt, k in cases + [("mips_chunkmax", torch.bfloat16, 10)]:
+    cases += [("mips_chunkmax", dt, 10) for dt in (torch.float32, torch.bfloat16)]
+    for kernel, dt, k in cases:
         want = h100_layout(kernel, dt, k)
         for nq in (8, 16, 32, 64):
             for vec in (0, 1):
-                args = (_DTYPE_CODE[dt], nq, vec, k) if kernel == "mips_topk" else (nq, vec)
+                args = (_DTYPE_CODE[dt], nq, vec) + ((k,) if kernel == "mips_topk" else ())
                 got = _kernel_layout(kernel, dev, *args)
                 w = want(nq)
                 assert got[:3] == w[:3], (kernel, dt, k, nq, vec, got, w)
@@ -991,6 +993,57 @@ def test_chunkmax_scores_are_k1_values_bit_for_bit(gen, b, d):
     vals, ids = mips_topk(q, e, 10, rb, ign)
     assert torch.equal(torch.gather(scores, 1, ids.long()), vals)
     again = mips_chunkmax(q, e, rb, ign)
+    assert torch.equal(again[0], scores) and torch.equal(again[1], cmax)
+
+
+# f32 K1 and K10 on the split-TF32 tile: (B, N, D, k, how the scores are
+# made). D = 769 and 50 take the element copies (rows not 16-byte
+# multiples); N = 20037 ends in a partial tile; "rising" is a bias step of
+# 1000 a row, so every score is a candidate and k = 128 overflows the
+# buffers; "1e4" scales queries and rows so the scores reach ~1e4.
+F32_TILE_CASES = {
+    "d769": (17, 4099, 769, 10, "normal"),
+    "d50": (256, 4099, 50, 10, "normal"),
+    "ragged_n": (64, 20037, 768, 10, "normal"),
+    "rising_k128": (64, 20000, 96, 128, "rising"),
+    "scores_1e4": (17, 30000, 768, 10, "1e4"),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_TILE_CASES))
+def test_f32_kernels_on_the_split_tf32_tile(gen, case):
+    """f32 K1 against `mips_topk_plain` (ids equal, values within rtol
+    1e-5 and atol 1e-4) and f32 K10 against `mips_chunkmax_plain` (within
+    1e-4 x max|score|, masked cells -3e38), with bias and ignored ids; K10's
+    scores at K1's hits are K1's values bit for bit (one tile, one walk);
+    reruns of both are bit-equal."""
+    b, n, d, k, kind = F32_TILE_CASES[case]
+    e = torch.randn((n, d), generator=gen, device="cuda")
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    bias = torch.randn(n, generator=gen, device="cuda")
+    if kind == "rising":
+        bias = 1000.0 * torch.arange(n, device="cuda", dtype=torch.float32)
+    if kind == "1e4":
+        e, q, bias = 20.0 * e, 20.0 * q, 100.0 * bias
+    ign = torch.randint(-1, n, (b, 4), generator=gen, device="cuda", dtype=torch.int32)
+    vals, ids = _same_as_plain(q, e, k, bias, ign)
+    if kind == "rising":
+        last = torch.arange(n - 1, -1, -1, device="cuda", dtype=torch.int32)
+        want = torch.stack([last[~torch.isin(last, row)][:k] for row in ign])
+        assert torch.equal(ids, want)
+    if kind == "1e4":
+        assert vals[:, 0].abs().min() > 5e3
+    again = mips_topk(q, e, k, bias, ign)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], ids)
+    scores, cmax = mips_chunkmax(q, e, bias, ign)
+    ref, ref_cmax = mips_chunkmax_plain(q, e, bias, ign)
+    masked = ref < -1e38
+    assert torch.equal(scores < -1e38, masked) and bool((scores[masked] == -3e38).all())
+    tol = 1e-4 * ref[~masked].abs().max().item()
+    torch.testing.assert_close(scores[~masked], ref[~masked], rtol=0, atol=tol)
+    torch.testing.assert_close(cmax, ref_cmax, rtol=0, atol=tol)
+    assert torch.equal(torch.gather(scores, 1, ids.long()), vals)
+    again = mips_chunkmax(q, e, bias, ign)
     assert torch.equal(again[0], scores) and torch.equal(again[1], cmax)
 
 

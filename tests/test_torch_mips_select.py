@@ -57,14 +57,14 @@ def h100_layout(kernel: str, dtype: torch.dtype, k: int = 10):
         return nq * (8 * PART + 8 * k + 8) + 16
 
     def layout(nq):
-        if dtype == torch.float32:  # CUDA cores: 16 queries x 256-row tiles
-            q, rows = 16, 256
-            smem = 4 * (16 * 16 + 16 * 257) + selector(16)
-        else:  # the tensor-core tile: 3 stages of 128-byte slabs, 16 of padding
-            q, rows = nq, PART * (2 if nq >= 32 else 1)
-            dims = 128 // (1 if dtype == torch.int8 else 2)
-            smem = 3 * (rows * (128 + 16) + nq * (2 * dims + 16))
-            smem += selector(nq) if kernel == "mips_topk" else nq * (rows + 4) * 4
+        # the tensor-core tile in every dtype: 3 stages of 128-byte slabs of
+        # the corpus rows and of the queries' same dims (32 f32 against f32
+        # queries, 64 bf16 against bf16, 128 int8 against bf16), each row
+        # padded by 16 bytes
+        q, rows = nq, PART * (2 if nq >= 32 else 1)
+        q_bytes = 2 * 128 if dtype == torch.int8 else 128
+        smem = 3 * (rows * (128 + 16) + nq * (q_bytes + 16))
+        smem += selector(nq) if kernel == "mips_topk" else nq * (rows + 4) * 4
         ctas = min(8, 233472 // (smem + 1024)) if smem <= 232448 else 0
         return q, rows, smem, ctas
     return layout
@@ -429,11 +429,11 @@ def test_splits_cover_every_row_once_in_whole_tiles(dtype, b, n, k):
     split, no empty split, a query group that fits an SM (large k takes
     smaller groups), and no more (query group, split) CTAs than fill each
     SM once."""
-    for kernel in ("mips_topk",) + (("mips_chunkmax",) if dtype == torch.bfloat16 else ()):
+    for kernel in ("mips_topk",) + (("mips_chunkmax",) if dtype != torch.int8 else ()):
         layout = h100_layout(kernel, dtype, k)
         nq, rows, splits = _splits(b, n, H100_SMS, layout)
         _, tile, smem, per_sm = layout(nq)
         assert rows % tile == 0 and splits * rows >= n > (splits - 1) * rows
-        assert nq in ((16,) if dtype == torch.float32 else (8, 16, 32, 64))
+        assert nq in (8, 16, 32, 64)
         assert per_sm >= 1 and smem <= 232448
         assert splits * -(-b // nq) <= max(H100_SMS * per_sm, -(-b // nq))

@@ -1,10 +1,12 @@
 """What the port's A/B tools (``torch_sliding_f32_ab.py``,
-``torch_dense_f32_ab.py``) share: the port's package from any tree with
-``chip_smoke.py`` from this file's tree, and a ``torch.profiler`` window
-that sums the device time of its kernels by class."""
+``torch_dense_f32_ab.py``, ``torch_mips_f32_ab.py``) share: the port's
+package from any tree with ``chip_smoke.py`` from this file's tree, a
+``torch.profiler`` window that sums the device time of its kernels by
+class, and the digest that compares two runs' outputs bit for bit."""
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import os
 import re
@@ -38,6 +40,14 @@ def start(tree: str, tool: str):
     print(f"[tree] {tree} (port {os.path.dirname(port.__file__)})")
     c.phase_env()
     return c
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def profile_window(label: str, step, n: int, classes: dict, top: int = 6) -> None:

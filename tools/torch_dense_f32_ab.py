@@ -32,20 +32,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import hashlib
 import json
 import os
 
-from torch_ab_common import HERE, profile_window, start
+from torch_ab_common import HERE, digest, profile_window, start
 
 LOSS_RTOL = 1e-4  # f32 steps before the store refresh
-
-
-def digest(t) -> str:
-    import torch
-
-    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
-                          .tobytes()).hexdigest()
 
 
 def output_digests(c, name, b, t, s, causal, lengths, dtype, blocked) -> dict:
