@@ -48,7 +48,10 @@ Phases, in order; any failure exits non-zero:
   7. ``predict`` on ``configs/smoke.yaml`` on the card and on the CPU (the
      plain versions), from one seed: equal retrieved and generated ids;
      then ``fit`` on the same config for 3 steps, card against CPU: the
-     same losses;
+     same losses; then the same fit in each memory mode (``target_only``;
+     dual, ``data.dataset_mode: dual``) and under the remat policies
+     ``dots_saveable``, ``nothing_saveable`` (the attention kernels'
+     forwards recomputed) and ``everything_saveable`` (nothing recomputed);
   8. the same config on an ``IVF16,SQ8`` index (the per-query route):
      ``predict`` and a 3-step ``fit``, card against CPU, then a
      ``build-index`` → ``predict --index`` round trip on the card;
@@ -56,6 +59,10 @@ Phases, in order; any failure exits non-zero:
      preset (seeded random weights) over the committed 2000-example
      fixture, on the config's ``IVF256,SQ8`` index (nprobe 8), with the
      kernels' launch counts read around that run;
+  9b. the same slice sampled (one beam, temperature 0.8, top-k 50, top-p
+     0.95) with ``generation.output_copy_probs``: the copy traces' teacher-
+     forced decoder pass on K4, held to the same call on the CPU; one seed
+     gives the same ids, top-k 1 the greedy ids;
   7b. kernel K9 (the 8-bit AdamW superleaf update) against its plain
      version at the capacity slice's superleaf (613,192,286 parameters)
      and on a small superleaf with tails, padding, weight decay and a clip;
@@ -68,6 +75,9 @@ Phases, in order; any failure exits non-zero:
  10b. the same slice in f32 (``precision: float32``, the default): f32
      K4/K5 launched by every decoder layer on every step, its losses in
      full;
+ 10c. the same slice under ``model.memory_forcing: target_in`` with
+     ``copy_forcing: 0.5`` (a third memory slot, the gold target, masked
+     off on the steps whose seeded flag is off);
  11. the capacity training slice: the same with ``train.adam_8bit`` and
      ``train.remat`` on, its peak memory and step time beside 10's;
  12. the long-source training slice: 10's config with ``data.max_length``
@@ -83,7 +93,7 @@ Phases, in order; any failure exits non-zero:
      summarizer's ``predict`` with ``model.encoder_state_path`` set to it.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the six slices, K10's from its own phase, as no path calls it; ms,
+over the eight slices, K10's from its own phase, as no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1377,38 +1387,86 @@ def phase_small_reference() -> None:
           f"(atol=rtol=1e-4): PASS")
 
 
-def phase_small_fit() -> None:
-    """``fit`` on ``configs/smoke.yaml`` (tiny preset, f32) for 3 steps with
-    a store refresh before the third, on the card through the kernels
-    (decoder T=32, cross S=128) and on the CPU through the plain versions,
-    from one seed: the losses agree to rtol 1e-3 (f32 summation order on
-    two devices, passed through an Adam update, which divides each small
-    gradient by its own size)."""
+def _small_fit(tag: str, cfg, off_path: tuple[str, ...] = ()) -> dict:
+    """``cli.run_fit`` of a small config on the card, through the kernels,
+    and on the CPU, through the plain versions, from one seed: every kernel
+    of the path launched (all but K8, K9, the long-source pair, K10 and
+    ``off_path``), finite losses that agree to rtol 1e-3 (f32 summation
+    order on two devices, passed through an Adam update, which divides each
+    small gradient by its own size). Prints them → the card's launches."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch import cli
-    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
 
-    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
-    cfg = dataclasses.replace(
-        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
-        index=dataclasses.replace(cfg.index, rebuild_every=2),
-        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, "small_fit")))
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(cfg, device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
-    check(all(n > 0 for name, n in launches.items()
-              if name not in ("ivf_probe_topk", "adam8bit_superleaf_update", *LONG_ONLY,
-                              *NO_PATH)),
-          f"small fit: a kernel not launched {launches}")
-    check(len(gpu["refresh_s"]) == 1, "small fit: no store refresh")
+    off = ("ivf_probe_topk", "adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH, *off_path)
+    check(all(n > 0 for name, n in launches.items() if name not in off),
+          f"{tag}: a kernel not launched {launches}")
+    check(len(gpu["refresh_s"]) == 1, f"{tag}: no store refresh")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
-    check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small fit losses {lg}")
+    check(len(lg) == cfg.max_steps and bool(torch.isfinite(lg).all()), f"{tag} losses {lg}")
     rel = ((lg - lc).abs() / lc.abs()).max().item()
-    check(rel <= 1e-3, f"small fit: card losses {lg.tolist()} vs CPU {lc.tolist()}")
-    print(f"[small] configs/smoke.yaml fit, 3 steps + 1 refresh, card vs CPU: losses "
+    check(rel <= 1e-3, f"{tag}: card losses {lg.tolist()} vs CPU {lc.tolist()}")
+    print(f"[{tag}] {cfg.max_steps} steps + 1 refresh, card vs CPU: losses "
           f"{[f'{x:.6f}' for x in lg.tolist()]} vs {[f'{x:.6f}' for x in lc.tolist()]}, "
           f"max rel err {rel:.3e} (rtol 1e-3): PASS; card launches {launches}")
+    return launches
+
+
+def small_fit_config(log_name: str, **over):
+    """``configs/smoke.yaml`` (tiny preset, f32) for 3 steps with a store
+    refresh before the third; ``over`` maps a section (model, data, train)
+    to the fields it replaces."""
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
+    cfg = dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), **v)
+                                      for k, v in over.items()})
+    return dataclasses.replace(
+        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
+        index=dataclasses.replace(cfg.index, rebuild_every=2),
+        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, log_name)))
+
+
+def phase_small_fit() -> dict:
+    """``fit`` on ``configs/smoke.yaml`` for 3 steps, card (decoder T=32,
+    cross S=128) against CPU (`_small_fit`) → the card's launches."""
+    return _small_fit("small", small_fit_config("small_fit"))
+
+
+# the small modes' configs: a memory mode, or a remat policy
+SMALL_MODES = {
+    "target_only": {"model": {"memory_forcing": "target_only"}},
+    "dual": {"data": {"dataset_mode": "dual"}},
+    "dots_saveable": {"train": {"remat": "dots_saveable"}},
+    "nothing_saveable": {"train": {"remat": "nothing_saveable"}},
+    "everything_saveable": {"train": {"remat": "everything_saveable"}},
+}
+
+
+def phase_small_modes(standing: dict) -> None:
+    """`_small_fit` of ``configs/smoke.yaml`` in each of `SMALL_MODES`: the
+    memory modes ``target_only`` (one target slot, no search: K1 off its
+    path) and dual (``data.dataset_mode: dual``: the first input documents
+    in the memory), and the remat policies ``dots_saveable`` and
+    ``nothing_saveable`` (the attention kernels' forwards recomputed in the
+    backward: more K2 and K4 launches than the standing small fit's) and
+    ``everything_saveable`` (nothing recomputed: the standing launches)."""
+    for tag, over in SMALL_MODES.items():
+        launches = _small_fit(f"small-{tag}", small_fit_config(f"small_{tag}", **over),
+                              off_path=("mips_topk",) if tag == "target_only" else ())
+        if tag == "target_only":
+            check(launches["mips_topk"] == 0, f"small-{tag}: K1 launched {launches}")
+        if tag in ("dots_saveable", "nothing_saveable"):
+            for name in ("flash_sliding_attention", "flash_dense_attention"):
+                check(launches[name] > standing[name],
+                      f"small-{tag}: {name} not recomputed ({launches[name]} vs "
+                      f"{standing[name]})")
+        if tag == "everything_saveable":
+            check(launches == standing, f"small-{tag}: launches {launches} differ from "
+                  f"the run without remat {standing}")
 
 
 def phase_small_fit_8bit() -> None:
@@ -1425,14 +1483,8 @@ def phase_small_fit_8bit() -> None:
     from retrieval_augmented_mds_tpu_torch.train.adam8bit import _ARRAYS
     from retrieval_augmented_mds_tpu_torch.train.trainer import TrainState
     from retrieval_augmented_mds_tpu_torch.utils.checkpoint import load_train_state
-    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
 
-    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
-    cfg = dataclasses.replace(
-        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
-        train=dataclasses.replace(cfg.train, adam_8bit=True),
-        index=dataclasses.replace(cfg.index, rebuild_every=2),
-        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, "small_8bit")))
+    cfg = small_fit_config("small_8bit", train={"adam_8bit": True})
     ckpt = os.path.join(OUT_DIR, "small_8bit_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     gpu, cpu = {}, {}
@@ -1505,10 +1557,7 @@ def phase_small_ivf() -> None:
           f"CPU: retrieved ids {idx_g.tolist()} and generated ids equal: PASS; card "
           f"launches {launches}")
 
-    fcfg = dataclasses.replace(
-        cfg, max_steps=3, eval_every=0, ckpt_dir=None,
-        index=dataclasses.replace(cfg.index, rebuild_every=2),
-        logging=dataclasses.replace(cfg.logging, log_dir=os.path.join(OUT_DIR, "small_ivf")))
+    fcfg = small_fit_config("small_ivf", index=SMALL_IVF)
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(fcfg, device="cuda", report=gpu))
     cli.run_fit(fcfg, device="cpu", report=cpu)
@@ -1723,6 +1772,7 @@ def _train_run(cfg, tag: str, off_path: tuple[str, ...]) -> tuple[dict, dict]:
     steady = report["step_s"][-2:]
     summary = {"peak_gib": peak / 2**30, "step_s": sum(steady) / len(steady), "losses": losses,
                "retrieved": [r.cpu() for r in report["retrieved"]],
+               "copy_force": report["copy_force"],
                **{k: sum(ph[k] for ph in report["phase_s"][-2:]) / 2
                   for k in ("forward", "backward", "optimizer")}}
     print(f"[{tag}] steady (mean of the last two steps): step {summary['step_s']:.3f} s "
@@ -1760,6 +1810,140 @@ def phase_train_f32_slice() -> tuple[dict, dict]:
           f"decoder layers x self + cross x {TRAIN_STEPS} steps); losses in full "
           f"{[repr(x) for x in summary['losses']]}")
     return launches, summary
+
+
+def phase_train_target_in_slice() -> dict:
+    """The train slice under ``model.memory_forcing: target_in`` with
+    ``copy_forcing: 0.5``: the gold target's memory slot first, then the
+    top-2 retrieved rows, so the memory and mips encoders (K2/K3) run over
+    B x 3 rows of 512 tokens and the decoder's copy head attends 3 x 512
+    memory positions. `run_fit` draws each step's flag from (seed, step);
+    a step whose flag is off masks the target slot whole. Checks: the flags
+    equal the numpy draw, every step's memory is [B, 3 x 512, 768], the
+    target slot is masked off exactly on the steps whose flag is off,
+    finite losses and gradient norm (`_train_run`) → the launches."""
+    import numpy as np
+
+    from retrieval_augmented_mds_tpu_torch.train import trainer
+
+    cfg = train_slice_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, memory_forcing="target_in",
+                                       copy_forcing=0.5),
+        logging=dataclasses.replace(cfg.logging, run_name="led_base_target_in"))
+    seen = []  # per step: the memory's shape, and whether the target slot is open
+    forward = trainer.rag_forward
+
+    def recorded(*args, **kw):
+        out = forward(*args, **kw)
+        enc = out[2]
+        seen.append((tuple(enc.memory.shape),
+                     enc.memory_mask[:, :cfg.data.memory_len].any().detach()))
+        return out
+
+    trainer.rag_forward = recorded
+    try:
+        launches, summary = _train_run(cfg, "train_target_in", off_path=(
+            "adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH))
+    finally:
+        trainer.rag_forward = forward
+    want = [bool(np.random.default_rng([cfg.seed, s]).random() < cfg.model.copy_forcing)
+            for s in range(TRAIN_STEPS)]
+    flags = summary["copy_force"]
+    check(flags == want, f"train_target_in: flags {flags}, the numpy draw {want}")
+    shape = (cfg.data.batch_size, cfg.model.memory_slots * cfg.data.memory_len,
+             cfg.model.memory_enc.d_model)
+    check(len(seen) == TRAIN_STEPS and all(sh == shape for sh, _ in seen),
+          f"train_target_in: memory shapes {[sh for sh, _ in seen]}, not {shape}")
+    open_ = [bool(o) for _, o in seen]
+    check(open_ == flags, f"train_target_in: target slot open {open_} on flags {flags}")
+    print(f"[train_target_in] copy_force per step {flags} (= default_rng([seed, step])"
+          f".random() < {cfg.model.copy_forcing}); memory {list(shape)} on every step; the "
+          f"target slot masked whole on the steps whose flag is off: PASS")
+    return launches
+
+
+def phase_predict_sample() -> dict:
+    """The predict slice with sampled decoding and copy traces: one beam,
+    ``do_sample`` (temperature 0.8, top-k 50, top-p 0.95) and
+    ``output_copy_probs``, 256 new tokens. The traces' teacher-forced
+    decoder pass runs K4 (f32, as the JAX package's `copy_trace` runs it)
+    for each decoder layer's self- and cross-attention. Checks: the traces
+    serialise with ``json.dumps`` as they are; the same seed gives the
+    same ids bit for bit; top-k 1 gives the greedy ids bit for bit; and
+    `copy_trace` on the card against the same call on the CPU (the plain
+    versions, on the same encoder outputs and ids): gate and mass within
+    2^-8 of the CPU's, relatively (a bf16 step), the top-4 positions equal
+    wherever the 4th and 5th probabilities are more than 2^-8 of the 4th
+    apart → the launches."""
+    import copy
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.models.generate import copy_trace, generate
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    d = copy.deepcopy(SLICE_CONFIG)
+    d["generation"].update(num_beams=1, do_sample=True, temperature=0.8, top_k=50,
+                           top_p=0.95, output_copy_probs=True)
+    cfg = config_from_dict(d)
+    report: dict = {}
+    out, launches = run_counted(lambda: cli.run_predict(cfg, device="cuda", report=report))
+    params, enc, ids = report["params"], report["enc"], report["ids"]
+    b, t = ids.shape
+    dec_layers = cfg.model.led.dec_layers
+    check(launches["flash_dense_attention"] == 2 * dec_layers,
+          f"predict_sample: K4 launched {launches['flash_dense_attention']} times, not "
+          f"{2 * dec_layers} (self + cross per decoder layer)")
+    check(launches["mips_topk"] > 0 and launches["ivf_probe_topk"] > 0
+          and launches["flash_sliding_attention"] > 0, f"predict_sample: launches {launches}")
+    text = json.dumps(out)
+    traces = out["copy_traces"]
+    check(list(traces) == ["copy_gate", "copy_mass", "top_mem_pos", "top_mem_tok",
+                           "top_mem_prob"], f"predict_sample: trace keys {list(traces)}")
+    check(len(traces["top_mem_pos"]) == b and len(traces["top_mem_pos"][0]) == t
+          and len(traces["top_mem_pos"][0][0]) == 4, "predict_sample: trace shapes")
+    dtype = cli.compute_dtype(cfg)
+    check(torch.equal(generate(params, cfg.model, enc, cfg.generation, dtype=dtype), ids),
+          "predict_sample: the same seed gave other ids")
+    greedy = generate(params, cfg.model, enc,
+                      dataclasses.replace(cfg.generation, do_sample=False), dtype=dtype)
+    top1 = generate(params, cfg.model, enc, dataclasses.replace(cfg.generation, top_k=1),
+                    dtype=dtype)
+    check(torch.equal(top1, greedy), "predict_sample: top-k 1 sampling is not greedy")
+    check(not torch.equal(ids, greedy), "predict_sample: sampling gave the greedy ids")
+
+    tol, p = 2.0 ** -8, 4
+    start = cfg.generation.decoder_start_id
+    card = copy_trace(params, cfg.model, enc, ids, decoder_start_id=start,
+                      top_positions=p + 1)
+    cpu_enc = dataclasses.replace(enc, **{f.name: getattr(enc, f.name).cpu()
+                                          for f in dataclasses.fields(enc)
+                                          if getattr(enc, f.name) is not None})
+    ref = copy_trace(cli.build_params(cfg, torch.device("cpu")), cfg.model, cpu_enc,
+                     ids.cpu(), decoder_start_id=start, top_positions=p + 1)
+    errs = {k: ((card[k].cpu() - ref[k]).abs() / ref[k].abs()).max().item()
+            for k in ("copy_gate", "copy_mass")}
+    check(all(e <= tol for e in errs.values()), f"predict_sample: copy_trace card vs CPU {errs}")
+    probs = ref["top_mem_prob"]
+    clear = (probs[..., p - 1] - probs[..., p]) > tol * probs[..., p - 1]
+    same = (card["top_mem_pos"][..., :p].cpu() == ref["top_mem_pos"][..., :p]).all(-1)
+    check(bool(clear.any()) and bool(same[clear].all()),
+          f"predict_sample: top positions differ from the CPU's ({int(clear.sum())} clear)")
+    tokens = b * t
+    print(f"[predict_sample] led_base predict, B={b}, 1 beam, sampled (temperature 0.8, "
+          f"top-k 50, top-p 0.95), {t} new tokens, output_copy_probs: generate "
+          f"{report['generate_s']:.3f} s ({tokens / report['generate_s']:.1f} output "
+          f"tokens/s), copy_trace {report['copy_trace_s']:.3f} s (K4 launched "
+          f"{launches['flash_dense_attention']} times), traces {len(text)} bytes of JSON")
+    print(f"[predict_sample] one seed twice: equal ids; top-k 1 = greedy: PASS; copy_trace "
+          f"card vs CPU: max rel err gate {errs['copy_gate']:.3e}, mass "
+          f"{errs['copy_mass']:.3e} (tol 2^-8), top-{p} positions equal at the "
+          f"{int(clear.sum())} of {clear.numel()} tokens whose 4th and 5th probabilities "
+          f"are more than 2^-8 of the 4th apart: PASS")
+    print(f"[predict_sample] launches during the run: {launches}")
+    return launches
 
 
 def phase_capacity_slice(standing: tuple[dict, dict]) -> dict:
@@ -2043,12 +2227,15 @@ def main() -> int:
         measured["ivf_probe_topk"] = phase_k8()
         measured["adam8bit_superleaf_update"] = phase_k9()
         phase_small_reference()
-        phase_small_fit()
+        small = phase_small_fit()
+        phase_small_modes(small)
         phase_small_fit_8bit()
         phase_small_ivf()
         served = phase_slice()
+        sampled = phase_predict_sample()
         standing = phase_train_slice()
         train_f32, _ = phase_train_f32_slice()
+        target_in = phase_train_target_in_slice()
         capacity = phase_capacity_slice(standing)
         long = phase_long_slice(standing)
         retriever = phase_retriever_slice()
@@ -2069,10 +2256,11 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths (the six slices); K10's paths launch it 0 times (checked), so its
-    # count is that of its own phase
-    launches = {name: served[name] + standing[0][name] + train_f32[name] + capacity[name]
-                + long[name] + retriever[name] for name, _, _ in sources}
+    # launches on the paths (the eight slices); K10's paths launch it 0 times (checked), so
+    # its count is that of its own phase
+    launches = {name: served[name] + sampled[name] + standing[0][name] + train_f32[name]
+                + target_in[name] + capacity[name] + long[name] + retriever[name]
+                for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

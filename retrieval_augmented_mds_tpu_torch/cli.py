@@ -22,7 +22,9 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
 * ``validate`` / ``test``: generate over the whole val / test split and
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one.
-* ``predict``: generate for the first batch of the test split.
+* ``predict``: generate for the first batch of the test split; with
+  ``generation.output_copy_probs``, also the per-token copy traces
+  (`models.generate.copy_trace`) as lists.
 * ``pretrain-retriever``: contrastive pretraining of the query and mips
   encoders on the config's positive pairs (``--mode train``), exporting
   ``ckpt_dir/encoders.npz``, the file ``model.encoder_state_path`` reads;
@@ -50,13 +52,12 @@ from typing import Any
 import numpy as np
 import torch
 
-_BATCH_KEYS = ("input_ids", "attention_mask", "query_input_ids",
-               "query_attention_mask", "mips_ignore")
-# what a train or eval batch carries to the device (the reference's
-# _device_batch); decoder_input_ids are derived from the labels
-_TRAIN_KEYS = _BATCH_KEYS + (
-    "labels", "gold_aid", "aid_counts", "target_memory_ids", "target_memory_mask",
-    "input_memory_ids", "input_memory_mask", "input_memory_count",
+# what a batch carries to the device (the reference's _device_batch);
+# decoder_input_ids are derived from the labels
+_DEVICE_KEYS = (
+    "input_ids", "attention_mask", "query_input_ids", "query_attention_mask",
+    "mips_ignore", "labels", "gold_aid", "aid_counts", "target_memory_ids",
+    "target_memory_mask", "input_memory_ids", "input_memory_mask", "input_memory_count",
 )
 
 
@@ -167,7 +168,7 @@ def device_batch(host: dict, cfg, device: torch.device) -> dict[str, torch.Tenso
     from .models.led import shift_tokens_right
 
     out = {k: torch.from_numpy(np.asarray(v)).to(device)
-           for k, v in host.items() if k in _TRAIN_KEYS}
+           for k, v in host.items() if k in _DEVICE_KEYS}
     out["decoder_input_ids"] = shift_tokens_right(
         out["labels"], cfg.model.led.pad_id, cfg.generation.decoder_start_id)
     return out
@@ -209,13 +210,23 @@ def check_fit_config(cfg) -> None:
         )
 
 
+def copy_force(cfg, step: int) -> bool | None:
+    """The copy-forcing flag of train step ``step`` under ``target_in``
+    (None otherwise): a draw seeded by (seed, step), not a sequential
+    stream, so the schedule survives a resume (the JAX package's draw)."""
+    if cfg.model.memory_forcing != "target_in":
+        return None
+    return bool(np.random.default_rng([cfg.seed, step]).random() < cfg.model.copy_forcing)
+
+
 def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
             ) -> dict[str, Any]:
     """Train for ``cfg.max_steps`` steps → the last step's metrics and
     ``steps``. With ``report``, also fills in per-step wall times (seconds,
     synchronised) and phase times, the losses, each step's retrieved row
-    ids, the store builds' and refreshes' times, and the objects the run
-    made. The resolved config goes to ``<log_dir>/config_resolved.yaml``."""
+    ids and copy-forcing flag, the store builds' and refreshes' times, and
+    the objects the run made. The resolved config goes to
+    ``<log_dir>/config_resolved.yaml``."""
     from .obs import MetricsLogger
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
@@ -238,7 +249,7 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     _sync(dev)
     rep = report if report is not None else {}
     rep.update(store_s=time.perf_counter() - t0, step_s=[], phase_s=[], losses=[],
-               refresh_s=[], retrieved=[])
+               refresh_s=[], retrieved=[], copy_force=[])
     step_fn = make_train_step(cfg.model, tx, cfg.train, dtype=dtype,
                               remat=cfg.train.remat,
                               phase_times=rep["phase_s"] if report is not None else None,
@@ -272,8 +283,10 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                     _sync(dev)
                     rep["refresh_s"].append(time.perf_counter() - t0)
                 dbatch = device_batch(batch, cfg, dev)
+                force = copy_force(cfg, step)
+                rep["copy_force"].append(force)
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, store, dbatch)
+                state, metrics = step_fn(state, store, dbatch, force)
                 loss = float(metrics["loss"])  # waits for the device
                 sec = time.perf_counter() - t0
                 rep["step_s"].append(sec)
@@ -394,7 +407,7 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
     # run_predict draws from the unsplit set, train examples included)
     host = next(dm.batches(cfg.data.batch_size, shuffle=False, split="test",
                            drop_last=False))
-    batch = {k: torch.from_numpy(host[k]).to(dev) for k in _BATCH_KEYS if k in host}
+    batch = device_batch(host, cfg, dev)
     dtype = compute_dtype(cfg)
     with torch.no_grad():
         enc = rag_encode(params, cfg.model, store, batch, dtype=dtype)
@@ -405,10 +418,15 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
     t3 = time.perf_counter()
     out: dict[str, Any] = {"predictions": tok.batch_decode(ids.cpu().numpy())}
     if cfg.generation.output_copy_probs and store is not None:
-        out["copy_traces"] = copy_trace(params, cfg.model, enc, ids)
+        trace = copy_trace(params, cfg.model, enc, ids,
+                           decoder_start_id=cfg.generation.decoder_start_id)
+        _sync(dev)
+        out["copy_traces"] = {k: v.cpu().tolist() for k, v in trace.items()}
+    t4 = time.perf_counter()
     if report is not None:
         report.update(store_s=t1 - t0, encode_s=t2 - t1, generate_s=t3 - t2,
-                      params=params, store=store, batch=batch, enc=enc, ids=ids)
+                      copy_trace_s=t4 - t3, params=params, store=store, batch=batch,
+                      enc=enc, ids=ids)
     return out
 
 

@@ -261,35 +261,62 @@ def attention_train(
     return dense(p.o, _merge_heads(out))
 
 
-REMAT_POLICIES = ("dots_with_no_batch_dims_saveable",)
+# the products a selective policy can keep: the weight matmuls (aten mm and
+# addmm, no batch dimension), and with them the batched ones (bmm, baddbmm)
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+                    torch.ops.aten.addmm.default)
+_ALL_PRODUCTS = _WEIGHT_PRODUCTS + (torch.ops.aten.bmm.default, torch.ops.aten.bmm.dtype,
+                                    torch.ops.aten.baddbmm.default)
+# `jax.checkpoint_policies` names → what the port runs: "full" (recompute
+# everything), None (recompute nothing: the plain layer, which saves what
+# autograd saves), or the products a selective checkpoint keeps
+REMAT_POLICIES = {
+    "nothing_saveable": "full",
+    "everything_saveable": None,
+    "dots_saveable": _ALL_PRODUCTS,
+    "checkpoint_dots": _ALL_PRODUCTS,
+    "dots_with_no_batch_dims_saveable": _WEIGHT_PRODUCTS,
+    "checkpoint_dots_with_no_batch_dims": _WEIGHT_PRODUCTS,
+}
+# names in `jax.checkpoint_policies` that make a policy from arguments; a
+# config can only name one, and the JAX package's maybe_remat then passes
+# the factory itself as the policy, which fails when the layer is traced
+REMAT_FACTORIES = (
+    "save_only_these_names", "save_anything_except_these_names",
+    "save_any_names_but_these", "save_and_offload_only_these_names",
+    "offload_dot_with_no_batch_dims", "save_from_both_policies",
+)
 
 
-def _save_weight_matmuls(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of "dots_with_no_batch_dims_saveable":
-    keep the outputs of products with no batch dimension (the layers'
-    weight matmuls, aten ``mm``), recompute the rest (attention's batched
-    products, the kernels, elementwise work)."""
+def _save_products(keep, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of the ops in ``keep``,
+    recompute the rest (the attention kernels, elementwise work)."""
     from torch.utils.checkpoint import CheckpointPolicy
 
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
-              torch.ops.aten.addmm.default):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+    return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_context(remat):
-    """Validate ``train.remat`` → None (off), "full", or the context
-    function of a selective checkpoint. Raises on a policy the port does
-    not have."""
+    """Validate ``train.remat`` → None (no checkpoint), "full", or the
+    context function of a selective checkpoint. Raises on a name the port
+    does not have, and on the names of policy factories."""
     if not remat:
         return None
     if remat is True or remat == "full":
         return "full"
+    if remat in REMAT_FACTORIES:
+        raise ValueError(
+            f"train.remat={remat!r} names a factory of jax.checkpoint_policies, which "
+            "makes a policy from arguments, not a policy: the JAX package accepts the "
+            "name and then fails when the layer is traced; name a policy instead")
     if remat in REMAT_POLICIES:
+        keep = REMAT_POLICIES[remat]
+        if not isinstance(keep, tuple):
+            return keep
         from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
         return functools.partial(create_selective_checkpoint_contexts,
-                                 _save_weight_matmuls)
+                                 functools.partial(_save_products, keep))
     raise ValueError(
         f"train.remat={remat!r} is not supported by the port; choices: false, "
         f"true, 'full', {', '.join(repr(p) for p in REMAT_POLICIES)}")
@@ -297,10 +324,10 @@ def remat_context(remat):
 
 def maybe_remat(fn, remat):
     """Per-layer gradient checkpointing (JAX ``maybe_remat``): ``fn`` as
-    is when ``remat`` is off; else a function that runs ``fn`` under
-    ``torch.utils.checkpoint`` (non-reentrant), keeping only its inputs
-    (True/"full") or also its weight matmuls' outputs
-    ("dots_with_no_batch_dims_saveable") and recomputing the rest in the
+    is when ``remat`` is off or "everything_saveable"; else a function that
+    runs ``fn`` under ``torch.utils.checkpoint`` (non-reentrant), keeping
+    only its inputs (True, "full", "nothing_saveable") or also the outputs
+    of its products (`REMAT_POLICIES`) and recomputing the rest in the
     backward, the kernels' forwards included."""
     context = remat_context(remat)
     if context is None:

@@ -1,4 +1,5 @@
-"""Autoregressive generation (greedy and beam) over the KV cache.
+"""Autoregressive generation (greedy, sampled and beam) over the KV cache,
+and the per-token copy traces of generated ids.
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/generate.py``. The
 decode loop is a Python loop; caches are updated in place and reordered
@@ -8,7 +9,14 @@ length penalty, ``early_stopping``, repetition penalty and no-repeat
 n-gram banning. Ties in every top-k go to the lowest index, as with
 ``jax.lax.top_k`` (a stable descending sort, not ``torch.topk``).
 
-Not ported yet: sampling (``do_sample``) and ``copy_trace``.
+Sampling (``do_sample`` with one beam) filters the scores by temperature,
+top-k and top-p (`_sample_filter`) and draws ``argmax(logp + g)`` with g
+standard Gumbel noise, the draw of ``jax.random.categorical``; the noise
+comes from one ``torch.Generator`` on the scores' device (seed 0 when the
+caller gives none), so the ids are not the JAX package's, whose noise is
+``jax.random``'s. With beams the flag is ignored, as in the JAX package.
+`copy_trace` runs the decoder teacher-forced over generated ids (the
+dense attention kernels K4/K6 on the card).
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import dataclasses
 import torch
 
 from .copy_decoder import precompute_copy_kv
-from .led import init_decode_caches
+from .led import init_decode_caches, shift_tokens_right
 from .retriever_generator import RAGConfig, RAGEncoderOutput, rag_decode
 
 NEG = -1.0e9
@@ -94,17 +102,49 @@ def _min_length_mask(logp: torch.Tensor, cur_len: int, opts, eos: int):
     return logp
 
 
+def _sample_filter(logp: torch.Tensor, top_k: int, top_p: float,
+                   temperature: float) -> torch.Tensor:
+    """Temperature, then top-k, then nucleus filtering (JAX
+    `_sample_filter`): values below the k-th largest, and below the smallest
+    value of the smallest descending prefix whose mass reaches ``top_p``,
+    become NEG; ties with either threshold are kept. ``top_k`` above V
+    keeps everything."""
+    if temperature != 1.0:
+        logp = logp / temperature
+    if top_k > 0:
+        srt = torch.sort(logp, dim=-1).values
+        kth = srt[:, max(srt.shape[-1] - top_k, 0)][:, None]
+        logp = logp.masked_fill(logp < kth, NEG)
+    if top_p < 1.0:
+        srt = torch.sort(logp, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        thresh = torch.where(keep, srt, torch.full_like(srt, float("inf")))
+        thresh = thresh.amin(dim=-1, keepdim=True)
+        logp = logp.masked_fill(logp < thresh, NEG)
+    return logp
+
+
+def _gumbel_noise(generator: torch.Generator, t: int, shape, dtype) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` for decode step ``t``, drawn from
+    ``generator`` on its device as ``jax.random.gumbel`` draws it:
+    -log(-log(u)), u uniform in [tiny, 1). The generator's stream moves on
+    with each draw, so ``t`` is not read here; a substitute draw keyed by
+    the step (the JAX package folds t into its key) reads it."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(dtype).tiny)))
+
+
 def generate(params, cfg: RAGConfig, enc_out: RAGEncoderOutput,
-             opts: GenerationOptions, *, dtype=torch.float32) -> torch.Tensor:
+             opts: GenerationOptions, *, dtype=torch.float32,
+             generator: torch.Generator | None = None) -> torch.Tensor:
     """Generated ids [B, max_new_tokens] (pad after eos). Retrieval happened
-    once, in `rag_encode`; the memory stays fixed for every step."""
-    if opts.do_sample:
-        raise NotImplementedError(
-            "do_sample is not ported yet (ROADMAP queue 1: sampling)"
-        )
+    once, in `rag_encode`; the memory stays fixed for every step.
+    ``generator`` draws the noise of ``do_sample`` (one beam); None seeds
+    one with 0 on the encoder states' device."""
     with torch.no_grad():
         if opts.num_beams <= 1:
-            return _greedy(params, cfg, enc_out, opts, dtype)
+            return _greedy(params, cfg, enc_out, opts, dtype, generator)
         return _beam(params, cfg, enc_out, opts, dtype)
 
 
@@ -140,9 +180,11 @@ def _scores_after_step(seqs, t, logp, opts, eos):
     return _min_length_mask(logp, t + 1, opts, eos)
 
 
-def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype):
+def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype, generator=None):
     b = enc_out.enc_hidden.shape[0]
     dev = enc_out.enc_hidden.device
+    if opts.do_sample and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     t_max = opts.max_new_tokens
     pad, eos = cfg.led.pad_id, cfg.led.eos_id
     step = _step_fn(params, cfg, dtype, _copy_kv(params, cfg, enc_out, dtype))
@@ -153,6 +195,9 @@ def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype):
     for t in range(t_max):
         logp, caches = step(enc_out, seqs[:, t], caches, t)
         logp = _scores_after_step(seqs, t, logp, opts, eos)
+        if opts.do_sample:
+            logp = _sample_filter(logp, opts.top_k, opts.top_p, opts.temperature)
+            logp = logp + _gumbel_noise(generator, t, logp.shape, logp.dtype)
         nxt = torch.argmax(logp, dim=-1).to(torch.int32)
         nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
         seqs[:, t + 1] = nxt
@@ -240,9 +285,30 @@ def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype):
     return best[:, 1:]
 
 
-def copy_trace(*args, **kwargs):
-    """Per-token copy traces (``generation.output_copy_probs``): not ported
-    yet."""
-    raise NotImplementedError(
-        "copy_trace is not ported yet (ROADMAP queue 1: copy_trace)"
-    )
+@torch.no_grad()
+def copy_trace(params, cfg: RAGConfig, enc_out: RAGEncoderOutput,
+               generated_ids: torch.Tensor, *, decoder_start_id: int = 2,
+               top_positions: int = 4, dtype=torch.float32) -> dict:
+    """Per-token copy traces of generated ids [B, T] (``predict`` under
+    ``generation.output_copy_probs``): one teacher-forced decoder pass over
+    the ids shifted right behind ``decoder_start_id`` → copy_gate [B, T],
+    copy_mass [B, T] (the copy probabilities' sum), and the
+    ``top_positions`` most probable flattened memory positions per token,
+    top_mem_pos / top_mem_tok (their vocab ids) / top_mem_prob [B, T, P],
+    ties to the lowest position. {} when the decoder has no copy
+    distribution (the token copy head, or no memory)."""
+    dec_in = shift_tokens_right(generated_ids, cfg.led.pad_id, decoder_start_id)
+    _, aux, _ = rag_decode(params, cfg, enc_out, dec_in, dtype=dtype)
+    if not aux:
+        return {}
+    probs = aux["copy_probs"]  # [B, T, M]
+    top_vals, top_pos = _topk(probs, top_positions)
+    b, t, m = probs.shape
+    top_tok = torch.gather(enc_out.copy_seq[:, None, :].expand(b, t, m), 2, top_pos)
+    return {
+        "copy_gate": aux["copy_gate"][..., 0],
+        "copy_mass": probs.sum(dim=-1),
+        "top_mem_pos": top_pos,
+        "top_mem_tok": top_tok,
+        "top_mem_prob": top_vals,
+    }

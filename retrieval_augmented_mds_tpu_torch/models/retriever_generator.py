@@ -11,9 +11,13 @@ decoder (teacher-forced, or cached for generation) and the copy head;
 `rag_forward` chains them for training. Gradients flow wherever the
 reference's do; callers that serve run them under ``torch.no_grad()``.
 
-Ported memory modes: ``no_forcing`` and ``retrieved_forcing``, with
-``memory_model_fixed`` true or false. ``target_only``, ``target_in`` and
-dual mode raise (ROADMAP queue 1: memory forcing).
+Memory modes (``memory_forcing``), with ``memory_model_fixed`` true or
+false: ``no_forcing`` (k retrieved slots); ``retrieved_forcing`` (the
+same, without self-exclusion); ``target_only`` (one slot, the gold target,
+no search); ``target_in`` (the target slot first, then the k retrieved
+ones; its mask is zeroed when the copy-forcing flag is off); and dual
+memory, when the batch carries ``input_memory_ids`` (the first input
+documents take the first slots, retrieved rows the rest).
 """
 
 from __future__ import annotations
@@ -38,8 +42,6 @@ from .copy_decoder import (
 from .core import build_module
 from .led import LED, led_decode, led_encode, led_lm_logits
 from .longformer import Longformer, longformer_encode
-
-_PENDING_MODES = ("target_only", "target_in")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +202,41 @@ def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype, remat=False):
     return hid.reshape(b, s, l, -1)
 
 
+def _retrieve(cfg: RAGConfig, store: MemoryStore, batch, query_cls):
+    """The search with the query's gradient stopped, then the gather of the
+    retrieved corpus rows → (ids, mask [B, k, L], scores, row ids [B, k])."""
+    # retrieved_forcing disables self-exclusion
+    ignore = (None if cfg.memory_forcing == "retrieved_forcing"
+              else batch.get("mips_ignore"))
+    if isinstance(store.index, FlatIndex):
+        scores, idx = flat_search(store.index, query_cls.detach(), k=cfg.mips_topk,
+                                  ignore=ignore)
+    else:
+        scores, idx = ivf_search(store.index, query_cls.detach(), k=cfg.mips_topk,
+                                 nprobe=store.nprobe, ignore=ignore)
+    safe_idx = idx.clamp(min=0).long()
+    return store.token_ids[safe_idx], store.token_mask[safe_idx], scores, idx
+
+
+def _dual_slots(batch, ret_ids, ret_mask):
+    """Dual memory: slot j holds input document min(j, D-1) where j <
+    input_memory_count, else retrieved row max(j - count, 0) → (ids, mask
+    [B, k, L])."""
+    b, k = ret_ids.shape[:2]
+    d_in = batch["input_memory_ids"].shape[1]
+    count = batch["input_memory_count"][:, None].long()  # [B, 1]
+    slot = torch.arange(k, device=count.device)[None, :]
+    from_input = (slot < count)[..., None]
+    rows = torch.arange(b, device=count.device)[:, None]
+    in_slot = slot.clamp(max=d_in - 1).expand(b, k)
+    ret_slot = (slot - count).clamp(min=0)
+    ids = torch.where(from_input, batch["input_memory_ids"][rows, in_slot],
+                      ret_ids[rows, ret_slot])
+    mask = torch.where(from_input, batch["input_memory_mask"][rows, in_slot],
+                       ret_mask[rows, ret_slot])
+    return ids, mask
+
+
 def rag_encode(
     params: RAG,
     cfg: RAGConfig,
@@ -208,11 +245,16 @@ def rag_encode(
     *,
     dtype=torch.float32,
     remat: bool | str = False,
+    copy_force=None,
 ) -> RAGEncoderOutput:
     """Retrieval + the main document encoder. batch keys: input_ids/
     attention_mask [B, S]; query_input_ids/query_attention_mask [B, Lq];
-    optional mips_ignore [B, I] (self-exclusion corpus ids). ``remat``
-    checkpoints every layer of every encoder."""
+    optional mips_ignore [B, I] (self-exclusion corpus ids);
+    target_memory_ids/mask [B, L_mem] (``target_only``, ``target_in``);
+    input_memory_ids/mask [B, D, L_mem] and input_memory_count [B] (dual
+    memory). ``copy_force`` (a bool, or a 0-d tensor) is the train step's
+    copy-forcing flag of ``target_in``; None reads ``cfg.copy_forcing >
+    0``. ``remat`` checkpoints every layer of every encoder."""
     input_ids = batch["input_ids"]
     enc_mask = batch["attention_mask"]
 
@@ -220,34 +262,30 @@ def rag_encode(
     mips_scores = idx = faiss_scores = query_cls = None
 
     if not cfg.mips_disabled and store is not None:
-        if cfg.memory_forcing in _PENDING_MODES or "input_memory_ids" in batch:
-            raise NotImplementedError(
-                f"memory_forcing={cfg.memory_forcing!r} / dual memory are not "
-                "ported yet (ROADMAP queue 1: memory forcing)"
-            )
         q_hidden = longformer_encode(
             params.query_encoder, cfg.query_enc, batch["query_input_ids"],
             batch["query_attention_mask"], dtype=dtype, remat=remat,
         )
         query_cls = q_hidden[:, 0].float()
         b = query_cls.shape[0]
-        # retrieved_forcing disables self-exclusion
-        ignore = (None if cfg.memory_forcing == "retrieved_forcing"
-                  else batch.get("mips_ignore"))
-        # the search carries no gradient; the rescoring below does
-        if isinstance(store.index, FlatIndex):
-            faiss_scores, idx = flat_search(store.index, query_cls.detach(),
-                                            k=cfg.mips_topk, ignore=ignore)
+        if cfg.memory_forcing == "target_only":
+            # the gold target is the one memory slot; no search
+            mem_ids = batch["target_memory_ids"][:, None]  # [B, 1, L]
+            mem_mask = batch["target_memory_mask"][:, None]
         else:
-            faiss_scores, idx = ivf_search(store.index, query_cls.detach(),
-                                           k=cfg.mips_topk, nprobe=store.nprobe,
-                                           ignore=ignore)
-        safe_idx = idx.clamp(min=0).long()
-        mem_ids = store.token_ids[safe_idx]  # [B, k, L]
-        mem_mask = store.token_mask[safe_idx]
+            mem_ids, mem_mask, faiss_scores, idx = _retrieve(cfg, store, batch, query_cls)
+            if cfg.memory_forcing == "target_in":
+                # the target slot comes first, masked off when the flag is off
+                force = cfg.copy_forcing > 0.0 if copy_force is None else copy_force
+                t_mask = batch["target_memory_mask"][:, None]
+                t_mask = t_mask * torch.as_tensor(force, device=t_mask.device).to(t_mask.dtype)
+                mem_ids = torch.cat([batch["target_memory_ids"][:, None], mem_ids], dim=1)
+                mem_mask = torch.cat([t_mask, mem_mask], dim=1)
+            elif "input_memory_ids" in batch:
+                mem_ids, mem_mask = _dual_slots(batch, mem_ids, mem_mask)
         slots = mem_ids.shape[1]
 
-        # cosine rescoring of the retrieved rows, with the norms' gradient
+        # cosine rescoring of the memory rows, with the norms' gradient
         # stopped (as the reference's)
         mips_hid = _encode_memory_rows(
             params.mips_encoder, cfg.mips_enc, mem_ids, mem_mask, dtype=dtype,
@@ -334,10 +372,11 @@ def rag_decode(
 
 def rag_forward(params: RAG, cfg: RAGConfig, store: MemoryStore | None,
                 batch: dict[str, Any], *, dtype=torch.float32,
-                remat: bool | str = False):
+                remat: bool | str = False, copy_force=None):
     """The full teacher-forced forward, with gradients → (out, aux,
     enc_out)."""
-    enc_out = rag_encode(params, cfg, store, batch, dtype=dtype, remat=remat)
+    enc_out = rag_encode(params, cfg, store, batch, dtype=dtype, remat=remat,
+                         copy_force=copy_force)
     out, aux, _ = rag_decode(params, cfg, enc_out, batch["decoder_input_ids"],
                              dtype=dtype, remat=remat)
     return out, aux, enc_out

@@ -66,16 +66,17 @@ def make_train_step(
     retrieved: list[torch.Tensor] | None = None,
 ) -> Callable:
     """Returns ``train_step(state, store, batch, copy_force=None) →
-    (state, metrics)``, metrics as 0-d tensors. With ``phase_times``, each
-    step synchronises the device between its phases and appends
-    ``{"forward", "backward", "optimizer"}`` wall seconds to the list. With
-    ``retrieved``, each step that searches the store appends its retrieved
-    row ids [B, k] (on the device) to that list."""
+    (state, metrics)``, metrics as 0-d tensors; ``copy_force`` is the
+    step's copy-forcing flag under ``target_in`` (`rag_encode`). With
+    ``phase_times``, each step synchronises the device between its phases
+    and appends ``{"forward", "backward", "optimizer"}`` wall seconds to the
+    list. With ``retrieved``, each step that searches the store appends its
+    retrieved row ids [B, k] (on the device) to that list."""
     remat_context(remat)  # an unsupported policy raises here, not mid-step
 
-    def loss_fn(params, store, batch):
+    def loss_fn(params, store, batch, copy_force):
         out, aux, enc_out = rag_forward(params, cfg, store, batch, dtype=dtype,
-                                        remat=remat)
+                                        remat=remat, copy_force=copy_force)
         if cfg.mips_disabled or enc_out.memory is None:
             log_probs = torch.log_softmax(out, dim=-1)
         else:
@@ -112,15 +113,11 @@ def make_train_step(
         return t1
 
     def train_step(state: TrainState, store, batch, copy_force=None):
-        if copy_force is not None:
-            raise NotImplementedError(
-                "copy_force (memory_forcing='target_in') is not ported yet "
-                "(ROADMAP queue 1: memory forcing)")
         params = state.params
         device = next(params.parameters()).device
         times: dict[str, float] = {}
         t0 = time.perf_counter()
-        loss, metrics = loss_fn(params, store, batch)
+        loss, metrics = loss_fn(params, store, batch, copy_force)
         if phase_times is not None:
             t0 = mark(times, "forward", t0, device)
         grads = _backward_grads(params, loss)

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any
 
 from ..models.config import EncoderConfig, Seq2SeqConfig
+from ..models.core import remat_context
 from ..models.generate import GenerationOptions
 from ..models.retriever_generator import RAGConfig
 
@@ -20,9 +21,10 @@ from ..models.retriever_generator import RAGConfig
 @dataclasses.dataclass(frozen=True)
 class TrainHyper:
     """Training knobs of `train.trainer.make_train_step` and
-    `cli.build_tx`. ``remat``: False, True/"full" or
-    "dots_with_no_batch_dims_saveable" (`models.core.maybe_remat`; other
-    policy names raise). ``adam_8bit``: the 8-bit AdamW of
+    `cli.build_tx`. ``remat``: False, True/"full" or a policy name of
+    `models.core.REMAT_POLICIES`; any other name, the names of
+    `jax.checkpoint_policies`' factories among them, raises when the config
+    is read. ``adam_8bit``: the 8-bit AdamW of
     `train.adam8bit`. ``adam_8bit_fused`` is accepted and has no effect:
     the port routes the 8-bit update by device (kernel K9 on the card, its
     plain version on the CPU), and both compute the same function."""
@@ -41,6 +43,9 @@ class TrainHyper:
     adam_8bit: bool = False
     adam_8bit_fused: bool = False
     grad_group_norms: bool = False
+
+    def __post_init__(self):
+        remat_context(self.remat)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1210,3 +1210,79 @@ def test_8bit_optimizer_on_the_card_matches_the_cpu(gen):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-6, msg=n)
     assert runs["cuda"][1].count == 3
     assert (runs["cuda"][1].mu_q.cpu().int() - runs["cpu"][1].mu_q.int()).abs().max() <= 1
+
+
+def _smoke_encoded(**generation):
+    """configs/smoke.yaml's predict on the card with ``generation`` set →
+    (config, its run_predict report)."""
+    import dataclasses
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke.yaml"))
+    cfg = dataclasses.replace(cfg, generation=dataclasses.replace(cfg.generation,
+                                                                  **generation))
+    report = {}
+    cli.run_predict(cfg, device="cuda", report=report)
+    return cfg, report
+
+
+def _to_cpu(enc):
+    import dataclasses
+
+    return dataclasses.replace(enc, **{f.name: getattr(enc, f.name).cpu()
+                                       for f in dataclasses.fields(enc)
+                                       if getattr(enc, f.name) is not None})
+
+
+def test_copy_trace_runs_through_k4_and_matches_the_cpu(gen):
+    """`copy_trace` on the card launches K4 for every decoder layer's self-
+    and cross-attention (f32, as predict runs it) and agrees with the same
+    call on the CPU (the plain versions) on the same encoder outputs and
+    ids: gate and mass within 1e-4, the top positions equal wherever the
+    4th and 5th probabilities are more than 1e-4 apart."""
+    import copy
+
+    from retrieval_augmented_mds_tpu_torch.models.generate import copy_trace
+
+    cfg, rep = _smoke_encoded(output_copy_probs=True)
+    params, enc, ids = rep["params"], rep["enc"], rep["ids"]
+    flash_dense_attention.launches = 0
+    got = copy_trace(params, cfg.model, enc, ids, top_positions=5)
+    assert flash_dense_attention.launches == 2 * cfg.model.led.dec_layers
+    ref = copy_trace(copy.deepcopy(params).cpu(), cfg.model, _to_cpu(enc), ids.cpu(),
+                     top_positions=5)
+    for k in ("copy_gate", "copy_mass"):
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0, atol=1e-4)
+    gap = ref["top_mem_prob"][..., 3] - ref["top_mem_prob"][..., 4]
+    clear = gap > 1e-4
+    assert clear.any()
+    assert torch.equal(got["top_mem_pos"][..., :4].cpu()[clear], ref["top_mem_pos"][..., :4][clear])
+
+
+def test_sampling_on_the_card_is_seeded(gen):
+    """Sampled `generate` on the card: one seed gives bit-equal ids (the
+    default generator is seed 0)."""
+    from retrieval_augmented_mds_tpu_torch.models.generate import GenerationOptions, generate
+
+    cfg, rep = _smoke_encoded()
+    params, enc = rep["params"], rep["enc"]
+    opts = GenerationOptions(max_new_tokens=16, do_sample=True, temperature=0.8, top_k=50,
+                             top_p=0.95)
+    a = generate(params, cfg.model, enc, opts)
+    b = generate(params, cfg.model, enc, opts,
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    assert torch.equal(a, b)
+
+
+def test_top_k_1_sampling_on_the_card_is_greedy(gen):
+    """Top-k 1 sampling on the card gives the greedy ids bit for bit."""
+    from retrieval_augmented_mds_tpu_torch.models.generate import GenerationOptions, generate
+
+    cfg, rep = _smoke_encoded()
+    params, enc = rep["params"], rep["enc"]
+    greedy = generate(params, cfg.model, enc, GenerationOptions(max_new_tokens=16))
+    top1 = generate(params, cfg.model, enc, GenerationOptions(
+        max_new_tokens=16, do_sample=True, temperature=0.8, top_k=1, top_p=0.95))
+    assert torch.equal(top1, greedy)

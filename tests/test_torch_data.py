@@ -171,9 +171,10 @@ print(json.dumps({'modules': mods, 'bad': bad}))
 
 def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     """A fresh interpreter imports every module of the port and runs
-    `predict` on configs/smoke.yaml (Flat) and on an IVF SQ8 variant on the
-    CPU; neither JAX nor the JAX package is then loaded. chip_smoke.py
-    imports neither either."""
+    `predict` on configs/smoke.yaml (Flat), on an IVF SQ8 variant, and on
+    a variant that samples and returns copy traces (``do_sample``,
+    ``output_copy_probs``) under ``target_in`` on the CPU; neither JAX nor
+    the JAX package is then loaded. chip_smoke.py imports neither either."""
     import yaml
 
     with open(os.path.join(REPO, "configs", "smoke.yaml")) as f:
@@ -182,8 +183,16 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     ivf_cfg = str(tmp_path / "smoke_ivf.yaml")
     with open(ivf_cfg, "w") as f:
         yaml.safe_dump(d, f)
+    d["index"].update(factory="Flat")
+    d["model"].update(memory_forcing="target_in", copy_forcing=0.5)
+    d["generation"].update(num_beams=1, do_sample=True, top_k=10, top_p=0.9,
+                           output_copy_probs=True)
+    modes_cfg = str(tmp_path / "smoke_modes.yaml")
+    with open(modes_cfg, "w") as f:
+        yaml.safe_dump(d, f)
     res = subprocess.run(
-        [sys.executable, "-c", _GUARD, os.path.join(REPO, "configs", "smoke.yaml"), ivf_cfg],
+        [sys.executable, "-c", _GUARD, os.path.join(REPO, "configs", "smoke.yaml"), ivf_cfg,
+         modes_cfg],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])

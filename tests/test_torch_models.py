@@ -227,7 +227,8 @@ def test_teacher_forced_decode_is_pending(tiny):
     """The teacher-forced decoder runs (its parity is in
     test_torch_train.py), with gradient checkpointing too (the same hidden
     states; tests/test_torch_remat.py holds its gradients); what stays
-    pending is a checkpoint policy the port does not have, which raises."""
+    pending is a name the port has no policy for (here a factory of
+    jax.checkpoint_policies), which raises."""
     cfg, _, model = tiny
     x = torch.zeros((1, 4), dtype=torch.int32)
     hid, caches = tled.led_decode(model.led, cfg.led, x, torch.zeros(1, 64, 64),
@@ -238,7 +239,7 @@ def test_teacher_forced_decode_is_pending(tiny):
     assert torch.equal(again, hid)
     with pytest.raises(ValueError, match="remat"):
         tled.led_decode(model.led, cfg.led, x, torch.zeros(1, 64, 64),
-                        torch.ones(1, 64), remat="everything_saveable")
+                        torch.ones(1, 64), remat="save_only_these_names")
 
 
 def _memory(cfg, b, seed=3, m=128):

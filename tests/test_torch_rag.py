@@ -193,11 +193,20 @@ def test_encode_corpus_matches_jax():
 
 
 def test_pending_memory_modes_raise():
-    cfg, _, _, model = _setup(memory_forcing="target_in")
+    """The memory modes, once pending, run (their parity is in
+    test_torch_memory_modes.py): ``target_in`` puts its target slot before
+    the k retrieved ones; what still raises is a mode neither package has."""
+    cfg, _, _, model = _setup(memory_forcing="target_in", copy_forcing=0.5)
     _, tstore = _stores(cfg)
-    with pytest.raises(NotImplementedError, match="target_in"):
-        trag.rag_encode(model, cfg, tstore,
-                        {k: _t(v) for k, v in _batch(cfg).items()})
+    batch = _batch(cfg)
+    batch["target_memory_ids"] = batch["query_input_ids"]
+    batch["target_memory_mask"] = batch["query_attention_mask"]
+    enc = trag.rag_encode(model, cfg, tstore, {k: _t(v) for k, v in batch.items()})
+    assert cfg.memory_slots == cfg.mips_topk + 1
+    assert enc.memory.shape == (B, cfg.memory_slots * LM, cfg.led.d_model)
+    np.testing.assert_array_equal(enc.copy_seq[:, :LM].numpy(), batch["query_input_ids"])
+    with pytest.raises(ValueError, match="memory_forcing"):
+        trag.RAGConfig.tiny(memory_forcing="target_first")
 
 
 @pytest.mark.parametrize("use_own_decoder", [True, False])
@@ -255,10 +264,16 @@ def test_generate_without_memory_equals_jax():
 
 
 def test_sampling_is_pending():
+    """Sampling, once pending, runs (its parity with the JAX package's draw
+    is in test_torch_generate_modes.py): one seed gives the same ids, and
+    no generator means seed 0."""
     cfg, _, _, model = _setup(seed=3, mips_disabled=True)
     tenc = trag.rag_encode(model, cfg, None, {k: _t(v) for k, v in _batch(cfg).items()})
-    with pytest.raises(NotImplementedError, match="do_sample"):
-        tgen.generate(model, cfg, tenc, tgen.GenerationOptions(do_sample=True))
+    opts = tgen.GenerationOptions(do_sample=True, max_new_tokens=6, top_k=20)
+    ids = tgen.generate(model, cfg, tenc, opts)
+    assert ids.shape == (B, 6)
+    again = tgen.generate(model, cfg, tenc, opts, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ids, again)
 
 
 # ---------------------------------------------------------------------------

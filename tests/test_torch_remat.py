@@ -1,7 +1,9 @@
 """Gradient checkpointing (``train.remat``) in the port, on the CPU: the
 gradients with each supported policy equal those without, they match the
-JAX package's ``remat=True`` gradients, the selective policy keeps the
-weight matmuls' outputs, and an unsupported policy raises.
+JAX package's ``remat=True`` gradients, the selective policies keep the
+products they name (the weight matmuls; with the "dots" policies the
+batched products too), an unsupported policy raises, and so do the names
+of jax.checkpoint_policies' factories.
 
 Parameters come from the JAX package's `init_rag` (RAGConfig.tiny, with a
 separate memory encoder so that every encoder is checkpointed) through
@@ -28,7 +30,12 @@ from tests.test_torch_models import _np
 from tests.test_torch_train import _train_inputs
 
 torch.set_num_threads(1)
-POLICIES = [True, "full", "dots_with_no_batch_dims_saveable"]
+POLICIES = [True, "full", "dots_with_no_batch_dims_saveable", "nothing_saveable",
+            "everything_saveable", "dots_saveable", "checkpoint_dots",
+            "checkpoint_dots_with_no_batch_dims"]
+FACTORIES = ["save_only_these_names", "save_anything_except_these_names",
+             "save_any_names_but_these", "save_and_offload_only_these_names",
+             "offload_dot_with_no_batch_dims", "save_from_both_policies"]
 
 
 @pytest.fixture(scope="module")
@@ -89,14 +96,29 @@ def test_remat_grads_match_jax(rag):
 
 
 class _CountMatmuls(TorchDispatchMode):
+    """Counts the weight matmuls (aten mm) and the batched products (aten
+    bmm) that run under it."""
+
     def __init__(self):
         super().__init__()
-        self.mm = 0
+        self.mm = self.bmm = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype):
             self.mm += 1
+        elif func in (torch.ops.aten.bmm.default, torch.ops.aten.bmm.dtype):
+            self.bmm += 1
         return func(*args, **(kwargs or {}))
+
+
+def _backward_products(model, cfg, store, batch, remat) -> _CountMatmuls:
+    """The products that the backward of the loss runs under ``remat``."""
+    out, _, _ = trag.rag_forward(model, cfg, store, batch, remat=remat)
+    loss = tloss.summarization_loss(out, batch["labels"], 0.1, cfg.led.pad_id)
+    with _CountMatmuls() as mode:
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    return mode
 
 
 def test_selective_policy_keeps_weight_matmuls(rag):
@@ -104,28 +126,63 @@ def test_selective_policy_keeps_weight_matmuls(rag):
     forward's, "dots_with_no_batch_dims_saveable" takes them from what it
     saved, so its backward runs as many as the backward without remat."""
     cfg, _, _, model, _, tstore, (_, tb) = rag
-    counts = {}
-    for remat in (False, "full", "dots_with_no_batch_dims_saveable"):
-        out, _, _ = trag.rag_forward(model, cfg, tstore, tb, remat=remat)
-        loss = tloss.summarization_loss(out, tb["labels"], 0.1, cfg.led.pad_id)
-        with _CountMatmuls() as mode:
-            loss.backward()
-        model.zero_grad(set_to_none=True)
-        counts[remat] = mode.mm
+    counts = {remat: _backward_products(model, cfg, tstore, tb, remat).mm
+              for remat in (False, "full", "dots_with_no_batch_dims_saveable")}
     assert counts["dots_with_no_batch_dims_saveable"] == counts[False]
     assert counts["full"] > counts[False]
 
 
-@pytest.mark.parametrize("remat", ["nothing_saveable", "dots_saveable", "bogus", 2])
+def test_dots_saveable_keeps_batched_products(rag):
+    """"dots_saveable" and "checkpoint_dots" keep every product, the batched
+    ones (attention's, aten bmm) too: their backward runs as many weight
+    matmuls and batched products as the backward without remat, where
+    "dots_with_no_batch_dims_saveable" recomputes the batched ones and
+    "nothing_saveable" everything; "everything_saveable" recomputes
+    nothing."""
+    cfg, _, _, model, _, tstore, (_, tb) = rag
+    counts = {remat: _backward_products(model, cfg, tstore, tb, remat)
+              for remat in (False, "dots_saveable", "checkpoint_dots",
+                            "dots_with_no_batch_dims_saveable", "nothing_saveable",
+                            "everything_saveable")}
+    plain = counts[False]
+    assert plain.bmm > 0
+    for remat in ("dots_saveable", "checkpoint_dots", "everything_saveable"):
+        assert (counts[remat].mm, counts[remat].bmm) == (plain.mm, plain.bmm), remat
+    assert counts["dots_with_no_batch_dims_saveable"].mm == plain.mm
+    assert counts["dots_with_no_batch_dims_saveable"].bmm > plain.bmm
+    assert counts["nothing_saveable"].mm > plain.mm
+    assert counts["nothing_saveable"].bmm > plain.bmm
+
+
+@pytest.mark.parametrize("remat", ["nothing_savable", "save_dots", "bogus", 2])
 def test_unsupported_remat_policy_raises(rag, remat):
     """A policy the port does not have raises, naming the ones it has,
-    when the train step is made (before any step) and in the model."""
+    when the config is read, when the train step is made (before any step)
+    and in the model."""
     cfg = rag[0]
+    with pytest.raises(ValueError, match="dots_with_no_batch_dims_saveable"):
+        tconfig.TrainHyper(remat=remat)
     with pytest.raises(ValueError, match="dots_with_no_batch_dims_saveable"):
         ttrainer.make_train_step(cfg, toptim.build_optimizer(1e-3),
                                  tconfig.TrainHyper(), remat=remat)
     with pytest.raises(ValueError, match="not supported"):
         tcore.maybe_remat(lambda x: x, remat)
+
+
+@pytest.mark.parametrize("name", FACTORIES)
+def test_remat_factory_names_raise(rag, name):
+    """The names of jax.checkpoint_policies' factories are not policies:
+    the JAX package's maybe_remat accepts them and then fails at trace time
+    (a TypeError). The port raises a ValueError that says so when the
+    config is read, when the train step is made and in the model."""
+    cfg = rag[0]
+    with pytest.raises(ValueError, match="factory"):
+        tconfig.config_from_dict({"model": {"preset": "tiny"}, "train": {"remat": name}})
+    with pytest.raises(ValueError, match="factory"):
+        ttrainer.make_train_step(cfg, toptim.build_optimizer(1e-3),
+                                 tconfig.TrainHyper(), remat=name)
+    with pytest.raises(ValueError, match="factory"):
+        tcore.maybe_remat(lambda x: x, name)
 
 
 def test_remat_train_steps_equal_plain_steps(rag):

@@ -41,7 +41,7 @@ from retrieval_augmented_mds_tpu_torch.utils import checkpoint as tckpt
 from retrieval_augmented_mds_tpu_torch.utils import config as tconfig
 
 from tests.test_torch_models import _np, _t, port_params
-from tests.test_torch_rag import B, N, _batch, _setup, _stores
+from tests.test_torch_rag import LM, B, N, _batch, _setup, _stores
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -202,13 +202,13 @@ def test_teacher_forced_led_decode_matches_jax():
 
 def test_remat_and_8bit_adam_raise():
     """Both are ported (tests/test_torch_remat.py, test_torch_adam8bit.py);
-    what still raises: a remat policy the port does not have, and an 8-bit
+    what still raises: a remat name the port has no policy for, and an 8-bit
     state whose superleaf does not fit the parameters."""
     cfg, _, _, model = _setup()
     with pytest.raises(ValueError, match="remat"):
         tled.led_decode(model.led, cfg.led, torch.zeros((1, 4), dtype=torch.int32),
                         torch.zeros((1, 8, cfg.led.d_model)), torch.ones((1, 8)),
-                        remat="nothing_saveable")
+                        remat="save_from_both_policies")
     tx = toptim.build_optimizer(1e-3, state_8bit=True)
     state = tx.init(model.led.decoder)
     grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
@@ -220,9 +220,11 @@ def test_remat_and_8bit_adam_raise():
 # the train step
 # ---------------------------------------------------------------------------
 
-def _train_inputs(cfg, seed, n_batches=3):
+def _train_inputs(cfg, seed, n_batches=3, with_target=False):
     """Flat stores with per-row article ids, and batches with labels and
-    gold ids, in both packages' forms."""
+    gold ids (with ``with_target``, also target_memory_ids/mask, drawn
+    apart so the other arrays stay those of the seed), in both packages'
+    forms."""
     jstore, tstore = _stores(cfg, seed)
     rng = np.random.default_rng(seed)
     aids = rng.integers(0, 20, (N, 3)).astype(np.int32)
@@ -236,12 +238,26 @@ def _train_inputs(cfg, seed, n_batches=3):
         labels[0, 11:] = cfg.led.pad_id
         host.update(labels=labels, gold_aid=rng.integers(0, 20, B).astype(np.int32),
                     aid_counts=rng.integers(1, 4, B).astype(np.int32))
+        if with_target:
+            host.update(target_memory(cfg, seed + 100 + i))
         jb = {k: jnp.asarray(v) for k, v in host.items()}
         jb["decoder_input_ids"] = jled.shift_tokens_right(jb["labels"], cfg.led.pad_id, 2)
         tb = {k: _t(v) for k, v in host.items()}
         tb["decoder_input_ids"] = tled.shift_tokens_right(tb["labels"], cfg.led.pad_id, 2)
         batches.append((jb, tb))
     return jstore, tstore, batches
+
+
+def target_memory(cfg, seed) -> dict[str, np.ndarray]:
+    """target_memory_ids/mask [B, LM]: the gold target at memory length
+    (<s> first, padding after a ragged end), as the data pipeline emits it."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, cfg.mips_enc.vocab_size, (B, LM)).astype(np.int32)
+    ids[:, 0] = cfg.mips_enc.bos_id
+    mask = np.ones((B, LM), np.int32)
+    mask[1, 37:] = 0
+    ids[mask == 0] = cfg.mips_enc.pad_id
+    return {"target_memory_ids": ids, "target_memory_mask": mask}
 
 
 # Leaves whose gradient is zero in exact arithmetic: a bias added to every
@@ -323,7 +339,7 @@ def _state_arrays(jstate) -> dict[str, torch.Tensor]:
 
 
 def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dict,
-                     rel: float = 2.0 ** -22):
+                     rel: float = 2.0 ** -22, rel_of: dict[str, float] | None = None):
     """The port's f32 gradients against the JAX package's, leaf by leaf:
     ||g_port - g_jax|| <= 3 (r_port + r_jax) + 2^-22 ||g_jax||, r being a
     package's own roundoff, ||g - g64||, against its own f64 run from the
@@ -337,17 +353,20 @@ def _check_gradients(step: int, port: dict, jax_: dict, port64: dict, jax64: dic
     give exactly). Each
     leaf is held to its own roundoff, so that a fault in a leaf whose
     gradient is far below the tree's largest (the query encoder's are
-    below 1e-6 of it) still shows."""
+    below 1e-6 of it) still shows. ``rel_of`` gives a leaf its own ``rel``."""
+    rel_of = rel_of or {}
     for n, g in port.items():
         g = g.double().numpy()
         gap = float(np.linalg.norm(g - jax_[n]))
         r_port = float(np.linalg.norm(g - port64[n].numpy()))
         r_jax = float(np.linalg.norm(np.asarray(jax_[n], np.float64) - jax64[n]))
-        allowed = 3 * (r_port + r_jax) + rel * float(np.linalg.norm(jax_[n]))
+        allowed = 3 * (r_port + r_jax) + rel_of.get(n, rel) * float(np.linalg.norm(jax_[n]))
         assert gap <= allowed, f"step {step}: {n} gradient {gap:.3g} apart, {allowed:.3g} allowed"
 
 
-def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
+def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state, *,
+                   model_kw: dict | None = None, copy_force=(None,) * 3,
+                   rel_of: dict[str, float] | None = None) -> tuple:
     """Three train steps of both packages from the JAX package's
     trajectory, each step begun by both from the same point: the JAX
     parameters and optimizer state are loaded into the port first. At each
@@ -378,8 +397,12 @@ def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
     free-running port model, the JAX parameters after the three steps,
     the port's store, the first batch, and per step the JAX package's
     gradients on its own trajectory and the free-running port's on its own,
-    each scaled by its clip)."""
-    cfg, jcfg, jp, model = _setup(seed=seed)
+    each scaled by its clip). ``model_kw`` goes to both packages' configs
+    (with ``memory_forcing: target_in`` the batches carry the target
+    memory); ``copy_force`` is each step's flag, passed to every step;
+    ``rel_of`` goes to `_check_gradients`."""
+    model_kw = model_kw or {}
+    cfg, jcfg, jp, model = _setup(seed=seed, **model_kw)
     free = port_params(cfg, jp)
     jtx = joptim.build_optimizer(hyper["lr"], hyper["warmup_steps"], hyper["total_steps"],
                                  **opt)
@@ -404,13 +427,14 @@ def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
     exact, exact_step = port_step(None, torch.float64)
     tstate = ttrainer.TrainState.create(model, ttx)
     fstate = ttrainer.TrainState.create(free, ftx)
-    jstore, tstore, batches = _train_inputs(cfg, seed)
+    jstore, tstore, batches = _train_inputs(
+        cfg, seed, with_target=model_kw.get("memory_forcing") == "target_in")
     required = {"loss", "copy_gate_mean", "copy_probs_mass", "mips_score_mean",
                 "retriever_recall", "grad_norm"}
     if hyper.get("grad_group_norms"):
         required.add("grad_norm_led")
     trace = []
-    for i, (jb, tb) in enumerate(batches):
+    for i, ((jb, tb), force) in enumerate(zip(batches, copy_force)):
         start = jax.tree_util.tree_map(jnp.array, jstate)  # the step donates jstate
         flat = _state_arrays(start)
         tckpt.load_params(model, flat)
@@ -422,11 +446,12 @@ def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
                 kept = jtrainer.TrainState(params=params,
                                            opt_state=_keep_gradients_tx().init(params),
                                            step=jnp.array(start.step))
-                jgrads[dtype] = flatten_tree(jgrad_step(kept, jstore, jb, None)[0].opt_state)
-        exact_step(ttrainer.TrainState(copy.deepcopy(model).double(), None, 0), tstore, tb)
-        jstate, jm = jstep(jstate, jstore, jb, None)
-        tstate, tm = tstep(tstate, tstore, tb)
-        fstate, fm = fstep(fstate, tstore, tb)
+                jgrads[dtype] = flatten_tree(jgrad_step(kept, jstore, jb, force)[0].opt_state)
+        exact_step(ttrainer.TrainState(copy.deepcopy(model).double(), None, 0), tstore, tb,
+                   force)
+        jstate, jm = jstep(jstate, jstore, jb, force)
+        tstate, tm = tstep(tstate, tstore, tb, force)
+        fstate, fm = fstep(fstate, tstore, tb, force)
         assert set(tm) == set(jm)
         assert required <= set(tm)
         for m in (tm, fm):
@@ -437,7 +462,8 @@ def steps_from_jax(seed: int, hyper: dict, opt: dict, check_state) -> tuple:
                                        err_msg=f"step {i}: {k}")
         g = tkept.grads[-1]
         assert set(g) == set(jgrads[jnp.float32]) == set(fkept.grads[-1])
-        _check_gradients(i, g, jgrads[jnp.float32], exact.grads[-1], jgrads[jnp.float64])
+        _check_gradients(i, g, jgrads[jnp.float32], exact.grads[-1], jgrads[jnp.float64],
+                         rel_of=rel_of)
         upd, ref_opt = jupdate(_jax_tree(start.params, {n: _np(x) for n, x in g.items()}),
                                start.opt_state, start.params)
         ref_params = optax.apply_updates(start.params, upd)
@@ -484,6 +510,33 @@ def _adam_bound(hyper: dict, steps: int, b1_mu: float) -> float:
     return gap
 
 
+BF16_MU_HYPER = dict(lr=5e-4, warmup_steps=1, total_steps=100, weight_decay=0.01,
+                     grad_clip=1.0, grad_group_norms=True)
+B1_BF16 = float(torch.tensor(0.9, dtype=torch.bfloat16))  # the mu decay, as rounded
+
+
+def check_bf16_mu_state(got, ref, prev, clipped):
+    """`steps_from_jax`'s optimizer-state check for AdamW with a bf16 mu:
+    nu within rtol 1e-5 + atol 1e-7, as `test_optimizer_matches_optax`
+    holds it; mu within one bf16 step of the result plus the f32 roundoff
+    of its terms."""
+    for k, r in ref.items():
+        if "/.mu/" in k:
+            # mu = bf16(b1 mu_prev + 0.1 g): one bf16 step at the result
+            # (a half-way point rounded either way), and f32 roundoff of
+            # the terms: 2^-23 in the sum, and the clip scales of the
+            # two packages, each a norm over n < 2^21 squares summed
+            # pairwise (log2(n) 2^-24 apiece): 2^-18 of the terms
+            assert got[k].dtype == r.dtype == torch.bfloat16, k
+            n = k.split("/.mu/")[1].replace("/", ".")
+            terms = B1_BF16 * prev[k].float().abs() + 0.1 * clipped[n].abs()
+            bound = r.float().abs() * 2.0 ** -7 + terms * 2.0 ** -18
+            assert ((got[k].float() - r.float()).abs() <= bound).all(), k
+        else:
+            np.testing.assert_allclose(*_as_f32({"g": got[k], "r": r}).values(),
+                                       rtol=1e-5, atol=1e-7, err_msg=k)
+
+
 def test_train_steps_match_jax():
     """Three make_train_step steps (AdamW with warmup, decay, clip, bf16
     mu), held step by step from the JAX trajectory (`steps_from_jax`; nu
@@ -509,31 +562,10 @@ def test_train_steps_match_jax():
       (most of the query encoder's, whose gradients are ~1e-9) are held on
       shared gradients above.
     """
-    hyper = dict(lr=5e-4, warmup_steps=1, total_steps=100, weight_decay=0.01,
-                 grad_clip=1.0, grad_group_norms=True)
-    b1 = float(torch.tensor(0.9, dtype=torch.bfloat16))  # the mu decay, as rounded
-
-    def check_state(got, ref, prev, clipped):
-        for k, r in ref.items():
-            if "/.mu/" in k:
-                # mu = bf16(b1 mu_prev + 0.1 g): one bf16 step at the result
-                # (a half-way point rounded either way), and f32 roundoff of
-                # the terms: 2^-23 in the sum, and the clip scales of the
-                # two packages, each a norm over n < 2^21 squares summed
-                # pairwise (log2(n) 2^-24 apiece): 2^-18 of the terms
-                assert got[k].dtype == r.dtype == torch.bfloat16, k
-                n = k.split("/.mu/")[1].replace("/", ".")
-                terms = b1 * prev[k].float().abs() + 0.1 * clipped[n].abs()
-                bound = r.float().abs() * 2.0 ** -7 + terms * 2.0 ** -18
-                assert ((got[k].float() - r.float()).abs() <= bound).all(), k
-            else:
-                np.testing.assert_allclose(*_as_f32({"g": got[k], "r": r}).values(),
-                                           rtol=1e-5, atol=1e-7, err_msg=k)
-
     cfg, free, jparams, tstore, tb, trace = steps_from_jax(
-        5, hyper, dict(weight_decay=0.01, grad_clip=1.0), check_state)
+        5, BF16_MU_HYPER, dict(weight_decay=0.01, grad_clip=1.0), check_bf16_mu_state)
     names = check_zero_gradient_leaves(free, cfg, tstore, tb)
-    bound = _adam_bound(hyper, 3, b1)
+    bound = _adam_bound(BF16_MU_HYPER, 3, B1_BF16)
     ref = flatten_tree(jparams)
     for n, p in free.named_parameters():
         if n in names:
