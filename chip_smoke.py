@@ -90,10 +90,24 @@ Phases, in order; any failure exits non-zero:
      names warn and keep the seeded init), 4 steps with two full-KB
      validations over the fixture's 1997 positive pairs, then ``--mode
      test`` and ``--mode predict`` on the exported ``encoders.npz``, then the
-     summarizer's ``predict`` with ``model.encoder_state_path`` set to it.
+     summarizer's ``predict`` with ``model.encoder_state_path`` set to it;
+ 14. the baselines, small: ``cli.run_fit_baseline`` of
+     ``configs/baseline_bart.yaml`` and of the same with ``baseline: t5``,
+     card against CPU (losses, greedy val ids), BART on K4/K5 and T5 on no
+     kernel; the BART run again through ``fit --profile``, whose trace
+     names the K4/K5 kernels (K4/K5 at the baseline's own shapes: phase 5);
+ 15. the BART baseline at ``facebook/bart-large``'s width (d 1024, 16 heads,
+     12 + 12 layers, 1024-token sources), seeded random weights, over the
+     fixture: 4 steps and greedy decoding of one val batch, K4 = 36 x steps
+     + 12 x val batches and K5 = 36 x steps; then 2 steps and a shorter
+     decoding through ``fit --profile``, whose trace gives the device's
+     busy time in a step and in the decoding, by kernel class;
+ 16. the T5 baseline at ``t5-large``'s width (24 + 24 layers, 512-token
+     sources): the same, with no kernel launched.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the eight slices, K10's from its own phase, as no path calls it; ms,
+over the eight slices and the two baselines, K10's from its own phase, as
+no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -757,12 +771,12 @@ def phase_k3():
     return served
 
 
-def _dense_inputs(b, t, s, lengths, dtype, seed):
-    """(generator, q, k, v, key_bias) of the decoder's attention, nh = 12,
-    dh = 64; batch i's source is lengths[i] long (0: all padding)."""
+def _dense_inputs(b, t, s, lengths, dtype, seed, nh=12):
+    """(generator, q, k, v, key_bias) of the decoder's attention (nh heads,
+    dh = 64); batch i's source is lengths[i] long (0: all padding)."""
     import torch
 
-    nh, dh = 12, 64
+    dh = 64
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, nh, t, dh), generator=g, device="cuda").to(dtype)
     k, v = (torch.randn((b, nh, s, dh), generator=g, device="cuda").to(dtype)
@@ -806,10 +820,11 @@ def _sdpa_ms(q, k, v, kb, do, causal) -> list[float]:
                                                 retain_graph=True))]
 
 
-def _dense_case(name, b, t, s, causal, lengths, dtype):
+def _dense_case(name, b, t, s, causal, lengths, dtype, nh=12):
     """K4 against `dense_rows_plain` (out, m, l) and K5 against
-    `dense_backward_plain` (dq, dk, dv from the same m, l, delta); a source
-    of length 0 is all padding (its rows are uniform over the S keys)."""
+    `dense_backward_plain` (dq, dk, dv from the same m, l, delta), nh heads
+    of 64; a source of length 0 is all padding (its rows are uniform over
+    the S keys)."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
@@ -820,8 +835,8 @@ def _dense_case(name, b, t, s, causal, lengths, dtype):
     )
     from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import row_delta
 
-    nh, dh = 12, 64
-    g, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=21)
+    dh = 64
+    g, q, k, v, kb = _dense_inputs(b, t, s, lengths, dtype, seed=21, nh=nh)
     out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
     ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
     again = flash_dense_attention(q, k, v, kb, causal=causal)
@@ -883,6 +898,15 @@ def phase_k45():
     _dense_case("decoder_cross", 4, 512, 2048, False, [2048, 1800, 1000, 0], torch.float32)
     _dense_case("decoder_cross_fixture", 4, 512, 2048, False, FIXTURE_LENGTHS,
                 torch.float32)
+    # the BART baseline's three f32 shapes at bart-large's 16 heads (phase
+    # `[baseline_bart]`): the encoder's non-causal self-attention over
+    # 1024-token sources at the fixture's padding, the decoder's causal
+    # self-attention over 512 tokens, its cross-attention over the source
+    _dense_case("baseline_encoder_self", 4, 1024, 1024, False, FIXTURE_LENGTHS,
+                torch.float32, nh=16)
+    _dense_case("baseline_decoder_self", 4, 512, 512, True, [512] * 4, torch.float32, nh=16)
+    _dense_case("baseline_cross", 4, 512, 1024, False, FIXTURE_LENGTHS, torch.float32,
+                nh=16)
     return cross
 
 
@@ -2200,6 +2224,314 @@ def phase_retriever_slice(report: dict | None = None) -> dict:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# the BART and T5 baselines (`fit` with `baseline:`)
+# ---------------------------------------------------------------------------
+
+DENSE_PAIR = ("flash_dense_attention", "flash_dense_backward")
+
+
+def _baseline_launches(tag, cfg, launches, steps, val_batches) -> None:
+    """BART launches K4 once per encoder layer and twice per decoder layer
+    (causal self, cross) on every step, K5 as many, and K4 once per encoder
+    layer for each val batch's greedy decoding (its cached decoder is
+    plain); T5 launches no kernel (its attention is plain, as in the JAX
+    package); no other kernel is on either path."""
+    led = cfg.model.led
+    per_step = led.enc_layers + 2 * led.dec_layers
+    if cfg.baseline == "bart":
+        want = {"flash_dense_attention": per_step * steps + led.enc_layers * val_batches,
+                "flash_dense_backward": per_step * steps}
+    else:
+        want = {name: 0 for name in DENSE_PAIR}
+    want = {name: want.get(name, 0) for name in launches}
+    check(launches == want, f"{tag}: launches {launches}, not {want}")
+
+
+def baseline_small_config(family: str):
+    """``configs/baseline_bart.yaml`` (tiny preset, f32, 6 steps, one val
+    batch of 3 rows padded to 4) with ``baseline: family`` and its logs
+    under ``OUT_DIR/baseline_small_<family>``."""
+    from retrieval_augmented_mds_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "baseline_bart.yaml"))
+    return dataclasses.replace(cfg, baseline=family, logging=dataclasses.replace(
+        cfg.logging, log_dir=os.path.join(OUT_DIR, f"baseline_small_{family}")))
+
+
+def phase_baseline_small() -> None:
+    """``run_fit_baseline`` of ``configs/baseline_bart.yaml``, BART and T5,
+    on the card (BART's attention on K4/K5) and on the CPU (the plain
+    versions), from one seed: finite losses within rtol 1e-3, as
+    `_small_fit`'s, equal greedy val ids, and the launches of
+    `_baseline_launches`. Then the BART run again through ``fit --profile``
+    (`cli.main`): its losses those of the first card run within rtol 1e-6,
+    and its Chrome trace under ``<log_dir>/trace`` naming the K4/K5 kernels
+    (``mma_fwd_kernel``; ``mma_dq_kernel`` and ``mma_dkv_kernel``)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from retrieval_augmented_mds_tpu_torch import cli
+
+    for family in ("bart", "t5"):
+        cfg = baseline_small_config(family)
+        gpu, cpu = {}, {}
+        t0 = time.perf_counter()
+        _, launches = run_counted(lambda: cli.run_fit_baseline(cfg, device="cuda", report=gpu))
+        wall = time.perf_counter() - t0
+        cli.run_fit_baseline(cfg, device="cpu", report=cpu)
+        lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
+        check(len(lg) == cfg.max_steps and bool(torch.isfinite(lg).all()),
+              f"baseline_small {family}: losses {lg}")
+        rel = ((lg - lc).abs() / lc.abs()).max().item()
+        check(rel <= 1e-3, f"baseline_small {family}: card losses {lg.tolist()} vs CPU "
+              f"{lc.tolist()}")
+        check(len(gpu["val_ids"]) == len(cpu["val_ids"]) == 1
+              and all(np.array_equal(a, b) for a, b in zip(gpu["val_ids"], cpu["val_ids"])),
+              f"baseline_small {family}: greedy ids differ: {gpu['val_ids']} vs "
+              f"{cpu['val_ids']}")
+        _baseline_launches(f"baseline_small {family}", cfg, launches, cfg.max_steps, 1)
+        print(f"[baseline_small] {family}: configs/baseline_bart.yaml, card vs CPU: losses "
+              f"{[f'{x:.6f}' for x in lg.tolist()]} vs {[f'{x:.6f}' for x in lc.tolist()]}, "
+              f"max rel err {rel:.3e} (rtol 1e-3); greedy val ids equal "
+              f"({gpu['val_ids'][0].shape}); card launches {launches}: PASS; card run "
+              f"{wall:.3f} s")
+        if family != "bart":
+            continue
+        log_dir = os.path.join(OUT_DIR, "baseline_small_profile")
+        d = dataclasses.asdict(dataclasses.replace(cfg, logging=dataclasses.replace(
+            cfg.logging, log_dir=log_dir)))
+        d["model"] = {"preset": "tiny"}
+        path = os.path.join(OUT_DIR, "baseline_small_profile.yaml")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        trace_dir = os.path.join(log_dir, "trace")
+        if os.path.isdir(trace_dir):
+            for name in os.listdir(trace_dir):
+                os.remove(os.path.join(trace_dir, name))
+        metrics = os.path.join(log_dir, f"{cfg.logging.run_name}_bart.metrics.jsonl")
+        if os.path.exists(metrics):
+            os.remove(metrics)
+        code, prof = run_counted(lambda: cli.main(["fit", "--config", path, "--profile"]))
+        check(code == 0 and prof == launches, f"fit --profile: exit {code}, launches {prof}")
+        with open(metrics) as f:
+            lp = torch.tensor([json.loads(x)["loss"] for x in f])
+        check(torch.allclose(lp, lg, rtol=1e-6, atol=0), f"fit --profile losses {lp} vs {lg}")
+        (name,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        found = {k: sum(k in n for n in kernels) for k in
+                 ("mma_fwd_kernel", "mma_dq_kernel", "mma_dkv_kernel")}
+        check(all(found.values()), f"fit --profile: K4/K5 kernels not in the trace "
+              f"({found}; {len(kernels)} kernel names)")
+        print(f"[baseline_small] bart through `fit --profile`: losses equal the card run's "
+              f"(rtol 1e-6); trace {os.path.relpath(os.path.join(trace_dir, name), REPO)} "
+              f"({os.path.getsize(os.path.join(trace_dir, name))} bytes, {len(events)} "
+              f"events, {len(kernels)} kernel names) names K4/K5: {found}: PASS")
+
+
+BASELINE_STEPS = 4
+BASELINE_NEW_TOKENS = 128
+
+
+def baseline_config(family: str, steps: int = BASELINE_STEPS,
+                    new_tokens: int = BASELINE_NEW_TOKENS, tag: str = "") -> dict:
+    """The baseline's config at its reference width (a dict of the config
+    schema), seeded random weights, over the committed 2000-example fixture
+    with the hash tokenizer: BART on the ``led_large`` preset with
+    ``facebook/bart-large``'s vocabulary and 1024 positions (d 1024, 16
+    heads, 12 + 12 layers, FFN 4096), sources of 1024 tokens; T5 at
+    ``t5-large``'s shape (d 1024, 16 heads, 24 + 24 layers, FFN 4096,
+    vocabulary 32128), sources of 512 tokens; targets of 512, B = 4,
+    ``steps`` steps, then greedy decoding of one val batch for
+    ``new_tokens`` tokens; logs under ``OUT_DIR/baseline_<family><tag>``.
+    Everything else is the config schema's default (lr 3e-5, warmup 1000,
+    clip 0.1, bf16 mu, f32)."""
+    if family == "bart":
+        led, max_length = {"vocab_size": 50265, "max_src_len": 1024, "max_tgt_len": 1024}, 1024
+    else:
+        led = {"vocab_size": 32128, "d_model": 1024, "n_heads": 16, "enc_layers": 24,
+               "dec_layers": 24, "d_ffn": 4096, "max_src_len": 512, "max_tgt_len": 512}
+        max_length = 512
+    return {
+        "baseline": family, "model": {"preset": "led_large", "led": led},
+        "data": {"source": FIXTURE, "tokenizer": None, "max_length": max_length,
+                 "decoder_max_length": 512, "batch_size": 4},
+        "generation": {"max_new_tokens": new_tokens},
+        "max_steps": steps, "eval_max_batches": 1, "seed": 0,
+        "logging": {"log_dir": os.path.join(OUT_DIR, f"baseline_{family}{tag}"),
+                    "run_name": f"{family}_large"}}
+
+
+def phase_baseline(family: str, card: str) -> dict:
+    """``run_fit_baseline`` of `baseline_config` on the card, with the launch
+    counts read around it (`_baseline_launches`) and the peak device
+    memory: finite losses and parameters, the greedy ids of the val batch;
+    prints the steady step (the mean of the last two), the ``generate``
+    time and the peak beside the card → the launches."""
+    import gc
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    tag = f"baseline_{family}"
+    cfg = config_from_dict(baseline_config(family))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep: dict = {}
+    t0 = time.perf_counter()
+    out, launches = run_counted(lambda: cli.run_fit_baseline(cfg, device="cuda", report=rep))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = rep["losses"]
+    check(out["steps"] == BASELINE_STEPS == len(losses)
+          and all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    params = rep["state"].params
+    n_params = sum(p.numel() for p in params.parameters())
+    check(all(bool(torch.isfinite(p).all()) for p in params.parameters()),
+          f"{tag}: non-finite parameters after the steps")
+    (ids,) = rep["val_ids"]
+    check(ids.shape == (cfg.data.batch_size, BASELINE_NEW_TOKENS)
+          and bool(((ids >= 0) & (ids < cfg.model.led.vocab_size)).all()),
+          f"{tag}: greedy ids {ids.shape}")
+    _baseline_launches(tag, cfg, launches, BASELINE_STEPS, 1)
+    led, d = cfg.model.led, cfg.data
+    steady = sum(rep["step_s"][-2:]) / 2
+    gen_s = rep["generate_s"][0]
+    print(f"[{tag}] {family} at d {led.d_model}, {led.n_heads} heads, {led.enc_layers} + "
+          f"{led.dec_layers} layers, FFN {led.d_ffn}, vocabulary {led.vocab_size}: "
+          f"{n_params} parameters, f32, AdamW (bf16 mu); B={d.batch_size}, sources "
+          f"{d.max_length}, targets {d.decoder_max_length}")
+    print(f"[{tag}] losses {[f'{x:.5f}' for x in losses]}; step wall s "
+          f"{[f'{x:.3f}' for x in rep['step_s']]}; greedy ids of the val batch "
+          f"{[row[:8].tolist() for row in ids]}...")
+    print(f"[{tag}] steady step {steady:.3f} s ({d.batch_size / steady:.2f} examples/s); "
+          f"generate {gen_s:.3f} s for {d.batch_size} x {BASELINE_NEW_TOKENS} tokens "
+          f"({d.batch_size * BASELINE_NEW_TOKENS / gen_s:.1f} tokens/s); peak device memory "
+          f"{peak / 2**30:.2f} GiB; run_fit_baseline {wall:.3f} s (data and init included); "
+          f"launches {launches}; card {card}")
+    del rep, params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_baseline_profile(family, card, steady, gen_s)
+    return launches
+
+
+PROFILE_STEPS = 2
+PROFILE_NEW_TOKENS = 32
+
+
+def _kernel_class(name: str) -> str:
+    if any(k in name for k in ("mma_fwd_kernel", "mma_dq_kernel", "mma_dkv_kernel")):
+        return "K4/K5"
+    low = name.lower()
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "GEMM"
+    if "softmax" in low or "reduce" in low or "norm" in low:
+        return "softmax/reduce/norm"
+    if "multi_tensor" in low or "foreach" in low:
+        return "foreach"
+    return "other"
+
+
+def trace_ranges(path: str, names: tuple[str, ...]) -> dict[str, list[dict]]:
+    """Each `torch.profiler.record_function` range of ``names`` in a Chrome
+    trace → its host wall ms, the device's busy ms within it (the union of
+    the kernels' intervals clipped to the range) and the busy ms of each
+    kernel class (`_kernel_class`) and of the four kernels that take most."""
+    from collections import defaultdict
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel")
+    out: dict[str, list[dict]] = {name: [] for name in names}
+    for e in events:
+        if e.get("cat") != "user_annotation" or e.get("name") not in out:
+            continue
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        busy, end = 0.0, lo
+        by_class, by_name = defaultdict(float), defaultdict(float)
+        for a, b, name in kernels:
+            a, b = max(a, lo), min(b, hi)
+            if b <= a:
+                continue
+            by_class[_kernel_class(name)] += (b - a) / 1e3
+            by_name[name] += (b - a) / 1e3
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        out[e["name"]].append({"wall_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+                               "classes": dict(by_class),
+                               "top": [(n[:60], ms) for n, ms in top]})
+    return out
+
+
+def phase_baseline_profile(family: str, card: str, steady_s: float, gen_s: float) -> None:
+    """`baseline_config` with `PROFILE_STEPS` steps and `PROFILE_NEW_TOKENS`
+    new tokens through ``fit --profile`` (`cli.main`): the launches of
+    `_baseline_launches`, and from its trace (`trace_ranges`) the last
+    step's and the decoding's wall and device busy time by kernel class.
+    The busy time is also given as a share of the unprofiled run's steady
+    step (``steady_s``) and of its ``generate`` time per token
+    (``gen_s`` / `BASELINE_NEW_TOKENS`)."""
+    import gc
+
+    import torch
+    import yaml
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    tag = f"baseline_{family}"
+    d = baseline_config(family, PROFILE_STEPS, PROFILE_NEW_TOKENS, "_profile")
+    cfg = config_from_dict(d)
+    trace_dir = os.path.join(cfg.logging.log_dir, "trace")
+    if os.path.isdir(trace_dir):
+        for name in os.listdir(trace_dir):
+            os.remove(os.path.join(trace_dir, name))
+    path = os.path.join(OUT_DIR, f"{tag}_profile.yaml")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    t0 = time.perf_counter()
+    code, launches = run_counted(lambda: cli.main(["fit", "--config", path, "--profile"]))
+    wall = time.perf_counter() - t0
+    check(code == 0, f"{tag} fit --profile: exit {code}")
+    _baseline_launches(f"{tag} fit --profile", cfg, launches, PROFILE_STEPS, 1)
+    (name,) = os.listdir(trace_dir)
+    trace = os.path.join(trace_dir, name)
+    ranges = trace_ranges(trace, ("baseline_step", "baseline_generate"))
+    check(len(ranges["baseline_step"]) == PROFILE_STEPS
+          and len(ranges["baseline_generate"]) == 1,
+          f"{tag} fit --profile: ranges {[(k, len(v)) for k, v in ranges.items()]}")
+    step, gen = ranges["baseline_step"][-1], ranges["baseline_generate"][0]
+    check(step["busy_ms"] > 0 and gen["busy_ms"] > 0, f"{tag}: no kernel in the trace")
+    for what, r, unprofiled_ms in (
+            ("step", step, steady_s * 1e3),
+            (f"generate ({PROFILE_NEW_TOKENS} tokens)", gen,
+             gen_s * 1e3 * PROFILE_NEW_TOKENS / BASELINE_NEW_TOKENS)):
+        classes = ", ".join(f"{k} {v:.2f}" for k, v in
+                            sorted(r["classes"].items(), key=lambda kv: -kv[1]))
+        print(f"[{tag}] profiled {what}: wall {r['wall_ms']:.2f} ms, device busy "
+              f"{r['busy_ms']:.2f} ms ({100 * r['busy_ms'] / r['wall_ms']:.1f}% of the "
+              f"profiled wall, {100 * r['busy_ms'] / unprofiled_ms:.1f}% of the unprofiled "
+              f"{unprofiled_ms:.2f} ms); by class ms: {classes}; top kernels ms: "
+              f"{[(n, round(ms, 2)) for n, ms in r['top']]}")
+    print(f"[{tag}] fit --profile ({PROFILE_STEPS} steps, {PROFILE_NEW_TOKENS} tokens): "
+          f"{wall:.3f} s, trace {os.path.getsize(trace)} bytes; launches {launches}: PASS; "
+          f"card {card}")
+    os.remove(trace)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2239,6 +2571,9 @@ def main() -> int:
         capacity = phase_capacity_slice(standing)
         long = phase_long_slice(standing)
         retriever = phase_retriever_slice()
+        phase_baseline_small()
+        bart = phase_baseline("bart", card)
+        t5 = phase_baseline("t5", card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2256,11 +2591,11 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths (the eight slices); K10's paths launch it 0 times (checked), so
-    # its count is that of its own phase
+    # launches on the paths (the eight slices and the two baselines); K10's paths launch it
+    # 0 times (checked), so its count is that of its own phase
     launches = {name: served[name] + sampled[name] + standing[0][name] + train_f32[name]
                 + target_in[name] + capacity[name] + long[name] + retriever[name]
-                for name, _, _ in sources}
+                + bart[name] + t5[name] for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

@@ -3,7 +3,7 @@
     python -m retrieval_augmented_mds_tpu_torch.cli \
         {fit,validate,test,predict,pretrain-retriever,build-index,bench-index} \
         --config <yaml> [--index DIR] [--out DIR] [--mode train|test|predict] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--profile]
 
 The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
 ``run_predict`` and ``run_pretrain_retriever*`` do, on one device:
@@ -16,9 +16,12 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
   ``index.rebuild_every`` steps, evaluating every ``eval_every`` steps and
   checkpointing as the reference does. Metrics go to
   ``<log_dir>/<run_name>.metrics.jsonl``, the resolved config to
-  ``<log_dir>/config_resolved.yaml``. A config that sets ``baseline``, a
-  ``mesh`` over more than one device or ``logging.teams_webhook`` raises:
-  those parts are not ported yet.
+  ``<log_dir>/config_resolved.yaml``; ``logging.teams_webhook`` gets a card
+  when the run starts and when it crashes. A ``mesh`` over more than one
+  device raises: that part is not ported yet. A config that sets
+  ``baseline: bart`` or ``t5`` fine-tunes that baseline instead
+  (`run_fit_baseline`). ``--profile`` writes a `torch.profiler` Chrome
+  trace of the run under ``<log_dir>/trace``.
 * ``validate`` / ``test``: generate over the whole val / test split and
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one.
@@ -79,8 +82,10 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.precision == "bfloat16" else torch.float32
 
 
-def build_data(cfg):
-    """The host data pipeline (pandas): the module, and the tokenizer."""
+def build_data(cfg, prompt_prefix: str = ""):
+    """The host data pipeline (pandas): the module, and the tokenizer.
+    ``prompt_prefix`` is put before every source before it is tokenized
+    (T5's "summarize: ")."""
     from .data import (
         RAGDataModule,
         aggregate_by_aid,
@@ -113,7 +118,7 @@ def build_data(cfg):
         mips_dataset=d.mips_dataset, arxiv_path=d.mips_arxiv_path,
         max_length=d.max_length, query_max_length=d.query_max_length,
         decoder_max_length=d.decoder_max_length, memory_len=d.memory_len,
-        source_memory=d.source_memory, doc_sep=d.doc_sep,
+        source_memory=d.source_memory, doc_sep=d.doc_sep, prompt_prefix=prompt_prefix,
         dual_memory=d.dataset_mode == "dual", cache_dir=d.cache_dir,
     ).prepare()
     if d.mips_db_max_size:
@@ -190,23 +195,18 @@ def build_tx(cfg, params):
 
 
 def check_fit_config(cfg) -> None:
-    """Raise on what ``fit`` does not run yet, rather than train something
-    else without a word."""
+    """Raise on what `run_fit` does not run, rather than train something
+    else without a word: a baseline (`run_fit_baseline` trains those; ``fit``
+    dispatches to it) and a mesh of several devices (not ported yet)."""
     if cfg.baseline:
-        raise NotImplementedError(
-            f"baseline {cfg.baseline!r}: the baselines (models/bart.py, models/t5.py, "
-            "run_fit_baseline) are not ported yet (ROADMAP queue 1, item 8)"
-        )
+        raise ValueError(
+            f"baseline {cfg.baseline!r}: run_fit trains the retrieval-augmented model; "
+            "run_fit_baseline trains the baselines (`fit` picks it)")
     if max(cfg.mesh.data or 0, cfg.mesh.shard or 0) > 1:
         raise NotImplementedError(
             f"mesh data={cfg.mesh.data} shard={cfg.mesh.shard}: training over several "
             "devices is not ported yet (ROADMAP queue 1, item 9); leave both unset or "
             "at most 1"
-        )
-    if cfg.logging.teams_webhook:
-        raise NotImplementedError(
-            "logging.teams_webhook: TeamsNotifier is not ported yet (ROADMAP queue 1, "
-            "item 10); unset it"
         )
 
 
@@ -226,8 +226,9 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     synchronised) and phase times, the losses, each step's retrieved row
     ids and copy-forcing flag, the store builds' and refreshes' times, and
     the objects the run made. The resolved config goes to
-    ``<log_dir>/config_resolved.yaml``."""
-    from .obs import MetricsLogger
+    ``<log_dir>/config_resolved.yaml``; ``logging.teams_webhook`` is told
+    when the run starts and when it raises (`obs.TeamsNotifier`)."""
+    from .obs import MetricsLogger, TeamsNotifier
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
     from .utils.config import save_config
@@ -259,6 +260,8 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                         tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
     log.log_hyperparams(dataclasses.asdict(cfg))
     save_config(cfg, os.path.join(cfg.logging.log_dir, "config_resolved.yaml"))
+    teams = TeamsNotifier(cfg.logging.teams_webhook, cfg.logging.run_name)
+    teams.on_fit_start()
     step, metrics, best_rouge1 = start_step, {}, -1.0
     # a resumed run starts "saved" at start_step
     last_saved = start_step if start_step else -1
@@ -310,6 +313,9 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                         last_saved = step
         if cfg.ckpt_dir and last_saved != step:
             save_train_state(cfg.ckpt_dir, state, tx, step)
+    except BaseException as e:  # noqa: BLE001
+        teams.on_exception(e)
+        raise
     finally:
         log.close()
     rep.update(state=state, store=store, tx=tx)
@@ -427,6 +433,107 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
         report.update(store_s=t1 - t0, encode_s=t2 - t1, generate_s=t3 - t2,
                       copy_trace_s=t4 - t3, params=params, store=store, batch=batch,
                       enc=enc, ids=ids)
+    return out
+
+
+def run_fit_baseline(cfg, *, device: str = "cuda",
+                     report: dict[str, Any] | None = None) -> dict[str, Any]:
+    """Fine-tune the parametric-only baseline ``cfg.baseline`` (``bart`` or
+    ``t5``; reference BartLightning / T5Lightning, sotasum/bart_lightning.py:
+    48-244, t5_lightning.py:48-232) for ``max_steps`` steps, then generate
+    greedily over the val split (at most ``eval_max_batches`` batches; the
+    ragged last one padded with copies of its first row) and score it with
+    ROUGE → the last step's metrics, the ROUGE scores and ``steps``. T5's
+    sources get the "summarize: " prefix. As the JAX package's
+    ``run_fit_baseline``: seeded random weights of ``model.led``'s shape, f32
+    whatever ``precision`` says, AdamW with only lr, warmup, total steps,
+    ``grad_clip`` and ``adam_mu_dtype`` (no weight decay, frozen groups,
+    accumulation, 8-bit state or remat), no store, eval, checkpoints or
+    resume; the metrics go to ``<log_dir>/<run_name>_<family>.metrics.jsonl``
+    (and its TensorBoard and mlflow mirrors), the outputs to
+    ``baseline_<family>_val_outputs.json``. Unlike it, the steps draw from
+    the train split, not from every example (the val split included). With
+    ``report``, also fills in each step's wall seconds (synchronised) and
+    loss, each val batch's ``generate`` seconds and ids, and the final
+    state. Each step and each batch's decoding is a `torch.profiler` range
+    (``baseline_step``, ``baseline_generate``) in a ``--profile`` trace."""
+    from .eval import RougeAccumulator
+    from .models.bart import init_bart
+    from .models.t5 import init_t5
+    from .obs import MetricsLogger
+    from .train.baseline import make_seq2seq_train_step, seq2seq_greedy
+    from .train.optimizer import build_optimizer
+    from .train.trainer import TrainState
+
+    family = cfg.baseline
+    if family not in ("bart", "t5"):
+        raise ValueError(f"baseline {family!r}: the baselines are 'bart' and 't5'")
+    dev = resolve_device(device)
+    # the prefix goes in before tokenization (reference data_modules.py:152-155)
+    dm, tok = build_data(cfg, prompt_prefix="summarize: " if family == "t5" else "")
+    mcfg, t = cfg.model.led, cfg.train
+    init = init_bart if family == "bart" else init_t5
+    params = init(mcfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    tx = build_optimizer(t.lr, t.warmup_steps, t.total_steps, grad_clip=t.grad_clip,
+                         mu_dtype=t.adam_mu_dtype)
+    state = TrainState.create(params, tx)
+    step_fn = make_seq2seq_train_step(family, mcfg, tx, t.label_smoothing_eps)
+    log = MetricsLogger(cfg.logging.log_dir, f"{cfg.logging.run_name}_{family}",
+                        tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
+    rep = report if report is not None else {}
+    rep.update(step_s=[], losses=[], generate_s=[], val_ids=[])
+    n, metrics = 0, {}
+    acc, outputs = RougeAccumulator(), []
+    try:
+        while n < cfg.max_steps:
+            drawn = 0
+            # epochs reshuffle with seed + the step they start at, as the JAX package
+            for batch in dm.batches(cfg.data.batch_size, seed=cfg.seed + n, split="train"):
+                if n >= cfg.max_steps:
+                    break
+                drawn += 1
+                db = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+                      for k in ("input_ids", "attention_mask", "labels")}
+                t0 = time.perf_counter()
+                with torch.profiler.record_function("baseline_step"):
+                    state, metrics = step_fn(state, db)
+                    rep["losses"].append(float(metrics["loss"]))  # waits for the device
+                rep["step_s"].append(time.perf_counter() - t0)
+                log.log(n, metrics)
+                n += 1
+            if not drawn:
+                raise ValueError(f"the train split holds fewer than data.batch_size="
+                                 f"{cfg.data.batch_size} examples")
+        # a full validation epoch (reference bart_lightning.py:126-196)
+        for bi, batch in enumerate(dm.batches(cfg.data.batch_size, shuffle=False,
+                                              drop_last=False, split="val")):
+            if cfg.eval_max_batches is not None and bi >= cfg.eval_max_batches:
+                break
+            n_real = len(batch["input_ids"])
+            if n_real < cfg.data.batch_size:
+                reps = cfg.data.batch_size - n_real
+                batch = {k: np.concatenate([v, np.repeat(v[:1], reps, axis=0)])
+                         for k, v in batch.items()}
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("baseline_generate"):
+                ids = seq2seq_greedy(
+                    family, state.params, mcfg,
+                    torch.from_numpy(np.asarray(batch["input_ids"])).to(dev),
+                    torch.from_numpy(np.asarray(batch["attention_mask"])).to(dev),
+                    max_new_tokens=cfg.generation.max_new_tokens).cpu().numpy()
+            rep["generate_s"].append(time.perf_counter() - t0)
+            rep["val_ids"].append(ids)
+            preds = tok.batch_decode(ids)[:n_real]
+            refs = tok.batch_decode(np.asarray(batch["labels"]))[:n_real]
+            acc.add_batch(preds, refs)
+            outputs.extend({"prediction": p, "reference": r} for p, r in zip(preds, refs))
+        log.dump_outputs(f"baseline_{family}_val_outputs", outputs)
+    finally:
+        log.close()
+    rep.update(state=state)
+    out = {k: float(v) for k, v in metrics.items()}
+    out.update(acc.compute())
+    out["steps"] = n
     return out
 
 
@@ -757,6 +864,9 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
+    p.add_argument("--profile", action="store_true",
+                   help="fit: write a torch.profiler Chrome trace of the run into "
+                   "<log_dir>/trace")
     args = p.parse_args(argv)
 
     from .models.retriever_generator import RAGConfig
@@ -765,7 +875,14 @@ def main(argv=None) -> int:
     cfg = (load_config(args.config) if args.config
            else ExperimentConfig(model=RAGConfig.tiny()))
     if args.command == "fit":
-        out = run_fit(cfg, device=args.device)
+        runner = run_fit_baseline if cfg.baseline else run_fit
+        if args.profile:
+            from .obs import trace
+
+            with trace(os.path.join(cfg.logging.log_dir, "trace")):
+                out = runner(cfg, device=args.device)
+        else:
+            out = runner(cfg, device=args.device)
     elif args.command in ("validate", "test"):
         split = "val" if args.command == "validate" else "test"
         out = run_validate(cfg, split, index_dir=args.index, device=args.device)

@@ -1,13 +1,16 @@
 """HF weight import: ``transformers`` state dicts → the port's modules.
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/hf_import.py``. The
-converters read an HF state dict (tensors or arrays) and return the param
-tree under the JAX package's names and layouts, as numpy f32 arrays:
+converters (the LED, Longformer and BERT ones, and the baselines' BART
+and T5 ones, which the JAX package keeps in ``models/bart.py`` and
+``models/t5.py``) read an HF state dict (tensors or arrays) and return the
+param tree under the JAX package's names and layouts, as numpy f32 arrays:
 dense kernels [d_in, d_out] (the HF weight transposed),
 ``final_logits_bias`` as [V], token-type row 0 as ``type_emb``. The tree
 loads into a module with no renames (`bridge.load_jax_params`);
-`led_from_tree` and `encoder_from_tree` build the module the tree fits.
-``transformers`` is imported inside the loaders only.
+`led_from_tree`, `bart_from_tree`, `t5_from_tree` and `encoder_from_tree`
+build the module the tree fits. ``transformers`` is imported inside the
+loaders only.
 
 `load_pretrained_rag` applies the JAX package's policy: a field that names
 an existing local path must load, or the call raises; a name that is not a
@@ -84,17 +87,91 @@ def led_params_from_hf(sd: Mapping[str, Any], cfg: Seq2SeqConfig) -> dict:
     for i in range(cfg.dec_layers):
         b = f"led.decoder.layers.{i}"
         dec.append({
-            "self_attn": {n: _dense(sd, f"{b}.self_attn.{h}_proj")
-                          for n, h in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out"))},
+            "self_attn": _attn(sd, f"{b}.self_attn"),
             "self_ln": _ln(sd, f"{b}.self_attn_layer_norm"),
-            "cross_attn": {n: _dense(sd, f"{b}.encoder_attn.{h}_proj")
-                           for n, h in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out"))},
+            "cross_attn": _attn(sd, f"{b}.encoder_attn"),
             "cross_ln": _ln(sd, f"{b}.encoder_attn_layer_norm"),
             "ffn": {"w1": _dense(sd, f"{b}.fc1"), "w2": _dense(sd, f"{b}.fc2")},
             "ffn_ln": _ln(sd, f"{b}.final_layer_norm"),
         })
     p["encoder"] = enc
     p["decoder"] = dec
+    return p
+
+
+def _attn(sd, prefix: str) -> dict:
+    """A BART attention block (``q_proj`` ... ``out_proj``) → q, k, v, o."""
+    return {n: _dense(sd, f"{prefix}.{h}_proj")
+            for n, h in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out"))}
+
+
+def bart_params_from_hf(sd: Mapping[str, Any], cfg: Seq2SeqConfig) -> dict:
+    """BartForConditionalGeneration state dict → the BART tree (its position
+    tables keep BART's 2 offset rows)."""
+    p: dict = {
+        "shared_emb": _emb(sd, "model.shared.weight"),
+        "enc_pos": _emb(sd, "model.encoder.embed_positions.weight"),
+        "dec_pos": _emb(sd, "model.decoder.embed_positions.weight"),
+        "enc_emb_ln": _ln(sd, "model.encoder.layernorm_embedding"),
+        "dec_emb_ln": _ln(sd, "model.decoder.layernorm_embedding"),
+        "final_logits_bias": _t(sd, "final_logits_bias").reshape(-1),
+    }
+    p["encoder"] = [{
+        "attn": _attn(sd, f"model.encoder.layers.{i}.self_attn"),
+        "attn_ln": _ln(sd, f"model.encoder.layers.{i}.self_attn_layer_norm"),
+        "ffn": {"w1": _dense(sd, f"model.encoder.layers.{i}.fc1"),
+                "w2": _dense(sd, f"model.encoder.layers.{i}.fc2")},
+        "ffn_ln": _ln(sd, f"model.encoder.layers.{i}.final_layer_norm"),
+    } for i in range(cfg.enc_layers)]
+    p["decoder"] = [{
+        "self_attn": _attn(sd, f"model.decoder.layers.{i}.self_attn"),
+        "self_ln": _ln(sd, f"model.decoder.layers.{i}.self_attn_layer_norm"),
+        "cross_attn": _attn(sd, f"model.decoder.layers.{i}.encoder_attn"),
+        "cross_ln": _ln(sd, f"model.decoder.layers.{i}.encoder_attn_layer_norm"),
+        "ffn": {"w1": _dense(sd, f"model.decoder.layers.{i}.fc1"),
+                "w2": _dense(sd, f"model.decoder.layers.{i}.fc2")},
+        "ffn_ln": _ln(sd, f"model.decoder.layers.{i}.final_layer_norm"),
+    } for i in range(cfg.dec_layers)]
+    return p
+
+
+def t5_params_from_hf(sd: Mapping[str, Any], cfg: Seq2SeqConfig) -> dict:
+    """T5ForConditionalGeneration state dict (tied embeddings, ReLU FFN) →
+    the T5 tree: bias-free ``kernel``s, RMS ``scale``s, and each stack's
+    layer-0 relative-bias table as a bare [32, nh] leaf."""
+    def lin(prefix):
+        return {"kernel": _t(sd, prefix + ".weight").T.copy()}
+
+    def rms(prefix):
+        return {"scale": _t(sd, prefix + ".weight")}
+
+    def attn(prefix):
+        return {n: lin(f"{prefix}.{n}") for n in "qkvo"}
+
+    rel = ".block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    p: dict = {
+        "shared_emb": _emb(sd, "shared.weight"),
+        "enc_rel_bias": _t(sd, "encoder" + rel),
+        "dec_rel_bias": _t(sd, "decoder" + rel),
+        "enc_final_ln": rms("encoder.final_layer_norm"),
+        "dec_final_ln": rms("decoder.final_layer_norm"),
+    }
+    p["encoder"] = [{
+        "attn": attn(f"encoder.block.{i}.layer.0.SelfAttention"),
+        "attn_ln": rms(f"encoder.block.{i}.layer.0.layer_norm"),
+        "ffn": {"wi": lin(f"encoder.block.{i}.layer.1.DenseReluDense.wi"),
+                "wo": lin(f"encoder.block.{i}.layer.1.DenseReluDense.wo")},
+        "ffn_ln": rms(f"encoder.block.{i}.layer.1.layer_norm"),
+    } for i in range(cfg.enc_layers)]
+    p["decoder"] = [{
+        "self_attn": attn(f"decoder.block.{i}.layer.0.SelfAttention"),
+        "self_ln": rms(f"decoder.block.{i}.layer.0.layer_norm"),
+        "cross_attn": attn(f"decoder.block.{i}.layer.1.EncDecAttention"),
+        "cross_ln": rms(f"decoder.block.{i}.layer.1.layer_norm"),
+        "ffn": {"wi": lin(f"decoder.block.{i}.layer.2.DenseReluDense.wi"),
+                "wo": lin(f"decoder.block.{i}.layer.2.DenseReluDense.wo")},
+        "ffn_ln": rms(f"decoder.block.{i}.layer.2.layer_norm"),
+    } for i in range(cfg.dec_layers)]
     return p
 
 
@@ -174,6 +251,18 @@ def led_from_tree(tree: dict, cfg: Seq2SeqConfig, device=None) -> LED:
     return load_jax_params(LED(cfg), tree).to(device)
 
 
+def bart_from_tree(tree: dict, cfg: Seq2SeqConfig, device=None):
+    from .bart import Bart
+
+    return load_jax_params(Bart(cfg), tree).to(device)
+
+
+def t5_from_tree(tree: dict, cfg: Seq2SeqConfig, device=None):
+    from .t5 import T5
+
+    return load_jax_params(T5(cfg), tree).to(device)
+
+
 def encoder_from_tree(tree: dict, cfg: EncoderConfig, device=None) -> Longformer:
     """The Longformer that ``tree`` fits: with ``type_emb`` when the tree has
     the token-type row, and adapters of the tree's width when it has them
@@ -194,6 +283,23 @@ def load_led_from_pretrained(name_or_path: str, cfg: Seq2SeqConfig) -> dict:
 
     model = LEDForConditionalGeneration.from_pretrained(name_or_path)
     return led_params_from_hf(model.state_dict(), cfg)
+
+
+def load_bart_from_pretrained(name_or_path: str, cfg: Seq2SeqConfig) -> dict:
+    """A saved BartForConditionalGeneration (a local directory, or a hub
+    name that ``transformers`` can resolve: offline it raises) → the tree."""
+    from transformers import BartForConditionalGeneration
+
+    model = BartForConditionalGeneration.from_pretrained(name_or_path)
+    return bart_params_from_hf(model.state_dict(), cfg)
+
+
+def load_t5_from_pretrained(name_or_path: str, cfg: Seq2SeqConfig) -> dict:
+    """A saved T5ForConditionalGeneration → the tree, as `load_bart_from_pretrained`."""
+    from transformers import T5ForConditionalGeneration
+
+    model = T5ForConditionalGeneration.from_pretrained(name_or_path)
+    return t5_params_from_hf(model.state_dict(), cfg)
 
 
 def load_longformer_from_pretrained(name_or_path: str, cfg: EncoderConfig) -> dict:

@@ -1,13 +1,14 @@
 """Metrics logging + artifact dumps.
 
 Counterpart of ``retrieval_augmented_mds_tpu/obs/logging.py``, owned by
-the port (no JAX). The TensorBoard and mlflow mirrors of the JAX package
-(``obs/tb.py``, ``obs/mlflow.py``) are not ported: asking for either
-raises. Replaces the reference's MLFlow + TensorBoard dual loggers
-(config/no_mips.yaml:18-25, sotasum/pretrain.py:570-579) with a
+the port (no JAX). Replaces the reference's MLFlow + TensorBoard dual
+loggers (config/no_mips.yaml:18-25, sotasum/pretrain.py:570-579) with a
 dependency-free JSONL metrics writer (one line per step — trivially
 ingested by any tracker) plus the per-epoch output JSON dumps the
-reference writes (sotasum/lightning_model.py:377-389, 400-416).
+reference writes (sotasum/lightning_model.py:377-389, 400-416). With
+``tensorboard`` or ``mlflow`` set, every logged row is mirrored into a
+TensorBoard event file (``<log_dir>/tb/<run_name>``, `obs.tb`) or an mlflow
+file store (``<log_dir>/mlruns``, `obs.mlflow`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,17 +38,22 @@ def fault_tolerant(f: Callable) -> Callable:
 class MetricsLogger:
     def __init__(self, log_dir: str, run_name: str = "run",
                  tensorboard: bool = False, mlflow: bool = False):
-        if tensorboard or mlflow:
-            raise NotImplementedError(
-                "the TensorBoard and mlflow mirrors are not ported yet "
-                "(ROADMAP queue 1: tail); set logging.tensorboard and "
-                "logging.mlflow to false"
-            )
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{run_name}.metrics.jsonl")
         self._f = open(self.path, "a")
         self.t0 = time.time()
+        self._tb = None
+        self._mlflow = None
+        if tensorboard:
+            # opt-in standard-format mirror; JSONL stays the primary sink
+            from .tb import TBEventWriter
+
+            self._tb = TBEventWriter(os.path.join(log_dir, "tb", run_name))
+        if mlflow:
+            from .mlflow import MlflowFileStore
+
+            self._mlflow = MlflowFileStore(os.path.join(log_dir, "mlruns"), run_name=run_name)
 
     @fault_tolerant
     def log(self, step: int, metrics: dict[str, Any], prefix: str = ""):
@@ -59,6 +65,10 @@ class MetricsLogger:
                 row[prefix + k] = str(v)
         self._f.write(json.dumps(row) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            self._tb.add_scalars(step, {prefix + k: v for k, v in metrics.items()})
+        if self._mlflow is not None:
+            self._mlflow.log_metrics({prefix + k: v for k, v in metrics.items()}, step)
 
     @fault_tolerant
     def log_hyperparams(self, config: dict[str, Any]):
@@ -66,6 +76,8 @@ class MetricsLogger:
         main.py:13-15)."""
         with open(os.path.join(self.log_dir, "hparams.json"), "w") as f:
             json.dump(config, f, indent=2, default=str)
+        if self._mlflow is not None:
+            self._mlflow.log_params(config)
 
     @fault_tolerant
     def dump_outputs(self, name: str, outputs: list[dict]):
@@ -75,3 +87,7 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
+        if self._mlflow is not None:
+            self._mlflow.close()

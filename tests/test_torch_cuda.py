@@ -561,6 +561,83 @@ def test_autograd_functions_launch_the_kernels(gen):
     assert (flash_sliding_attention.launches, flash_sliding_backward.launches) == (1, 1)
 
 
+# the baselines' shapes (f32, B=4, 16 heads, dh=64, as bart-large fine-tunes
+# in `run_fit_baseline`): the encoder's self-attention over a 1024-token
+# source at the fixture's padding, the decoder's causal self-attention over
+# 512 target tokens, and its cross-attention over the source
+BASELINE_LENGTHS = [743, 451, 306, 520]
+
+
+@pytest.mark.parametrize("causal,t,s,lengths", [
+    (False, 1024, 1024, BASELINE_LENGTHS), (True, 512, 512, [512] * 4),
+    (False, 512, 1024, BASELINE_LENGTHS)], ids=["encoder_self", "decoder_self", "cross"])
+def test_dense_kernels_at_the_baseline_shapes(gen, causal, t, s, lengths):
+    """f32 K4 (out, m, l) and K5 (dq, dk, dv) against their plain versions
+    at the BART baseline's three shapes, within 1e-4 x each output's max|ref|
+    (m atol 1e-3, l rtol 1e-3); every row has an open key, so dk = dv = 0
+    exactly at the masked keys."""
+    b, nh, dh = 4, 16, 64
+    q = torch.randn((b, nh, t, dh), generator=gen, device="cuda")
+    k, v = (torch.randn((b, nh, s, dh), generator=gen, device="cuda") for _ in range(2))
+    pos = torch.arange(s, device="cuda")
+    kb = torch.where(pos[None, :] < torch.tensor(lengths, device="cuda")[:, None], 0.0, -1e9)
+    out, m, l = flash_dense_attention(q, k, v, kb, causal=causal)
+    ref, ref_m, ref_l = dense_rows_plain(q, k, v, kb, causal, return_stats=True)
+    _close([out], [ref], 1e-4)
+    torch.testing.assert_close(m, ref_m, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=0.0)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    bwd = (q, k, v, kb, do, m, l, row_delta(do, out))
+    got = flash_dense_backward(*bwd, causal=causal)
+    _close(got, dense_backward_plain(*bwd, causal), 1e-4)
+    masked = kb < 0
+    for i in range(b):
+        assert not got[1][i][:, masked[i]].any() and not got[2][i][:, masked[i]].any()
+
+
+@pytest.mark.parametrize("family", ["bart", "t5"])
+def test_baseline_step_on_the_card(gen, family):
+    """One `make_seq2seq_train_step` step and greedy decoding of a small
+    baseline on the card and on the CPU from one init: the losses within
+    rtol 1e-4; BART launches K4 once per encoder layer and twice per
+    decoder layer in the step (K5 as many) and once per encoder layer in
+    the decoding; T5 launches no kernel."""
+    from retrieval_augmented_mds_tpu_torch.models.bart import init_bart
+    from retrieval_augmented_mds_tpu_torch.models.config import Seq2SeqConfig
+    from retrieval_augmented_mds_tpu_torch.models.t5 import init_t5
+    from retrieval_augmented_mds_tpu_torch.train.baseline import (
+        make_seq2seq_train_step,
+        seq2seq_greedy,
+    )
+    from retrieval_augmented_mds_tpu_torch.train.optimizer import build_optimizer
+    from retrieval_augmented_mds_tpu_torch.train.trainer import TrainState
+
+    cfg = Seq2SeqConfig(vocab_size=512, d_model=128, n_heads=2, enc_layers=2,
+                        dec_layers=3, d_ffn=256, max_src_len=256, max_tgt_len=64)
+    init = init_bart if family == "bart" else init_t5
+    g = torch.Generator().manual_seed(0)
+    batch = {"input_ids": torch.randint(4, 500, (3, 200), generator=g),
+             "attention_mask": torch.ones((3, 200), dtype=torch.int32),
+             "labels": torch.randint(4, 500, (3, 40), generator=g)}
+    batch["attention_mask"][1, 130:] = 0
+    losses = []
+    for dev in ("cpu", "cuda"):
+        model = init(cfg, torch.Generator().manual_seed(1)).to(dev)
+        tx = build_optimizer(1e-3, 1, 10, grad_clip=0.1)
+        step = make_seq2seq_train_step(family, cfg, tx)
+        flash_dense_attention.launches = flash_dense_backward.launches = 0
+        _, metrics = step(TrainState.create(model, tx), {k: x.to(dev) for k, x in batch.items()})
+        losses.append(float(metrics["loss"]))
+        trained = (flash_dense_attention.launches, flash_dense_backward.launches)
+        ids = seq2seq_greedy(family, model, cfg, batch["input_ids"].to(dev),
+                             batch["attention_mask"].to(dev), max_new_tokens=5)
+        assert ids.shape == (3, 5) and ids.device.type == dev
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers
+    want = ((per_step, per_step), per_step + cfg.enc_layers) if family == "bart" else ((0, 0), 0)
+    assert (trained, flash_dense_attention.launches) == want
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]), losses
+
+
 # ---------------------------------------------------------------------------
 # K6/K7: dense attention rows over long sources, with one LSE per row
 # ---------------------------------------------------------------------------

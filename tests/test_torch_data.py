@@ -131,8 +131,12 @@ def test_metrics_logger_writes_what_jax_writes(tmp_path):
             with open(tmp_path / sub / name) as f:
                 rows.append(f.read())
     assert rows[:3] == rows[3:]
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        tlogging.MetricsLogger(str(tmp_path / "tb"), tensorboard=True)
+    # the TensorBoard and mlflow mirrors (their records: tests/test_torch_obs.py)
+    log = tlogging.MetricsLogger(str(tmp_path / "tb"), tensorboard=True, mlflow=True)
+    log.log(0, {"loss": 1.0})
+    log.close()
+    assert os.listdir(tmp_path / "tb" / "tb" / "run")
+    assert os.listdir(tmp_path / "tb" / "mlruns" / "0")
 
 
 def test_config_presets_equal_jax_field_by_field():
