@@ -59,6 +59,18 @@ Phases, in order; any failure exits non-zero:
      preset (seeded random weights) over the committed 2000-example
      fixture, on the config's ``IVF256,SQ8`` index (nprobe 8), with the
      kernels' launch counts read around that run;
+  9c. the serving step exported (``cli.run_export`` of 9's config: the
+     encode program and the decode-step program, `torch.export`, weights
+     and store as inputs), loaded and served with 9's params, store and
+     batch: ids equal 9's; K1, K2 and K8 launched through their custom ops
+     by the exported encode as often as by the eager ``rag_encode``; the
+     export, load, encode and serve wall times beside the eager ones;
+  9d. K2's host time per call through its custom op against the direct
+     ctypes launch, at the Longformer row's shape;
+  9e. the host tail: the native batch loader against the Python gather over
+     the fixture's train epoch (B=4), the native CPU MIPS search against f32
+     K1 on a 65536-row ``bench-index`` mixture, and ``bench-index`` at its
+     defaults;
   9b. the same slice sampled (one beam, temperature 0.8, top-k 50, top-p
      0.95) with ``generation.output_copy_probs``: the copy traces' teacher-
      forced decoder pass on K4, held to the same call on the CPU; one seed
@@ -106,7 +118,8 @@ Phases, in order; any failure exits non-zero:
      sources): the same, with no kernel launched.
 
 The line before the last is the per-kernel JSON summary (launches summed
-over the eight slices and the two baselines, K10's from its own phase, as
+over the eight slices, the exported serving step (9c: its export and one
+exported serve) and the two baselines, K10's from its own phase, as
 no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
@@ -1610,7 +1623,9 @@ def phase_small_ivf() -> None:
           f"the same retrieved ids and predictions: PASS")
 
 
-def phase_slice() -> dict:
+def phase_slice(report: dict | None = None) -> dict:
+    """The serving slice; ``report`` gets `cli.run_predict`'s report (the
+    params, store, batch, encoder output and ids)."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch import cli
@@ -1629,7 +1644,7 @@ def phase_slice() -> dict:
     from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
 
     cfg = config_from_dict(SLICE_CONFIG)
-    report: dict = {}
+    report = {} if report is None else report
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, launches = run_counted(lambda: cli.run_predict(cfg, device="cuda", report=report))
@@ -1701,6 +1716,200 @@ def phase_slice() -> dict:
     print(f"[slice] launches during the run: {launches}")
     print(f"[slice] first prediction: {preds[0][:120]}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: the exported serving step; 9d: the custom op's host time;
+# 9e: the host tail
+# ---------------------------------------------------------------------------
+
+EXPORT_KERNELS = ("mips_topk", "flash_sliding_attention", "ivf_probe_topk")
+
+
+def _synced(fn):
+    """(fn(), its wall seconds, the device synchronised before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_export(sliced: dict, card: str) -> dict:
+    """``cli.run_export`` of the serving slice's config on the card (the
+    encode program and the decode-step program, weights and store as
+    inputs), then the loaded artifact served with ``[slice]``'s params,
+    store and batch: its ids must equal ``[slice]``'s ``run_predict`` ids.
+    K1, K2 and K8, launched through their custom ops by the exported
+    encode, must launch as often as the eager ``rag_encode`` on the same
+    inputs, and at least once each. Prints the export's and the load's
+    wall time, the artifact's bytes, and the exported encode and serve
+    wall times beside the eager ones (exported, eager, eager, exported).
+    Returns the launches of the export and of one exported serve."""
+    import shutil
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli, serving
+    from retrieval_augmented_mds_tpu_torch.models.generate import generate
+    from retrieval_augmented_mds_tpu_torch.models.retriever_generator import rag_encode
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    cfg = config_from_dict(SLICE_CONFIG)
+    out = os.path.join(OUT_DIR, "export")
+    shutil.rmtree(out, ignore_errors=True)
+    (manifest, export_s), exported = run_counted(
+        lambda: _synced(lambda: cli.run_export(cfg, out, device="cuda")))
+    check(manifest["platforms"] == ["cuda"], f"platforms {manifest['platforms']}")
+    art, load_s = _synced(lambda: serving.load_serving(out))
+    params, store, batch = sliced["params"], sliced["store"], sliced["batch"]
+    dtype = cli.compute_dtype(cfg)
+
+    def eager_encode():
+        with torch.no_grad():
+            return rag_encode(params, cfg.model, store, batch, dtype=dtype)
+
+    (enc_x, enc_x_s), enc_x_l = run_counted(
+        lambda: _synced(lambda: serving.serve_encode(art, params, store, batch)))
+    (enc_e, enc_e_s), enc_e_l = run_counted(lambda: _synced(eager_encode))
+    for name in EXPORT_KERNELS:
+        check(enc_x_l[name] > 0 and enc_x_l[name] == enc_e_l[name],
+              f"{name}: {enc_x_l[name]} launches in the exported encode, "
+              f"{enc_e_l[name]} in the eager one")
+    check(torch.equal(enc_x.retrieved_idx, enc_e.retrieved_idx),
+          "the exported encode retrieved other rows than the eager one")
+    hidden_err = (enc_x.enc_hidden.float() - enc_e.enc_hidden.float()).abs().max().item()
+
+    def eager_serve():
+        enc = eager_encode()
+        return generate(params, cfg.model, enc, cfg.generation, dtype=dtype)
+
+    runs = {"exported": [], "eager": []}
+    served = None
+    for kind in ("exported", "eager", "eager", "exported"):
+        fn = (lambda: serving.serve(art, params, store, batch)) if kind == "exported" \
+            else eager_serve
+        (ids, sec), launches = run_counted(lambda: _synced(fn))
+        check(torch.equal(ids.cpu(), sliced["ids"].cpu()),
+              f"{kind} serve: ids differ from [slice]'s run_predict ids")
+        runs[kind].append(sec)
+        if kind == "exported" and served is None:
+            served = launches
+    print(f"[export] led_base predict slice, {card}: run_export {export_s:.3f} s (store "
+          f"build, two torch.export traces, save), load {load_s:.3f} s, artifact "
+          f"{manifest['bytes']} bytes ({', '.join(os.path.basename(p) for p in manifest['artifact'])})")
+    print(f"[export] launches in the exported encode: "
+          f"{ {n: enc_x_l[n] for n in EXPORT_KERNELS} }, eager rag_encode: "
+          f"{ {n: enc_e_l[n] for n in EXPORT_KERNELS} } (equal); encoder states max abs "
+          f"diff {hidden_err:.3e}, retrieved rows equal")
+    print(f"[export] encode wall: exported {enc_x_s:.4f} s, eager {enc_e_s:.4f} s; serve "
+          f"wall (encode + {cfg.generation.max_new_tokens} decode steps, beam "
+          f"{cfg.generation.num_beams}), exported, eager, eager, exported: "
+          f"{runs['exported'][0]:.3f}, {runs['eager'][0]:.3f}, {runs['eager'][1]:.3f}, "
+          f"{runs['exported'][1]:.3f} s; ids equal [slice]'s in all four")
+    launches = {name: exported[name] + served[name] for name in exported}
+    print(f"[export] launches of the phase (run_export, one exported serve): "
+          f"{ {n: launches[n] for n in EXPORT_KERNELS} }")
+    return launches
+
+
+def phase_custom_op_overhead() -> None:
+    """K2's host time per call through its custom op
+    (``ramds::flash_sliding_fwd``, what every path calls) against the direct
+    ctypes launch (`sliding_fwd_launch`), and through the whole wrapper
+    (checks, op, launch), at the Longformer row's shape (B=8 nh=12 T=512
+    dh=64 w=256 G=1 bf16): the host seconds of 200 enqueued calls (the
+    device runs behind, the queue never fills), in turns A B B A, 3
+    rounds. Launches here are not on a path."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.ops import flash_sliding as fs
+
+    lf = (8, 12, 512, 64, 256, 1, [512, 500, 430, 300, 257, 200, 130, 100], [1] * 8)
+    args, _, _ = _k2_inputs(*lf, torch.bfloat16, seed=0)
+    calls = {"custom op": lambda: fs._sliding_fwd_op(*args),
+             "direct ctypes": lambda: fs.sliding_fwd_launch(*args),
+             "wrapper": lambda: fs.flash_sliding_attention(*args[:7], window=args[7])}
+    ref = calls["direct ctypes"]()
+    for name, fn in calls.items():
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"K2 {name} differs")
+    n = 200
+    times: dict[str, list[float]] = {k: [] for k in calls}
+    for _ in range(3):
+        for name in ("custom op", "direct ctypes", "wrapper", "wrapper", "direct ctypes",
+                     "custom op"):
+            fn = calls[name]
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[name].append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"[custom_op] K2 host time per call, Longformer row shape, bf16 (us, median of "
+          f"{len(times['wrapper'])} runs of {n}): custom op {med['custom op']:.1f}, direct "
+          f"ctypes {med['direct ctypes']:.1f} (the op's dispatch: "
+          f"{med['custom op'] - med['direct ctypes']:+.1f}), whole wrapper "
+          f"{med['wrapper']:.1f}; runs {json.dumps({k: [round(x, 1) for x in v] for k, v in times.items()})}")
+
+
+def phase_host_tail() -> None:
+    """The host tail on the card's machine: `RAGDataModule.batches` through
+    the native loader equals the Python gather over the fixture's full
+    train epoch at the train slice's B=4 (and the host seconds of each);
+    the native CPU MIPS search (`cpu_mips_search`) against f32 K1 on the
+    ``bench-index`` mixture of 65536 rows (D = 768, 64 queries): equal ids,
+    but where a near-tie swaps two rows (`_near_tie_swaps`); then
+    ``bench-index`` at its defaults on the led_base config, printing its
+    recalls against that CPU search."""
+    import numpy as np
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+    from retrieval_augmented_mds_tpu_torch.utils.cpu_baseline import cpu_mips_search
+
+    cfg = train_slice_config()
+    dm, _ = cli.build_data(cfg)
+    b = cfg.data.batch_size
+    t0 = time.perf_counter()
+    nat = list(dm.batches(b, seed=cfg.seed, split="train"))
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = list(dm.batches(b, seed=cfg.seed, split="train", native=False))
+    py_s = time.perf_counter() - t0
+    check(len(nat) == len(py) > 0, f"{len(nat)} native batches, {len(py)} gathered")
+    for i, (bn, bp) in enumerate(zip(nat, py)):
+        check(sorted(bn) == sorted(bp) and all(np.array_equal(bn[k], bp[k]) for k in bp),
+              f"native batch {i} differs from the Python gather")
+    print(f"[host_tail] the fixture's train epoch, B={b}: {len(nat)} native batches equal "
+          f"the Python gather's; {nat_s:.3f} s native, {py_s:.3f} s gathered")
+
+    x, q = cli.gaussian_mixture(65536, 768, 64, cfg.seed)
+    t0 = time.perf_counter()
+    ref_v, ref_i = cpu_mips_search(x, q, 10)
+    cpu_s = time.perf_counter() - t0
+    qc, xc = torch.from_numpy(q).cuda(), torch.from_numpy(x).cuda()
+    vals, ids = mips_topk(qc, xc, 10)
+    ref_i, ref_v = torch.from_numpy(ref_i).cuda(), torch.from_numpy(ref_v).cuda()
+    swaps, gap, _ = _near_tie_swaps("cpu_baseline", qc, xc, None, ids, ref_i, ref_v)
+    err = (vals - ref_v).abs().max().item()
+    check(err <= 1e-4 + 1e-5 * ref_v.abs().max().item(), f"K1 values {err:.3e} from the CPU's")
+    print(f"[host_tail] cpu_mips_search (native, {cpu_s:.3f} s on the host) against f32 K1: "
+          f"65536 x 768 mixture, 64 queries, k=10: ids equal but {swaps} near-tie swaps "
+          f"(exact gap {gap:.2e}), values max abs diff {err:.3e}")
+    bench = cli.run_bench_index(config_from_dict(SLICE_CONFIG), device="cuda")
+    # the bf16 flat index against the exact f32 top-10: bf16 rounding moves
+    # scores by ~1 where neighbours sit tens apart
+    check(bench["flat_recall"] >= 0.9, f"bench-index flat recall {bench['flat_recall']}")
+    print(f"[host_tail] bench-index at its defaults (led_base width): {json.dumps(bench)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2563,7 +2772,12 @@ def main() -> int:
         phase_small_modes(small)
         phase_small_fit_8bit()
         phase_small_ivf()
-        served = phase_slice()
+        sliced: dict = {}
+        served = phase_slice(sliced)
+        exported = phase_export(sliced, card)
+        del sliced
+        phase_custom_op_overhead()
+        phase_host_tail()
         sampled = phase_predict_sample()
         standing = phase_train_slice()
         train_f32, _ = phase_train_f32_slice()
@@ -2591,11 +2805,12 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths (the eight slices and the two baselines); K10's paths launch it
-    # 0 times (checked), so its count is that of its own phase
-    launches = {name: served[name] + sampled[name] + standing[0][name] + train_f32[name]
-                + target_in[name] + capacity[name] + long[name] + retriever[name]
-                + bart[name] + t5[name] for name, _, _ in sources}
+    # launches on the paths (the eight slices, the exported serving step and the two
+    # baselines); K10's paths launch it 0 times (checked), so its count is that of its
+    # own phase
+    launches = {name: served[name] + exported[name] + sampled[name] + standing[0][name]
+                + train_f32[name] + target_in[name] + capacity[name] + long[name]
+                + retriever[name] + bart[name] + t5[name] for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

@@ -1,7 +1,7 @@
 """Command-line entry point of the port:
 
     python -m retrieval_augmented_mds_tpu_torch.cli \
-        {fit,validate,test,predict,pretrain-retriever,build-index,bench-index} \
+        {fit,validate,test,predict,pretrain-retriever,build-index,bench-index,export} \
         --config <yaml> [--index DIR] [--out DIR] [--mode train|test|predict] \
         [--device cuda|cpu] [--profile]
 
@@ -37,7 +37,12 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
   it with the tokenized corpus (``corpus_tokens.npz``) under ``--out``, in
   the JAX package's layout; ``--index DIR`` loads such a directory.
 * ``bench-index``: flat and IVF index build times and recall@10 on a
-  seeded Gaussian-mixture corpus shaped like the config.
+  seeded Gaussian-mixture corpus shaped like the config, against the exact
+  top-10 of the native CPU search (`utils.cpu_baseline`).
+* ``export``: the serving step as two `torch.export` programs (encode and
+  one cached decode step, weights and index as inputs) with a manifest
+  under ``--out`` (`serving`; `serving.load_serving` and `serving.serve`
+  serve them).
 
 Serving runs under ``torch.no_grad()``. Everything runs on CUDA by default
 and raises when CUDA is missing, unless ``--device cpu`` is given.
@@ -166,6 +171,27 @@ def load_store(index_dir: str, cfg, device: torch.device):
         row_aids=None if aids is None else torch.from_numpy(aids).to(device),
         nprobe=cfg.index.nprobe,
     )
+
+
+def serving_store(params, cfg, dm, device: torch.device, index_dir: str | None = None):
+    """The store that validate, test, predict and export serve from: None
+    under ``mips_disabled``, loaded from ``index_dir``, or built."""
+    if cfg.model.mips_disabled:
+        return None
+    if index_dir:
+        return load_store(index_dir, cfg, device)
+    return build_store(params, cfg, dm, device)
+
+
+def best_params(cfg, device: torch.device):
+    """`build_params`, then the ``ckpt_dir`` checkpoint that ``best.json``
+    marks (else the latest) when ``ckpt_dir`` has one."""
+    from .utils.checkpoint import checkpoint_path, load_arrays, load_params
+
+    params = build_params(cfg, device)
+    if cfg.ckpt_dir and os.path.exists(os.path.join(cfg.ckpt_dir, "latest.json")):
+        load_params(params, load_arrays(checkpoint_path(cfg.ckpt_dir, prefer="best")))
+    return params
 
 
 def device_batch(host: dict, cfg, device: torch.device) -> dict[str, torch.Tensor]:
@@ -371,22 +397,22 @@ def run_validate(cfg, split: str = "val", index_dir: str | None = None, *,
                  device: str = "cuda") -> dict[str, float]:
     """ROUGE over the whole ``split``, from the checkpoint of ``ckpt_dir``
     (the best-marked one, else the latest) when there is one."""
-    from .utils.checkpoint import checkpoint_path, load_arrays, load_params
-
     dev = resolve_device(device)
     dm, tok = build_data(cfg)
-    params = build_params(cfg, dev)
-    if cfg.ckpt_dir and os.path.exists(os.path.join(cfg.ckpt_dir, "latest.json")):
-        load_params(params, load_arrays(checkpoint_path(cfg.ckpt_dir, prefer="best")))
-    if cfg.model.mips_disabled:
-        store = None
-    elif index_dir:
-        store = load_store(index_dir, cfg, dev)
-    else:
-        store = build_store(params, cfg, dm, dev)
+    params = best_params(cfg, dev)
+    store = serving_store(params, cfg, dm, dev, index_dir)
     return run_eval_loop(cfg, params, store, dm, tok,
                          dump_name=f"{split}_outputs_{int(time.time())}", split=split,
                          device=dev)
+
+
+def predict_batch(cfg, dm, device: torch.device) -> dict[str, torch.Tensor]:
+    """The batch `run_predict` serves and `run_export` exports at: the first
+    batch of the held-out test split (the JAX package's ``run_predict``
+    draws from the unsplit set, train examples included)."""
+    host = next(dm.batches(cfg.data.batch_size, shuffle=False, split="test",
+                           drop_last=False))
+    return device_batch(host, cfg, device)
 
 
 def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
@@ -401,19 +427,10 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
     dm, tok = build_data(cfg)
     params = build_params(cfg, dev)
     t0 = time.perf_counter()
-    if cfg.model.mips_disabled:
-        store = None
-    elif index_dir:
-        store = load_store(index_dir, cfg, dev)
-    else:
-        store = build_store(params, cfg, dm, dev)
+    store = serving_store(params, cfg, dm, dev, index_dir)
     _sync(dev)
     t1 = time.perf_counter()
-    # the first batch of the held-out test split (the JAX package's
-    # run_predict draws from the unsplit set, train examples included)
-    host = next(dm.batches(cfg.data.batch_size, shuffle=False, split="test",
-                           drop_last=False))
-    batch = device_batch(host, cfg, dev)
+    batch = predict_batch(cfg, dm, dev)
     dtype = compute_dtype(cfg)
     with torch.no_grad():
         enc = rag_encode(params, cfg.model, store, batch, dtype=dtype)
@@ -434,6 +451,30 @@ def run_predict(cfg, index_dir: str | None = None, *, device: str = "cuda",
                       copy_trace_s=t4 - t3, params=params, store=store, batch=batch,
                       enc=enc, ids=ids)
     return out
+
+
+def run_export(cfg, out_dir: str, index_dir: str | None = None, *, device: str = "cuda",
+               report: dict[str, Any] | None = None) -> dict[str, Any]:
+    """Export the serving step as two `torch.export` programs (`serving`:
+    encode, and one cached decode step) with its manifest under
+    ``out_dir`` → the manifest. As the JAX package's ``run_export``, at the
+    weights of `best_params` and the store of `serving_store`, which stay
+    inputs of the programs; the signature batch is `predict_batch` minus
+    ``labels``. With ``report``, also fills in the export's wall seconds
+    and the params, store and batch it exported with."""
+    from .serving import export_serving
+
+    dev = resolve_device(device)
+    dm, _ = build_data(cfg)
+    params = best_params(cfg, dev)
+    store = serving_store(params, cfg, dm, dev, index_dir)
+    batch = predict_batch(cfg, dm, dev)
+    t0 = time.perf_counter()
+    manifest = export_serving(params, cfg, store, batch, out_dir)
+    if report is not None:
+        report.update(export_s=time.perf_counter() - t0, params=params, store=store,
+                      batch=batch)
+    return manifest
 
 
 def run_fit_baseline(cfg, *, device: str = "cuda",
@@ -581,13 +622,14 @@ def recall(ids: torch.Tensor, ref: torch.Tensor) -> float:
 def run_bench_index(cfg, *, device: str = "cuda") -> dict[str, Any]:
     """Index build times and recall@10 of the flat and IVF indexes (64
     queries) on `gaussian_mixture` data of ``data.mips_db_max_size`` rows
-    (65536 by default) at the mips encoder's width. Recall is against an
-    exact top-10 over the f32 corpus by the plain MIPS search on the CPU;
+    (65536 by default) at the mips encoder's width. Recall is against the
+    exact top-10 over the f32 corpus of the native CPU search
+    (`utils.cpu_baseline.cpu_mips_search`, as the JAX package takes it);
     the IVF queries go in batches of 4, so that B·nprobe < C and the
     probed route runs (a batch of 64 would scan every cluster). Times are
     host seconds with the device synchronised."""
     from .index import build_flat_index, build_ivf_index, ivf_search, search
-    from .ops.mips_topk import mips_topk_plain
+    from .utils.cpu_baseline import cpu_mips_search
 
     dev = resolve_device(device)
     n = cfg.data.mips_db_max_size or 65536
@@ -611,7 +653,7 @@ def run_bench_index(cfg, *, device: str = "cuda") -> dict[str, Any]:
         _sync(dev)
         out[name] = round(time.perf_counter() - t0, 3)
 
-    _, ref = mips_topk_plain(torch.from_numpy(q), torch.from_numpy(x), k)
+    ref = torch.from_numpy(cpu_mips_search(x, q, k)[1])
     qt = torch.from_numpy(q).to(dev)
     out["flat_recall"] = round(recall(search(flat, qt, k=k)[1], ref), 4)
     for nprobe in (8, 32):
@@ -851,13 +893,15 @@ def run_pretrain_retriever_predict(cfg, *, device: str = "cuda") -> dict[str, An
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="retrieval_augmented_mds_tpu_torch")
     p.add_argument("command", choices=["fit", "validate", "test", "predict",
-                                       "pretrain-retriever", "build-index", "bench-index"])
+                                       "pretrain-retriever", "build-index", "bench-index",
+                                       "export"])
     p.add_argument("--config", default=None)
     p.add_argument("--out", default="./index_out",
-                   help="build-index: the directory to save the index in")
+                   help="build-index: the directory to save the index in; export: the "
+                   "directory of the serving artifact")
     p.add_argument("--index", default=None, metavar="DIR",
                    help="load this persisted index directory instead of "
-                   "embedding the corpus (validate, test, predict)")
+                   "embedding the corpus (validate, test, predict, export)")
     p.add_argument("--mode", choices=["train", "test", "predict"], default="train",
                    help="pretrain-retriever only: train; test = the full-KB metrics of "
                    "the saved encoders.npz; predict = their top-k ranking dumped")
@@ -894,6 +938,8 @@ def main(argv=None) -> int:
         out = run_build_index(cfg, args.out, device=args.device)
     elif args.command == "bench-index":
         out = run_bench_index(cfg, device=args.device)
+    elif args.command == "export":
+        out = run_export(cfg, args.out, index_dir=args.index, device=args.device)
     else:
         out = run_predict(cfg, index_dir=args.index, device=args.device)
     print(json.dumps(out, default=str)[:2000])

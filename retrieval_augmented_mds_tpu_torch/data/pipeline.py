@@ -331,9 +331,16 @@ class RAGDataModule:
 
     def batches(
         self, batch_size: int, *, shuffle: bool = True, seed: int = 0,
-        drop_last: bool = True, split: str | None = None,
+        drop_last: bool = True, split: str | None = None, native: bool = True,
     ) -> Iterator[dict[str, np.ndarray]]:
-        """Batch iterator over ``split`` (all examples when None)."""
+        """Batch iterator over ``split`` (all examples when None). An epoch
+        of whole batches is assembled by the native C++ loader
+        (`native_loader.native_batches`, the torch-DataLoader-worker analog
+        of sotasum/data_modules.py:287-321) unless ``native`` is False; an
+        epoch with a ragged tail, or ``native=False``, by the Python
+        gather. Both yield the same batches. Unlike the JAX package, a
+        loader library that cannot be built raises instead of falling back
+        to the Python gather."""
         if split is None:
             order = np.arange(self.n_examples)
         else:
@@ -342,6 +349,13 @@ class RAGDataModule:
             np.random.default_rng(seed).shuffle(order)
         n = len(order)
         stop = n - (n % batch_size) if drop_last else n
+        if native and stop > 0 and stop % batch_size == 0:
+            from .native_loader import native_batches
+
+            # created here, so a loader that cannot be built raises before
+            # the first batch
+            yield from native_batches(self.examples, order[:stop], batch_size)
+            return
         for i in range(0, stop, batch_size):
             sel = order[i : i + batch_size]
             yield {k: v[sel] for k, v in self.examples.items()}

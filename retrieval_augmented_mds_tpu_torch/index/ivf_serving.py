@@ -11,7 +11,9 @@ select the final top-k.
 
 `ivf_probe_topk` routes by device: a CPU tensor takes
 `ivf_probe_topk_plain`, a CUDA tensor the kernel in
-``csrc/ivf_probe_topk.cu``; there is no fallback. The kernel groups the
+``csrc/ivf_probe_topk.cu`` through the custom op ``ramds::ivf_probe_topk``
+(its fake for an export's trace, its implementation the plan and the
+launch); there is no fallback. The kernel groups the
 probes by cluster itself, so that a cluster several queries probe is read
 once; the wrapper plans its row splits from the layout it reports
 (`_plan`).
@@ -77,25 +79,21 @@ def _plan(b: int, p: int, L: int, sms: int, layout) -> tuple[int, int]:
     return rows, -(-L // rows)
 
 
-def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
-    from ..ops.cuda_build import check, load
-    from ..ops.mips_topk import _kernel_layout, _sm_count
-
+def _check_k8(q, clustered, bias, scale, probes, k):
+    """Raise on what K8 does not take (shapes, types, devices: nothing that
+    reads a pointer, so it runs on the fake tensors of an export too)."""
     if clustered.dtype not in _DTYPE_CODE:
         raise TypeError(f"payload dtype {clustered.dtype} is not f32/bf16/int8")
     b, d = q.shape
     c, L, d2 = clustered.shape
-    p = probes.shape[1]
     if d != d2 or d % 16 or d > _MAX_D:
         raise ValueError(f"query dim {d} vs payload dim {d2}: must match, be a "
                          f"multiple of 16 and at most {_MAX_D}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
     dev = q.device
-    if (not clustered.is_contiguous() or clustered.device != dev
-            or clustered.data_ptr() % 16):
-        raise ValueError(f"clustered must be a contiguous [C, L, D] on {dev}, 16-byte "
-                         "aligned")
+    if not clustered.is_contiguous() or clustered.device != dev:
+        raise ValueError(f"clustered must be a contiguous [C, L, D] on {dev}")
     for name, t in (("bias", bias), ("scale", scale)):
         if t is not None and (t.dtype != torch.float32 or t.shape != (c, L)
                               or t.device != dev or not t.is_contiguous()):
@@ -104,8 +102,26 @@ def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
             or not probes.is_contiguous()):
         raise ValueError(f"probes must be a contiguous int32 [{b}, nprobe] on {dev}")
 
+
+def _ivf_probe_topk_launch(q: torch.Tensor, clustered: torch.Tensor, bias: torch.Tensor,
+                           scale: torch.Tensor | None, probes: torch.Tensor, k: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's launch, the implementation of the custom op
+    ``ramds::ivf_probe_topk``: ``q`` already in the kernel's query type,
+    the arguments checked by `_check_k8`. Checks the payload's alignment,
+    plans the row splits from the card's layout, launches on the current
+    stream, counts the launch."""
+    from ..ops.cuda_build import check, load
+    from ..ops.mips_topk import _kernel_layout, _sm_count
+
+    b, d = q.shape
+    L = clustered.shape[1]
+    p = probes.shape[1]
+    dev = q.device
+    if clustered.data_ptr() % 16:
+        raise ValueError("clustered must be 16-byte aligned")
     code = _DTYPE_CODE[clustered.dtype]
-    qk = q.to(_query_dtype(clustered)).contiguous()
+    qk = q.contiguous()
     rows, splits = _plan(b, p, L, _sm_count(dev), lambda: _kernel_layout(
         "ivf_probe_topk", dev.index, code, k))
     part_v = torch.empty((b * p, splits, k), dtype=torch.float32, device=dev)
@@ -128,6 +144,17 @@ def _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k):
     return vals, pos
 
 
+_ivf_probe_topk_op = torch.library.custom_op("ramds::ivf_probe_topk", _ivf_probe_topk_launch,
+                                             mutates_args=(), device_types="cuda")
+
+
+@_ivf_probe_topk_op.register_fake
+def _(q, clustered, bias, scale, probes, k):
+    b = q.shape[0]
+    return (q.new_empty((b, k), dtype=torch.float32),
+            q.new_empty((b, k), dtype=torch.int32))
+
+
 def ivf_probe_topk(
     q: torch.Tensor,  # [B, D] f32
     clustered: torch.Tensor,  # [C, L, D] f32 / bf16 / int8
@@ -139,13 +166,16 @@ def ivf_probe_topk(
     """Top-k distinct scores over each query's probed clusters →
     (values f32 [B, k], positions int32 [B, k]), a position being
     p·L + slot and a tie going to the lowest position. CPU tensors take
-    `ivf_probe_topk_plain`; CUDA tensors the kernel
-    (``ivf_probe_topk.launches`` counts its launches)."""
+    `ivf_probe_topk_plain`; CUDA tensors the kernel through the custom op
+    ``ramds::ivf_probe_topk`` (``ivf_probe_topk.launches`` counts its
+    launches)."""
     if q.device.type == "cpu":
         return ivf_probe_topk_plain(q, clustered, bias, scale, probes, k)
     if q.device.type != "cuda":
         raise ValueError(f"ivf_probe_topk has no kernel for device {q.device}")
-    return _ivf_probe_topk_cuda(q, clustered, bias, scale, probes, k)
+    _check_k8(q, clustered, bias, scale, probes, k)
+    return _ivf_probe_topk_op(q.to(_query_dtype(clustered)), clustered, bias, scale,
+                              probes, k)
 
 
 ivf_probe_topk.launches = 0

@@ -190,14 +190,15 @@ def attention(
     *,
     mask: torch.Tensor | None = None,  # broadcastable to [B, 1|nh, Tq, Tk]
     bias: torch.Tensor | None = None,  # additive logits bias
-    cache: dict | None = None,  # {"k","v" [B, nh, Tmax, dh], "pos": int}
+    cache: dict | None = None,  # {"k","v" [B, nh, Tmax, dh], "pos": 0-d int64}
     kv: tuple[torch.Tensor, torch.Tensor] | None = None,  # precomputed heads
 ):
     """Multi-head attention. With ``cache``, x_kv is the new chunk written
-    into the cache at ``cache["pos"]`` IN PLACE (the returned cache is the
-    same dict with ``pos`` advanced). With ``kv``, the key/value heads are
-    reused. When the q batch is a multiple of the kv batch (beams against
-    un-expanded encoder K/V) the beams fold into the query axis."""
+    into the cache at ``cache["pos"]`` (`cache_write`: the returned cache is
+    the same dict, its ``k``/``v`` replaced and ``pos`` advanced). With
+    ``kv``, the key/value heads are reused. When the q batch is a multiple
+    of the kv batch (beams against un-expanded encoder K/V) the beams fold
+    into the query axis."""
     dh = p.q.kernel.shape[1] // n_heads
     q = _split_heads(dense(p.q, x_q), n_heads)
     if kv is not None:
@@ -207,11 +208,7 @@ def attention(
         v = _split_heads(dense(p.v, x_kv), n_heads)
 
     if cache is not None:
-        pos, t_new = cache["pos"], x_kv.shape[1]
-        cache["k"][:, :, pos:pos + t_new] = k.to(cache["k"].dtype)
-        cache["v"][:, :, pos:pos + t_new] = v.to(cache["v"].dtype)
-        cache["pos"] = pos + t_new
-        k, v = cache["k"], cache["v"]
+        k, v = cache_write(cache, k, v)
 
     g = 1
     if k.shape[0] != q.shape[0]:
@@ -352,11 +349,27 @@ def ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
 
 def make_cache(b: int, n_heads: int, dh: int, t_max: int, dtype,
                device=None) -> dict:
+    """An empty self-attention cache; its position is a 0-d int64 tensor on
+    the cache's device, so that a cached step reads it without a host sync
+    and an exported step stays valid at every position."""
     return {
         "k": torch.zeros((b, n_heads, t_max, dh), dtype=dtype, device=device),
         "v": torch.zeros((b, n_heads, t_max, dh), dtype=dtype, device=device),
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int64, device=device),
     }
+
+
+def cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor):
+    """Write the new heads k/v [B, nh, t_new, dh] at ``cache["pos"]``:
+    ``cache["k"]``/``["v"]`` become copies with those rows replaced
+    (``index_copy`` at a tensor position, one code path for eager and
+    exported steps) and ``pos`` advances by t_new → the full (k, v)."""
+    pos = cache["pos"]
+    rows = pos + torch.arange(k.shape[2], device=pos.device)
+    cache["k"] = cache["k"].index_copy(2, rows, k.to(cache["k"].dtype))
+    cache["v"] = cache["v"].index_copy(2, rows, v.to(cache["v"].dtype))
+    cache["pos"] = pos + k.shape[2]
+    return cache["k"], cache["v"]
 
 
 def precompute_cross_kv(p: MHA, enc_hidden: torch.Tensor, n_heads: int):
@@ -367,8 +380,9 @@ def precompute_cross_kv(p: MHA, enc_hidden: torch.Tensor, n_heads: int):
     )
 
 
-def causal_mask(t_q: int, t_k: int, offset: int, device=None) -> torch.Tensor:
-    """[1, 1, Tq, Tk] causal mask where query i sits at position offset+i."""
+def causal_mask(t_q: int, t_k: int, offset, device=None) -> torch.Tensor:
+    """[1, 1, Tq, Tk] causal mask where query i sits at position offset+i
+    (``offset`` an int or a 0-d tensor on ``device``)."""
     qi = torch.arange(t_q, device=device)[:, None] + offset
     ki = torch.arange(t_k, device=device)[None, :]
     return (ki <= qi)[None, None]

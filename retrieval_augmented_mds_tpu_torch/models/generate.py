@@ -137,18 +137,27 @@ def _gumbel_noise(generator: torch.Generator, t: int, shape, dtype) -> torch.Ten
 
 def generate(params, cfg: RAGConfig, enc_out: RAGEncoderOutput,
              opts: GenerationOptions, *, dtype=torch.float32,
-             generator: torch.Generator | None = None) -> torch.Tensor:
+             generator: torch.Generator | None = None, step=None) -> torch.Tensor:
     """Generated ids [B, max_new_tokens] (pad after eos). Retrieval happened
     once, in `rag_encode`; the memory stays fixed for every step.
     ``generator`` draws the noise of ``do_sample`` (one beam); None seeds
-    one with 0 on the encoder states' device."""
+    one with 0 on the encoder states' device. ``step`` is the cached
+    decoder step, ``step(enc_out, tok [B'], caches, pos) → (log-probs
+    [B', V], caches)`` with ``pos`` a 0-d int64 tensor; None builds it
+    from ``params`` (`decode_step`), a loaded exported step
+    (`serving.serve`) takes its place."""
     with torch.no_grad():
+        if step is None:
+            step = decode_step(params, cfg, dtype, copy_head_kv(params, cfg, enc_out, dtype))
         if opts.num_beams <= 1:
-            return _greedy(params, cfg, enc_out, opts, dtype, generator)
-        return _beam(params, cfg, enc_out, opts, dtype)
+            return _greedy(params, cfg, enc_out, opts, dtype, step, generator)
+        return _beam(params, cfg, enc_out, opts, dtype, step)
 
 
-def _step_fn(params, cfg, dtype, copy_kv=None):
+def decode_step(params, cfg, dtype, copy_kv=None):
+    """The cached decoder step of `generate`: ``step(enc_out, tok [B'],
+    caches, pos)`` → (log-probs [B', V] f32, caches), the token at decode
+    position ``pos`` (a 0-d int64 tensor, equal to every cache's ``pos``)."""
     def step(enc_out, tok, caches, pos):
         out, _, caches = rag_decode(
             params, cfg, enc_out, tok[:, None], caches=caches, pos_offset=pos,
@@ -162,12 +171,21 @@ def _step_fn(params, cfg, dtype, copy_kv=None):
     return step
 
 
-def _init_caches(params, cfg, b, t_max, dtype, enc_hidden):
+def _position(t: int, device) -> torch.Tensor:
+    # a fill on the device, not a copy from the host
+    return torch.full((), t, dtype=torch.int64, device=device)
+
+
+def init_caches(params, cfg, b, t_max, dtype, enc_hidden):
+    """`generate`'s decoder caches for ``b`` rows (B·beams) and ``t_max``
+    positions, with the cross-attention heads of ``enc_hidden``."""
     return init_decode_caches(params.led, cfg.led, b, t_max, dtype,
                               enc_hidden=enc_hidden)
 
 
-def _copy_kv(params, cfg, enc_out, dtype):
+def copy_head_kv(params, cfg, enc_out, dtype):
+    """The copy head's memory K/V heads, computed once per generation (None
+    without memory or with the token copy head)."""
     if cfg.mips_disabled or enc_out.memory is None or not cfg.use_own_decoder:
         return None
     return precompute_copy_kv(params.copy_head, enc_out.memory.to(dtype),
@@ -180,20 +198,19 @@ def _scores_after_step(seqs, t, logp, opts, eos):
     return _min_length_mask(logp, t + 1, opts, eos)
 
 
-def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype, generator=None):
+def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype, step, generator=None):
     b = enc_out.enc_hidden.shape[0]
     dev = enc_out.enc_hidden.device
     if opts.do_sample and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     t_max = opts.max_new_tokens
     pad, eos = cfg.led.pad_id, cfg.led.eos_id
-    step = _step_fn(params, cfg, dtype, _copy_kv(params, cfg, enc_out, dtype))
-    caches = _init_caches(params, cfg, b, t_max + 1, dtype, enc_out.enc_hidden)
+    caches = init_caches(params, cfg, b, t_max + 1, dtype, enc_out.enc_hidden)
     seqs = torch.full((b, t_max + 1), pad, dtype=torch.int32, device=dev)
     seqs[:, 0] = opts.decoder_start_id
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for t in range(t_max):
-        logp, caches = step(enc_out, seqs[:, t], caches, t)
+        logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))
         logp = _scores_after_step(seqs, t, logp, opts, eos)
         if opts.do_sample:
             logp = _sample_filter(logp, opts.top_k, opts.top_p, opts.temperature)
@@ -210,7 +227,7 @@ def _length_penalty(cur_len: int, alpha: float) -> torch.Tensor:
     return base ** alpha
 
 
-def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype):
+def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype, step):
     b = enc_out.enc_hidden.shape[0]
     dev = enc_out.enc_hidden.device
     beams = opts.num_beams
@@ -220,8 +237,7 @@ def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype):
 
     # encoder outputs and memory stay un-expanded: attention folds the beam
     # axis into the query axis (core._fold_groups)
-    step = _step_fn(params, cfg, dtype, _copy_kv(params, cfg, enc_out, dtype))
-    caches = _init_caches(params, cfg, bb, t_max + 1, dtype, enc_out.enc_hidden)
+    caches = init_caches(params, cfg, bb, t_max + 1, dtype, enc_out.enc_hidden)
 
     seqs = torch.full((bb, t_max + 1), pad, dtype=torch.int32, device=dev)
     seqs[:, 0] = opts.decoder_start_id
@@ -232,7 +248,7 @@ def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype):
     rows = torch.arange(b, device=dev)[:, None] * beams
 
     for t in range(t_max):
-        logp, caches = step(enc_out, seqs[:, t], caches, t)  # [bb, V]
+        logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))  # [bb, V]
         v = logp.shape[-1]
         logp = _scores_after_step(seqs, t, logp, opts, eos)
         total = (scores.reshape(bb, 1) + logp).reshape(b, beams * v)

@@ -112,7 +112,7 @@ def led_decode(
     enc_padding_mask: torch.Tensor,  # [B, S]
     *,
     caches: list[dict] | None = None,  # per-layer self-attn caches
-    pos_offset: int = 0,  # decode position of dec_ids[:, 0]
+    pos_offset: int | torch.Tensor = 0,  # decode position of dec_ids[:, 0]
     dtype=torch.float32,
     remat: bool | str = False,
 ):
@@ -120,8 +120,10 @@ def led_decode(
     teacher-forced over the whole target (the training path: causal
     self-attention and padded cross-attention through `attention_train`)
     and returns caches None, each layer checkpointed under ``remat``. With
-    ``caches`` it runs incrementally: dec_ids is the new chunk and each
-    layer's cache is appended in place (``remat`` does not apply)."""
+    ``caches`` it runs incrementally: dec_ids is the new chunk, written
+    into each layer's cache at its ``pos`` (a 0-d tensor, `core.cache_write`;
+    ``pos_offset`` is then that position, an int or the same tensor), and
+    ``remat`` does not apply."""
     b, t = dec_ids.shape
     pos = torch.arange(t, device=dec_ids.device)[None, :] + pos_offset
     x = embed(params.shared_emb, dec_ids, dtype) + embed(params.dec_pos, pos, dtype)

@@ -151,6 +151,33 @@ class RAGEncoderOutput:
     query_cls: torch.Tensor | None = None  # [B, H]
 
 
+def encoder_output_leaves(enc: RAGEncoderOutput) -> tuple[tuple[str, ...],
+                                                          tuple[torch.Tensor, ...]]:
+    """``enc`` as (the names of its fields that hold a tensor, those
+    tensors), the form an exported program takes and returns it in."""
+    names = tuple(f.name for f in dataclasses.fields(enc) if getattr(enc, f.name) is not None)
+    return names, tuple(getattr(enc, n) for n in names)
+
+
+def encoder_output_from_leaves(names, leaves) -> RAGEncoderOutput:
+    """Inverse of `encoder_output_leaves`: every other field is None."""
+    kw = dict.fromkeys(f.name for f in dataclasses.fields(RAGEncoderOutput))
+    kw.update(zip(names, leaves))
+    return RAGEncoderOutput(**kw)
+
+
+def copy_kv_leaves(copy_kv) -> tuple[torch.Tensor, ...]:
+    """The copy head's per-layer (k, v) heads as one flat tuple (empty for
+    None)."""
+    return () if copy_kv is None else tuple(t for kv in copy_kv for t in kv)
+
+
+def copy_kv_from_leaves(leaves):
+    """Inverse of `copy_kv_leaves`: [(k, v), ...] per layer, or None."""
+    leaves = tuple(leaves)
+    return [leaves[i:i + 2] for i in range(0, len(leaves), 2)] or None
+
+
 class RAG(nn.Module):
     """Parameter tree of the whole model; paths mirror `init_rag`'s tree."""
 
@@ -336,7 +363,7 @@ def rag_decode(
     decoder_input_ids: torch.Tensor,  # [B, T]
     *,
     caches=None,
-    pos_offset: int = 0,
+    pos_offset: int | torch.Tensor = 0,
     dtype=torch.float32,
     remat: bool | str = False,
     copy_kv=None,

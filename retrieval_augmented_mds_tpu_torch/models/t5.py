@@ -30,6 +30,7 @@ from .core import (
     _merge_heads,
     _split_heads,
     build_module,
+    cache_write,
     causal_mask,
     embed,
     make_cache,
@@ -171,7 +172,7 @@ def _t5_attention(p: T5Attention, x_q, x_kv, n_heads: int, *, bias=None, mask=No
                   cache: dict | None = None, kv=None):
     """Unscaled multi-head attention with an additive position bias. With
     ``cache``, x_kv is the new chunk, written into the cache at
-    ``cache["pos"]`` IN PLACE (``pos`` advanced); with ``kv``, the key and
+    ``cache["pos"]`` (`core.cache_write`, ``pos`` advanced); with ``kv``, the key and
     value heads are reused."""
     q = _split_heads(_linear(p.q, x_q), n_heads)
     if kv is not None:
@@ -180,11 +181,7 @@ def _t5_attention(p: T5Attention, x_q, x_kv, n_heads: int, *, bias=None, mask=No
         k = _split_heads(_linear(p.k, x_kv), n_heads)
         v = _split_heads(_linear(p.v, x_kv), n_heads)
     if cache is not None:
-        pos, t_new = cache["pos"], x_kv.shape[1]
-        cache["k"][:, :, pos:pos + t_new] = k
-        cache["v"][:, :, pos:pos + t_new] = v
-        cache["pos"] = pos + t_new
-        k, v = cache["k"], cache["v"]
+        k, v = cache_write(cache, k, v)
     logits = torch.matmul(q, k.transpose(-1, -2))
     if bias is not None:
         logits = logits + bias

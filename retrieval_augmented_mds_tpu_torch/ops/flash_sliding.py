@@ -12,8 +12,9 @@ its forward saves out, m and l; its backward computes
 delta = rowsum(dO * out) and calls the backward of
 ``flash_sliding_bwd.py`` (kernel K3 on the card). Routing is by device: a
 CPU tensor goes to `local_rows_plain` and the plain backward, a CUDA
-tensor to the kernels in ``csrc/flash_sliding_fwd.cu`` (K2) and
-``csrc/flash_sliding_bwd.cu`` (K3); no fallback. Both run on the tensor
+tensor to the kernels in ``csrc/flash_sliding_fwd.cu`` (K2, through the
+custom op ``ramds::flash_sliding_fwd``, which an export traces through
+its fake) and ``csrc/flash_sliding_bwd.cu`` (K3); no fallback. Both run on the tensor
 cores, bf16 as bf16 MMAs and f32 (the retriever's encoders) as split-TF32
 MMAs that keep f32 accuracy, and skip the band key tiles that
 ``key_bias`` masks whole for a block of rows that each have an open
@@ -90,11 +91,10 @@ def local_rows_plain(q, k, v, key_bias, kg, vg, g_bias, window,
 
 def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
                             return_stats: bool = False):
-    """Kernel K2. Same arguments and results as `local_rows_plain`; needs
-    dh in {32, 64, 128}, 1 <= G <= 128, T a multiple of the window and the
-    window a multiple of 32 (as K3 takes it), in f32 and bf16 alike."""
-    from .cuda_build import check, load
-
+    """Kernel K2, through the custom op ``ramds::flash_sliding_fwd``. Same
+    arguments and results as `local_rows_plain`; needs dh in {32, 64, 128},
+    1 <= G <= 128, T a multiple of the window and the window a multiple of
+    32 (as K3 takes it), in f32 and bf16 alike."""
     b, nh, t, dh = q.shape
     g = kg.shape[2]
     dev = q.device
@@ -119,7 +119,25 @@ def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
     if t % window or window % GRANULE:
         raise ValueError(f"T={t} must be a multiple of window={window}, and the "
                          f"window a multiple of {GRANULE}")
+    out, m, l = _sliding_fwd_op(q, k, v, key_bias, kg, vg, g_bias, window)
+    if return_stats:
+        return out, m, l
+    return out
 
+
+def sliding_fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_bias: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+                       g_bias: torch.Tensor, window: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's launch on arguments `flash_sliding_attention` checked → (out, m,
+    l), on the current stream, counted; the implementation of the custom
+    op ``ramds::flash_sliding_fwd``, and a direct ctypes call when called
+    by itself."""
+    from .cuda_build import check, load
+
+    b, nh, t, dh = q.shape
+    g = kg.shape[2]
+    dev = q.device
     q, k, v, kg, vg = (x.contiguous() for x in (q, k, v, kg, vg))
     key_bias, g_bias = key_bias.contiguous(), g_bias.contiguous()
     out = torch.empty_like(q)
@@ -137,9 +155,19 @@ def flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, *, window,
     )
     check(err, "flash_sliding_attention")
     flash_sliding_attention.launches += 1
-    if return_stats:
-        return out, m, l
-    return out
+    return out, m, l
+
+
+_sliding_fwd_op = torch.library.custom_op("ramds::flash_sliding_fwd", sliding_fwd_launch,
+                                          mutates_args=(), device_types="cuda")
+
+
+@_sliding_fwd_op.register_fake
+def _(q, k, v, key_bias, kg, vg, g_bias, window):
+    b, nh, t, _ = q.shape
+    stats = q.new_empty((b * nh, 1, t), dtype=torch.float32)
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device), stats,
+            torch.empty_like(stats))
 
 
 flash_sliding_attention.launches = 0

@@ -8,7 +8,10 @@ index holding it (bit-identical scores, e.g. duplicate rows, collapse to
 one hit). Leftover slots are (-3e38, -1).
 
 Routing is by device: a CPU tensor goes to `mips_topk_plain`, a CUDA
-tensor to the kernel in ``csrc/mips_topk.cu``; there is no fallback. Every
+tensor to the kernel in ``csrc/mips_topk.cu`` through the custom op
+``ramds::mips_topk`` (`torch.library`; its fake implementation gives the
+shapes an export traces with, its implementation plans, launches and
+counts); there is no fallback. Every
 corpus is scored on the tensor cores (``csrc/mips_tile.cuh``): bf16 or int8
 against bf16 queries, f32 against f32 queries in split TF32.
 
@@ -153,9 +156,9 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
-    from .cuda_build import check, load
-
+def _check_k1(queries, corpus, k, row_bias, ignore, row_scale):
+    """Raise on what K1 does not take (shapes, types, devices: nothing that
+    reads a pointer, so it runs on the fake tensors of an export too)."""
     if corpus.dtype not in _DTYPE_CODE:
         raise TypeError(f"corpus dtype {corpus.dtype} is not f32/bf16/int8")
     b, d = queries.shape
@@ -179,8 +182,21 @@ def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
     if corpus.device != dev:
         raise ValueError("queries and corpus must be on the same device")
 
-    # bf16 queries for a bf16 or int8 corpus, f32 for an f32 one
-    q = queries.to(_query_dtype(corpus)).contiguous()
+
+def _mips_topk_launch(q: torch.Tensor, corpus: torch.Tensor, k: int,
+                      row_bias: torch.Tensor | None, ignore: torch.Tensor | None,
+                      row_scale: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch, the implementation of the custom op ``ramds::mips_topk``:
+    ``q`` already in the kernel's query type (bf16 for a bf16 or int8
+    corpus, f32 for an f32 one), the arguments checked by `_check_k1`.
+    Plans the splits from the tensors' pointers and the card's layout,
+    launches on the current stream, counts the launch."""
+    from .cuda_build import check, load
+
+    b, d = q.shape
+    n = corpus.shape[0]
+    dev = q.device
+    q = q.contiguous()
     nq, rows, splits, vec = _k1_plan(q, corpus, k)
     part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
@@ -204,6 +220,17 @@ def _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale):
     return vals, ids
 
 
+_mips_topk_op = torch.library.custom_op("ramds::mips_topk", _mips_topk_launch,
+                                        mutates_args=(), device_types="cuda")
+
+
+@_mips_topk_op.register_fake
+def _(q, corpus, k, row_bias, ignore, row_scale):
+    b = q.shape[0]
+    return (q.new_empty((b, k), dtype=torch.float32),
+            q.new_empty((b, k), dtype=torch.int32))
+
+
 def mips_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -214,12 +241,15 @@ def mips_topk(
 ):
     """Exact top-k MIPS → (values f32 [B, k], ids int32 [B, k]), sorted by
     descending score. CPU tensors take `mips_topk_plain`; CUDA tensors the
-    kernel (``mips_topk.launches`` counts its launches)."""
+    kernel through the custom op ``ramds::mips_topk``
+    (``mips_topk.launches`` counts its launches)."""
     if queries.device.type == "cpu":
         return mips_topk_plain(queries, corpus, k, row_bias, ignore, row_scale)
     if queries.device.type != "cuda":
         raise ValueError(f"mips_topk has no kernel for device {queries.device}")
-    return _mips_topk_cuda(queries, corpus, k, row_bias, ignore, row_scale)
+    _check_k1(queries, corpus, k, row_bias, ignore, row_scale)
+    return _mips_topk_op(queries.to(_query_dtype(corpus)), corpus, k, row_bias, ignore,
+                         row_scale)
 
 
 mips_topk.launches = 0

@@ -114,6 +114,17 @@ for mode in ("train", "test", "predict"):
     assert cli.main(["pretrain-retriever", "--mode", mode, "--config", sys.argv[1],
                      "--device", "cpu"]) == 0
 assert cli.main(["fit", "--config", sys.argv[2], "--device", "cpu"]) == 0
+import gzip, os
+import numpy as np
+from retrieval_augmented_mds_tpu_torch.data import ingest
+from retrieval_augmented_mds_tpu_torch.utils.cpu_baseline import cpu_mips_search
+x = np.eye(8, dtype=np.float32)
+assert cpu_mips_search(x, x[:2], 1)[1].ravel().tolist() == [0, 1]
+src = os.path.join(sys.argv[3], "snap")
+os.makedirs(src)
+with gzip.open(os.path.join(src, "p.gz"), "wt") as f:
+    f.write(json.dumps({"id": "W", "abstract_inverted_index": {"a": [0]}}) + "\\n")
+assert ingest.build_openalex_abstracts(src, os.path.join(sys.argv[3], "oa.parquet")) == 1
 bad = sorted(k for k, v in sys.modules.items() if v is not None and (
     k == "jax" or k.startswith("jax.") or k == "retrieval_augmented_mds_tpu"
     or k.startswith("retrieval_augmented_mds_tpu.")))
@@ -126,7 +137,8 @@ def test_pretrain_retriever_imports_nothing_of_jax(tmp_path):
     three modes (the retriever modules, the validation's flat search, the
     export and import of encoders.npz), then `fit --device cpu` with
     ``baseline: bart`` and TensorBoard and mlflow on (the baseline modules,
-    the obs tail); neither JAX nor the JAX package is then loaded."""
+    the obs tail), the native CPU search and an ingestion; neither JAX nor
+    the JAX package is then loaded."""
     import subprocess
     import sys
 
@@ -141,7 +153,8 @@ def test_pretrain_retriever_imports_nothing_of_jax(tmp_path):
         logging={"log_dir": str(tmp_path / "b"), "run_name": "g", "tensorboard": True,
                  "mlflow": True})))
     env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
-    res = subprocess.run([sys.executable, "-c", _GUARD, str(path), str(bart)], cwd=REPO,
+    res = subprocess.run([sys.executable, "-c", _GUARD, str(path), str(bart), str(tmp_path)],
+                         cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {"bad": []}

@@ -163,9 +163,16 @@ import retrieval_augmented_mds_tpu_torch as p
 mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]
 for m in mods:
     importlib.import_module(m)
-from retrieval_augmented_mds_tpu_torch import cli
-for path in sys.argv[1:]:
+from retrieval_augmented_mds_tpu_torch import cli, serving
+out, configs = sys.argv[1], sys.argv[2:]
+for path in configs:
     assert cli.main(['predict', '--config', path, '--device', 'cpu']) == 0
+# the export of the first config, loaded and served
+assert cli.main(['export', '--config', configs[0], '--device', 'cpu', '--out', out]) == 0
+art = serving.load_serving(out)
+rep = {}
+cli.run_predict(art.cfg, device='cpu', report=rep)
+assert serving.serve(art, rep['params'], rep['store'], rep['batch']).equal(rep['ids'])
 bad = sorted(k for k, v in sys.modules.items() if v is not None and (
     k == 'jax' or k.startswith('jax.') or k == 'retrieval_augmented_mds_tpu'
     or k.startswith('retrieval_augmented_mds_tpu.')))
@@ -177,8 +184,10 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     """A fresh interpreter imports every module of the port and runs
     `predict` on configs/smoke.yaml (Flat), on an IVF SQ8 variant, and on
     a variant that samples and returns copy traces (``do_sample``,
-    ``output_copy_probs``) under ``target_in`` on the CPU; neither JAX nor
-    the JAX package is then loaded. chip_smoke.py imports neither either."""
+    ``output_copy_probs``) under ``target_in`` on the CPU (their batches
+    through the native loader), then `export`s configs/smoke.yaml and
+    serves the loaded artifact; neither JAX nor the JAX package is then
+    loaded. chip_smoke.py imports neither either."""
     import yaml
 
     with open(os.path.join(REPO, "configs", "smoke.yaml")) as f:
@@ -195,14 +204,15 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     with open(modes_cfg, "w") as f:
         yaml.safe_dump(d, f)
     res = subprocess.run(
-        [sys.executable, "-c", _GUARD, os.path.join(REPO, "configs", "smoke.yaml"), ivf_cfg,
-         modes_cfg],
+        [sys.executable, "-c", _GUARD, str(tmp_path / "export"),
+         os.path.join(REPO, "configs", "smoke.yaml"), ivf_cfg, modes_cfg],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for m in ("data.pipeline", "eval.rouge", "obs.logging", "models.config", "index.ivf",
-              "index.ivf_serving", "index.augment"):
+              "index.ivf_serving", "index.augment", "serving", "data.native_loader",
+              "data.ingest", "utils.cpu_baseline", "utils.native_build"):
         assert f"retrieval_augmented_mds_tpu_torch.{m}" in out["modules"]
 
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

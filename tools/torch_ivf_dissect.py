@@ -65,9 +65,17 @@ from retrieval_augmented_mds_tpu_torch.ops import cuda_build  # noqa: E402
 from retrieval_augmented_mds_tpu_torch.ops.mips_topk import (  # noqa: E402
     _DTYPE_CODE,
     _kernel_layout,
+    _query_dtype,
 )
 
-WRAPPER = serving._ivf_probe_topk_cuda
+LAUNCH, OP = serving._ivf_probe_topk_launch, serving._ivf_probe_topk_op
+
+
+def WRAPPER(q, clustered, bias, scale, probes, k):
+    """K8 as `ivf_probe_topk` runs it on the card, without the custom op's
+    dispatch: the checks, the query in the kernel's type, the launch."""
+    serving._check_k8(q, clustered, bias, scale, probes, k)
+    return LAUNCH(q.to(_query_dtype(clustered)), clustered, bias, scale, probes, k)
 
 I2F_WIDEN = "int8 widened by I2F"
 WORD_WIDEN = "int8 read as one word a lane, query permuted"
@@ -314,12 +322,12 @@ def main() -> None:
                 ms = chip_smoke.cuda_ms(lambda: calls[key](*args, k))
                 print(f"[time] {what} {key[0]} whole: {ms:.4f} ms")
             for key in order:  # the whole per-query route on either K8
-                serving._ivf_probe_topk_cuda = calls[key]
+                serving._ivf_probe_topk_op = calls[key]
                 ms = chip_smoke.cuda_ms(lambda: serving.ivf_search_serving(
                     idx, queries[:b], k=k, nprobe=chip_smoke.K8_NPROBE))
                 ids = serving.ivf_search_serving(idx, queries[:b], k=k,
                                                  nprobe=chip_smoke.K8_NPROBE)[1]
-                serving._ivf_probe_topk_cuda = WRAPPER
+                serving._ivf_probe_topk_op = OP
                 print(f"[route] {what} on {key[0]}'s K8: {ms:.4f} ms, ids "
                       f"{hash(tuple(ids.flatten().tolist())) & 0xffffffff:08x}")
             for key in [key for key in calls if key[1] != "whole"]:
