@@ -115,12 +115,26 @@ Phases, in order; any failure exits non-zero:
      decoding through ``fit --profile``, whose trace gives the device's
      busy time in a step and in the decoding, by kernel class;
  16. the T5 baseline at ``t5-large``'s width (24 + 24 layers, 512-token
-     sources): the same, with no kernel launched.
+     sources): the same, with no kernel launched;
+ 17. ``[mesh_eval]``: ``validate`` of 9's config over a (data 2, shard 2)
+     mesh with the LED sequence-sharded, 4 ranks sharing the one card over
+     gloo, for 2 val batches (each rank's K1 on its shard, K2 on its LED
+     block): the retrieved rows of the mesh and of one device over the same
+     130-cluster index against the plain search on the CPU and against each
+     other (up to near-tie swaps), the LED encoder states against one
+     device's (and, in f32 on full-length rows whose real tokens cross the
+     block boundary, against the unsharded encoder), the equal generated
+     sequences, the walls, peak memories and collectives; then
+     ``torchrun --nproc-per-node 4 -m retrieval_augmented_mds_tpu_torch.cli
+     validate`` on ``configs/smoke.yaml`` with that mesh, and K2 and K1 at
+     the sharded shapes (a rank's extended LED block; each shard's probed
+     union and the spill, as the mesh searched them; a flat shard's rows
+     with shifted ignore ids) against their plain versions.
 
 The line before the last is the per-kernel JSON summary (launches summed
 over the eight slices, the exported serving step (9c: its export and one
-exported serve) and the two baselines, K10's from its own phase, as
-no path calls it; ms,
+exported serve), the two baselines and the mesh's four ranks (17), K10's
+from its own phase, as no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +152,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(
@@ -2741,6 +2756,530 @@ def phase_baseline_profile(family: str, card: str, steady_s: float, gen_s: float
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: evaluation over a (data, shard) mesh of 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_BATCHES = 2  # val batches of the mesh run (the fixture's val split holds 50)
+MESH_TIMEOUT = 480  # s: the 4-rank launch is killed after this, and the phase fails
+CLI_TIMEOUT = 300  # s: the same for `torchrun ... cli validate`
+# the LED encoder states of the mesh against the single-device run: bf16 on
+# both, the sharded global rows' softmax in f32 where one device rounds its
+# probabilities to bf16, and GEMMs over half the rows; twice and three times
+# the largest and the mean error of a correct mesh on the H100 (PERF.md)
+MESH_ENC_TOL = 0.025  # x max|ref|, the largest error
+MESH_ENC_MEAN_TOL = 2e-3  # the mean absolute error
+# the full-length f32 LED check (`_full_length_led`): split-TF32 roundoff and
+# the global rows' sums across ranks in another order
+MESH_FULL_TOL = 1e-4  # x max|ref|
+
+
+def mesh_eval_config(name: str, mesh: bool = True, precision: str = "bfloat16") -> dict:
+    """`SLICE_CONFIG` over a (2, 2) mesh with the LED sequence-sharded
+    (``mesh`` False: the same without a mesh), in ``precision``, its logs
+    under ``OUT_DIR/<name>``."""
+    d = json.loads(json.dumps(SLICE_CONFIG))
+    d["precision"] = precision
+    d["model"]["sequence_shard"] = True
+    d["logging"] = {"log_dir": os.path.join(OUT_DIR, name), "run_name": name}
+    if mesh:
+        d["mesh"] = {"data": 2, "shard": 2}
+    return d
+
+
+def mesh_eval_rank(init: str, cfg_dict: dict, out_dir: str, device: str = "cuda") -> dict:
+    """One rank of `phase_mesh_eval`: `cli.run_validate` over the mesh for
+    `MESH_BATCHES` val batches, with the launches counted, then
+    `_full_length_led` → what the parent checks. Its own rows' LED encoder
+    states go to ``out_dir``."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.parallel import init_distributed
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # 4 ranks on the host's 8 cores
+    init_distributed(device, init_method=init)
+    cfg = config_from_dict(cfg_dict)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rep: dict = {}
+    t0 = time.perf_counter()
+    rouge, launches = run_counted(lambda: cli.run_validate(
+        cfg, "val", device=device, max_batches=MESH_BATCHES, report=rep))
+    wall = time.perf_counter() - t0
+    mesh, store = rep["mesh"], rep["store"]
+    full = _full_length_led(rep["params"].led, cfg.model.led, mesh)
+    index = store.index
+    enc_path = os.path.join(out_dir, f"enc_rank{mesh.rank}.pt")
+    torch.save([e.enc_hidden.cpu() for e in rep["enc"]], enc_path)
+    part = {}
+    if mesh.d == 0:  # the clusters this shard holds; rank 0 also the rest
+        names = ("clustered", "clustered_ids", "clustered_bias", "clustered_scale")
+        if mesh.s == 0:
+            names += ("centroids", "centroid_bias", "spill", "spill_ids", "spill_bias",
+                      "spill_scale")
+            part["static"] = {"n": index.n, "metric": index.metric,
+                              "normalized": index.normalized, "n_spill": index.n_spill}
+            part["tokens"] = {"token_ids": store.token_ids.cpu().numpy(),
+                              "token_mask": store.token_mask.cpu().numpy()}
+        part.update({k: getattr(index, k).cpu() for k in names})
+    return {"rank": mesh.rank, "d": mesh.d, "s": mesh.s, "backend": mesh.backend,
+            "device": str(mesh.device), "rouge": rouge, "launches": launches,
+            "wall": wall, "batch_s": rep["batch_s"], "bytes": rep["collective_bytes"],
+            "calls": rep["collective_calls"],
+            "peak": torch.cuda.max_memory_allocated() if cuda else 0, "shards": index.shards,
+            "n_clusters": index.n_clusters, "ids": [i.cpu() for i in rep["ids"]],
+            "retrieval": _retrieval(rep), "full": full, "enc_path": enc_path, "index": part}
+
+
+def _full_length_led(led_params, led_cfg, mesh) -> tuple[float, float]:
+    """The LED encoder sequence-sharded over ``mesh`` against the same
+    encoder unsharded on this rank, in f32, on 2 rows whose real tokens
+    cross the block boundary at 1024 (2048 and 1500 of 2048 tokens) with
+    global tokens in both blocks. The val split's sources end before that
+    boundary (at most 550 tokens in `MESH_BATCHES` batches), so only this
+    input sends real rows through the halo exchange → (max abs err,
+    max|ref|)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.models.led import led_encode
+
+    g = torch.Generator().manual_seed(18)
+    t = 2048
+    ids = torch.randint(4, led_cfg.vocab_size, (2, t), generator=g)
+    mask = torch.ones((2, t), dtype=torch.int32)
+    mask[1, 1500:] = 0
+    glob = torch.zeros((2, t), dtype=torch.int32)
+    glob[:, [0, 300, 1100, 1400]] = 1
+    ids, mask, glob = (x.to(mesh.device) for x in (ids, mask, glob))
+    with torch.no_grad():
+        out = led_encode(led_params, led_cfg, ids, mask, glob, seq_mesh=mesh)
+        ref = led_encode(led_params, led_cfg, ids, mask, glob)
+    return (out - ref).abs().max().item(), ref.abs().max().item()
+
+
+def _retrieval(rep: dict) -> list:
+    """Each batch of an eval loop's report → (queries, ignore ids, retrieved
+    ids, scores) on the CPU."""
+    return [(e.query_cls.cpu(), b["mips_ignore"].cpu(), e.retrieved_idx.cpu(),
+             e.faiss_scores.cpu()) for b, e in zip(rep["batch"], rep["enc"])]
+
+
+def _assemble_ivf(results) -> str:
+    """The whole IVF index of a mesh run, put back together from its data
+    rank 0's shards (`mesh_eval_rank`), saved with its corpus as a
+    ``build-index`` directory → the directory."""
+    import numpy as np
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.ivf import IVFIndex, save_ivf_index
+
+    parts = sorted((r for r in results if r["d"] == 0), key=lambda r: r["s"])
+    whole = dict(parts[0]["index"])
+    for k in ("clustered", "clustered_ids", "clustered_bias", "clustered_scale"):
+        whole[k] = torch.cat([p["index"][k] for p in parts])
+    static, tokens = whole.pop("static"), whole.pop("tokens")
+    path = os.path.join(OUT_DIR, "mesh_eval_index")
+    save_ivf_index(IVFIndex(**whole, **static), path)
+    np.savez(os.path.join(path, "corpus_tokens.npz"), **tokens)
+    return path
+
+
+def _ivf_exact_rows(index) -> tuple:
+    """A CPU IVF index's rows by doc id, dequantized, and their biases, in
+    f64 → ([n, D_pad], [n]): the rows `_near_tie_swaps` scores exactly."""
+    import torch
+
+    rows = torch.zeros((index.n, index.dim), dtype=torch.float64)
+    bias = torch.zeros(index.n, dtype=torch.float64)
+    scale = (None if index.clustered_scale is None else index.clustered_scale.reshape(-1),
+             index.spill_scale)
+    for x, ids, b, sc in ((index.clustered.reshape(-1, index.dim),
+                           index.clustered_ids.reshape(-1), index.clustered_bias.reshape(-1),
+                           scale[0]),
+                          (index.spill, index.spill_ids, index.spill_bias, scale[1])):
+        ok = ids >= 0
+        x = x[ok].double()
+        rows[ids[ok].long()] = x if sc is None else x * sc[ok].double()[:, None]
+        bias[ids[ok].long()] = b[ok].double()
+    return rows, bias
+
+
+def _hold_ivf_to_plain(name, index, exact, k, nprobe, query, ignore, ids, vals):
+    """A search's hits over the IVF ``index`` (on the CPU) against the plain
+    union-probe search of the same queries, ``ivf_search(serving=False)``
+    on the CPU (every kernel's plain version): the values within K1's SQ8
+    tolerance (rtol 1e-4, atol 1e-3), the ids equal but where a near-tie
+    swaps two rows (`_near_tie_swaps` on ``exact``, `_ivf_exact_rows`: the
+    same rows, exact gaps within rtol 1e-5, atol 1e-4; a row missing or
+    added fails) → (ranks swapped, the largest exact gap among them)."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.ivf import ivf_search
+
+    ref_v, ref_i = ivf_search(index, query, k=k, nprobe=nprobe, ignore=ignore, serving=False)
+    check(torch.allclose(vals, ref_v, rtol=1e-4, atol=1e-3),
+          f"{name}: retrieval scores {vals.tolist()} differ from the plain IVF search's "
+          f"{ref_v.tolist()}")
+    swapped, gap, _ = _near_tie_swaps(name, _k1_queries(index, query), *exact, ids, ref_i,
+                                      ref_v)
+    return swapped, gap
+
+
+def _k1_queries(index, query):
+    """An IVF search's queries as K1 reads them: prepared for the index and
+    rounded to its payload's query type, in f32."""
+    from retrieval_augmented_mds_tpu_torch.index.ivf import prepare_queries
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import _query_dtype
+
+    return prepare_queries(index, query).to(_query_dtype(index.clustered)).float()
+
+
+def _k1_union_case(card: str, index, query, nprobe: int, kk: int) -> None:
+    """K1 at `[mesh_eval]`'s own shapes, as `ivf_search_sharded` calls it:
+    on each shard rank's probed union (`owned_probed_rows`: its clusters
+    among the whole batch's probes) and on the replicated spill, a data
+    rank's 2 queries, k + I candidates, no ignore ids; against the plain
+    version (`_k1_case`'s SQ8 tolerance: the same ids, values rtol 1e-4
+    atol 1e-3). ``index`` is the mesh's whole index on the card, ``query``
+    a batch's 4 queries."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.ivf import (
+        owned_probed_rows,
+        prepare_queries,
+        probe_clusters,
+        shard_ivf_index,
+    )
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk, mips_topk_plain
+
+    q_all = prepare_queries(index, query)
+    probes = probe_clusters(index, q_all, nprobe)
+    q = q_all[:2].contiguous()  # data rank 0's
+    cases = []
+    for s in (0, 1):
+        part = shard_ivf_index(index, types.SimpleNamespace(shard=2, s=s))
+        corpus, bias, _, scale = owned_probed_rows(part, probes, s)
+        cases.append((f"shard {s}'s probed union ({corpus.shape[0] // part.clustered.shape[1]}"
+                      f" cluster slots of its {part.clustered.shape[0]})",
+                      (q, corpus.contiguous(), kk, bias.contiguous(), None,
+                       scale.reshape(-1).contiguous())))
+    cases.append((f"the spill ({index.n_spill} rows)",
+                  (q, index.spill, min(kk, index.spill.shape[0]), index.spill_bias, None,
+                   index.spill_scale)))
+    for what, args in cases:
+        vals, ids = mips_topk(*args)
+        ref_v, ref_i = mips_topk_plain(*args)
+        torch.cuda.synchronize()
+        err = (vals - ref_v).abs().max().item()
+        check(all(set(a) == set(r) for a, r in zip(ids.tolist(), ref_i.tolist())),
+              f"K1 {what}: ids {ids.tolist()} vs plain {ref_i.tolist()}")
+        check(torch.allclose(vals, ref_v, rtol=1e-4, atol=1e-3),
+              f"K1 {what}: values differ (max abs err {err})")
+        ms = cuda_ms(lambda: mips_topk(*args))
+        plain_ms = cuda_ms(lambda: mips_topk_plain(*args))
+        corpus = args[1]
+        bound = roofline(nbytes(q, corpus, args[3], args[5], vals, ids),
+                         2.0 * q.shape[0] * corpus.shape[0] * corpus.shape[1], False)
+        print(f"[mesh_eval] K1 on {what}: B={q.shape[0]} N={corpus.shape[0]} "
+              f"D={corpus.shape[1]} k={args[2]} SQ8: PASS (ids equal, values rtol 1e-4 "
+              f"atol 1e-3: {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); {card}")
+
+
+def _k2_sharded_case(card: str) -> None:
+    """K2 on a shard rank's extended block of the `[mesh_eval]` LED layer:
+    a data rank's 2 rows, T/S = 1024 tokens of T = 2048 with w = 512
+    neighbour rows on each side (zeros and a -1e9 bias past the sequence)
+    and w dummy query rows on each side, G = 64 (the fixture's padding and
+    valid globals): against the plain version (bf16 tolerance of
+    `_k2_case`), and its block's rows against K2 over the whole sequence."""
+    import torch
+    import torch.nn.functional as F
+
+    from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
+        flash_sliding_attention,
+        local_rows_plain,
+    )
+
+    w, tl = 512, 1024
+    args, _, _ = _k2_inputs(2, 12, 2048, 64, w, 64, FIXTURE_LENGTHS[:2],
+                                    FIXTURE_GLOBALS[:2], torch.bfloat16, seed=11)
+    q, k, v, key_bias, kg, vg, g_bias, _ = args
+    whole = flash_sliding_attention(q, k, v, key_bias, kg, vg, g_bias, window=w)
+    for s in (0, 1):
+        off = s * tl
+        kp, vp = (F.pad(x, (0, 0, w, w)) for x in (k, v))
+        ext = (F.pad(q[:, :, off:off + tl], (0, 0, w, w)), kp[:, :, off:off + tl + 2 * w]
+               .contiguous(), vp[:, :, off:off + tl + 2 * w].contiguous(),
+               F.pad(key_bias, (w, w), value=-1e9)[:, off:off + tl + 2 * w].contiguous(),
+               kg, vg, g_bias)
+        out = flash_sliding_attention(*ext, window=w)
+        ref = local_rows_plain(*ext, w)
+        torch.cuda.synchronize()
+        rows = slice(w, w + tl)
+        e = (out[:, :, rows].float() - ref[:, :, rows].float()).abs().max().item()
+        ref_max = ref[:, :, rows].float().abs().max().item()
+        check(e <= 2e-2 * ref_max, f"K2 sharded block s={s}: max abs err {e} > 2e-2 x "
+              f"{ref_max}")
+        e_whole = (out[:, :, rows].float() - whole[:, :, off:off + tl].float()).abs().max()
+        ms = cuda_ms(lambda: flash_sliding_attention(*ext, window=w))
+        plain_ms = cuda_ms(lambda: local_rows_plain(*ext, w))
+        kb_ext = ext[3]
+        flops = 4 * 64 * _sliding_pairs(kb_ext, g_bias, w, 12)
+        r_, keys, window = _sliding_reads(kb_ext, g_bias, w, torch.ones_like(kb_ext,
+                                                                             dtype=torch.bool))
+        n_bytes = 12 * 64 * 2 * (r_ + 2 * keys + window) + nbytes(*ext[3:], out)
+        bound, _ = _route_bounds(n_bytes, flops, torch.bfloat16)
+        print(f"[mesh_eval] K2 on shard {s}'s extended block (B=2 nh=12 T/S={tl} + 2 x "
+              f"{w} rows, dh=64, G=64, bf16): PASS (its {tl} rows within 2e-2 x max|ref| "
+              f"of plain: {e:.3e} of {ref_max:.3e}; against K2 over the whole T=2048: "
+              f"{e_whole.item():.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); {card}")
+
+
+def _k1_shard_case(card: str) -> None:
+    """K1 on shard 1's rows of a 4000-row SQ8 flat index over 2 shards
+    (2048 rows: 1952 real, 96 padding with a -3e38 bias), a data rank's 2
+    queries, k = 2, 8 ignore ids per query shifted by the shard's offset
+    (ids of shard 0 fall below 0, and are no-ops): against the plain
+    version (`_k1_case`'s SQ8 tolerance), no ignored id returned."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.index.flat import build_flat_index
+    from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_topk, mips_topk_plain
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    n, d, b, k = 4000, 768, 2, 2
+    e = torch.randn((n, d), generator=g, device="cuda")
+    q = torch.randn((b, d), generator=g, device="cuda")
+    idx = build_flat_index(e, dtype="int8", mesh=types.SimpleNamespace(shard=2, s=1))
+    rows, off = idx.embeddings.shape[0], 2048
+    top = (q @ e.T).topk(4).indices.int()  # the best rows, all shards
+    ign = torch.cat([top, torch.randint(0, n, (b, 4), generator=g, device="cuda",
+                                        dtype=torch.int32)], 1) - off
+    args = (q, idx.embeddings, k, idx.row_bias, ign.contiguous(), idx.row_scale)
+    vals, ids = mips_topk(*args)
+    ref_v, ref_i = mips_topk_plain(*args)
+    torch.cuda.synchronize()
+    hits = sum(len(set(a) & set(r)) for a, r in zip(ids.tolist(), ref_i.tolist()))
+    check(hits == b * k, f"K1 shard: ids {ids.tolist()} vs plain {ref_i.tolist()}")
+    check(torch.allclose(vals, ref_v, rtol=1e-4, atol=1e-3), "K1 shard: values differ")
+    check(not bool(((ids[:, :, None] == ign[:, None, :]) & (ign[:, None, :] >= 0)).any()),
+          "K1 shard: an ignored id was returned")
+    check(bool((ids < n - off).all()), "K1 shard: a padding row was returned")
+    ms = cuda_ms(lambda: mips_topk(*args))
+    plain_ms = cuda_ms(lambda: mips_topk_plain(*args))
+    bound = roofline(nbytes(q, idx.embeddings, idx.row_bias, idx.row_scale, ign, vals, ids),
+                     2.0 * b * rows * d, False)
+    print(f"[mesh_eval] K1 on shard 1's rows (B={b} N={rows} ({n - off} real) D={d} k={k} "
+          f"SQ8, 8 ignore ids shifted by {off}): PASS (ids equal, values rtol 1e-4 atol "
+          f"1e-3: {(vals - ref_v).abs().max().item():.3e}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+          f"{card}")
+
+
+def _mesh_cli(card: str) -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4 -m
+    retrieval_augmented_mds_tpu_torch.cli validate`` on ``configs/smoke.yaml``
+    with a (2, 2) mesh and the LED sequence-sharded, through to rank 0's
+    JSON line. Killed (its whole process group) after `CLI_TIMEOUT`."""
+    import signal
+
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "smoke.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["model"]["sequence_shard"] = True
+    d["mesh"] = {"data": 2, "shard": 2}
+    d["logging"] = {"log_dir": os.path.join(OUT_DIR, "mesh_cli"), "run_name": "mesh_cli"}
+    path = os.path.join(OUT_DIR, "mesh_cli.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "retrieval_augmented_mds_tpu_torch.cli",
+           "validate", "--config", path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"mesh_eval: torchrun validate killed after {CLI_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"mesh_eval: torchrun validate exit {proc.returncode}, JSON lines {lines}; "
+          f"stderr tail {err[-2000:]}")
+    res = json.loads(lines[0])
+    check("rouge1" in res, f"mesh_eval: torchrun validate printed {res}")
+    backends = sorted(set(re.findall(r"backend (\w+)", err)))
+    print(f"[mesh_eval] torchrun --nproc-per-node 4 -m retrieval_augmented_mds_tpu_torch.cli "
+          f"validate (configs/smoke.yaml, mesh 2 x 2, sequence_shard): exit 0 in {wall:.1f} s, "
+          f"backend {backends}, rank 0's line {lines[0]}; {card}")
+
+
+def phase_mesh_eval(card: str, precision: str = "bfloat16") -> dict:
+    """`[mesh_eval]`: `cli.run_validate` of the serving slice's config over a
+    (data 2, shard 2) mesh with the LED sequence-sharded, 4 ranks sharing
+    the one card over gloo (`parallel.launch`, a process-group timeout of
+    60 s, the launch's `MESH_TIMEOUT`), for `MESH_BATCHES` val batches;
+    then the same batches on one device over the same 130-cluster index
+    (the mesh's shards put back together), searched by the same route (the
+    union probe: `ivf_search(serving=False)`, which the sharded search
+    is). Checks each rank's K1 and K2 launches, the retrieved rows of the
+    mesh and of the one device against the plain search on the CPU
+    (`_hold_ivf_to_plain`) and against each other (both up to near-tie
+    swaps, `_near_tie_swaps`), the LED encoder states against the one
+    device's (the largest error within `MESH_ENC_TOL` x max|ref|, the mean
+    within `MESH_ENC_MEAN_TOL`) and, where real tokens cross the block
+    boundary, against the unsharded encoder (`_full_length_led`, within
+    `MESH_FULL_TOL` x max|ref|), and prints how many generated sequences
+    equal, the walls per batch, each rank's peak memory and its
+    collectives a batch. Then the CLI under torchrun and K1/K2 at the
+    sharded shapes → the launches of the 4 ranks, summed. ``precision``
+    "float32" runs the mesh and the single device in f32 (a diagnostic of
+    where their generated ids part: `chip_smoke.py` runs bf16)."""
+    import functools
+    import gc
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.index import index_to
+    from retrieval_augmented_mds_tpu_torch.index.ivf import load_ivf_index
+    from retrieval_augmented_mds_tpu_torch.models import retriever_generator as rg
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    tests = os.path.join(REPO, "tests")  # the local launcher of the mesh tests
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from torch_mesh_launch import launch, store_url
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.join(OUT_DIR, "mesh_eval_ranks")
+    t0 = time.perf_counter()
+    results = launch("chip_smoke:mesh_eval_rank", 4, workdir=work, timeout=MESH_TIMEOUT,
+                     args=(store_url(work), mesh_eval_config("mesh_eval", True, precision),
+                           work))
+    mesh_wall = time.perf_counter() - t0
+    results.sort(key=lambda r: r["rank"])
+    for r in results:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0" and r["shards"] == 2
+              and r["n_clusters"] == 130,
+              f"mesh_eval rank {r['rank']}: {r['backend']} {r['device']} shards "
+              f"{r['shards']} clusters {r['n_clusters']}")
+        for name in ("mips_topk", "flash_sliding_attention"):
+            check(r["launches"][name] > 0, f"mesh_eval rank {r['rank']}: {name} not "
+                  f"launched {r['launches']}")
+        check(r["launches"]["ivf_probe_topk"] == 0,
+              f"mesh_eval rank {r['rank']}: K8 launched on the sharded route")
+    ids0 = results[0]["ids"]
+    for r in results[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(r["ids"], ids0)) and
+              r["rouge"] == results[0]["rouge"], f"mesh_eval: rank {r['rank']} differs")
+
+    index_dir = _assemble_ivf(results)
+    single_cfg = config_from_dict(mesh_eval_config("mesh_eval_single", False, precision))
+    rep: dict = {}
+    search = rg.ivf_search
+    rg.ivf_search = functools.partial(search, serving=False)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rouge_1, single_l = run_counted(lambda: cli.run_validate(
+            single_cfg, "val", index_dir, device="cuda", max_batches=MESH_BATCHES,
+            report=rep))
+    finally:
+        rg.ivf_search = search
+    single_peak = torch.cuda.max_memory_allocated()
+
+    # retrieval: data rank d's rows are [2d, 2d + 2); the mesh and the one
+    # device each against the plain search on the CPU
+    index = load_ivf_index(index_dir)
+    exact = _ivf_exact_rows(index)
+    k, nprobe = single_cfg.model.mips_topk, single_cfg.index.nprobe
+    by_d = {r["d"]: r for r in results if r["s"] == 0}
+    single = _retrieval(rep)
+    swaps, gap = dict.fromkeys(("mesh", "single", "both"), 0), dict.fromkeys(
+        ("mesh", "single", "both"), 0.0)
+    for i in range(MESH_BATCHES):
+        mesh_i = [torch.cat([by_d[d]["retrieval"][i][j] for d in (0, 1)]) for j in range(4)]
+        found = {who: _hold_ivf_to_plain(f"mesh_eval batch {i} ({who})", index, exact, k,
+                                         nprobe, *hits)
+                 for who, hits in (("mesh", mesh_i), ("single", single[i]))}
+        # and the mesh's ids against one device's, by the same near-tie rule
+        found["both"] = _near_tie_swaps(
+            f"mesh_eval batch {i} (mesh against one device)", _k1_queries(index, mesh_i[0]),
+            *exact, mesh_i[2], single[i][2], single[i][3])[:2]
+        for who, (n, g) in found.items():
+            swaps[who], gap[who] = swaps[who] + n, max(gap[who], g)
+
+    # encoder states
+    enc_err, enc_max, enc_sum, enc_n = 0.0, 0.0, 0.0, 0
+    encs = {d: torch.load(by_d[d]["enc_path"]) for d in by_d}
+    for i, e1 in enumerate(rep["enc"]):
+        enc_m = torch.cat([encs[d][i] for d in (0, 1)]).float()
+        ref = e1.enc_hidden.cpu().float()
+        diff = (enc_m - ref).abs()
+        enc_err = max(enc_err, diff.max().item())
+        enc_sum, enc_n = enc_sum + diff.sum().item(), enc_n + diff.numel()
+        enc_max = max(enc_max, ref.abs().max().item())
+    enc_mean = enc_sum / enc_n
+    check(enc_err <= MESH_ENC_TOL * enc_max and enc_mean <= MESH_ENC_MEAN_TOL,
+          f"mesh_eval: LED encoder states differ by {enc_err} (tol {MESH_ENC_TOL} x max|ref| "
+          f"{enc_max}), mean {enc_mean} (tol {MESH_ENC_MEAN_TOL})")
+    full = [r["full"] for r in results]
+    check(all(e <= MESH_FULL_TOL * m for e, m in full),
+          f"mesh_eval: the full-length f32 LED encoder, sharded against unsharded, by rank "
+          f"(max abs err, max|ref|): {full} (tol {MESH_FULL_TOL} x max|ref|)")
+    same = sum(int(torch.equal(a, b)) for x, y in zip(ids0, rep["ids"])
+               for a, b in zip(x.cpu(), y.cpu()))
+    total = sum(len(x) for x in ids0)
+    launches = {name: sum(r["launches"][name] for r in results) for name in results[0]["launches"]}
+    print(f"[mesh_eval] led_base validate over a (data 2, shard 2) mesh, 4 ranks on one "
+          f"{card} over gloo, LED sequence-sharded (1024 of 2048 tokens a rank), IVF 130 "
+          f"clusters (65 a shard), B=4 (2 a data rank), {MESH_BATCHES} val batches: launch "
+          f"{mesh_wall:.1f} s; each rank's run_validate {[round(r['wall'], 1) for r in results]} s")
+    print(f"[mesh_eval] launches by rank: "
+          + "; ".join(f"{r['rank']} (d={r['d']}, s={r['s']}) K1 {r['launches']['mips_topk']} "
+                      f"K2 {r['launches']['flash_sliding_attention']}" for r in results)
+          + f"; the single-device run: K1 {single_l['mips_topk']} K2 "
+            f"{single_l['flash_sliding_attention']}")
+    print(f"[mesh_eval] retrieved rows against the plain IVF search on the CPU (the same "
+          f"index, the union probe; ids equal but at near-tie swaps, values rtol 1e-4 atol "
+          f"1e-3): mesh {swaps['mesh']} swapped ranks (largest exact gap "
+          f"{gap['mesh']:.3e}), one device {swaps['single']} ({gap['single']:.3e}); the "
+          f"mesh against one device {swaps['both']} ({gap['both']:.3e}): PASS")
+    print(f"[mesh_eval] against one device: LED encoder states ({precision}) max abs err "
+          f"{enc_err:.4e} of max|ref| {enc_max:.3f} (tol {MESH_ENC_TOL} x), mean "
+          f"{enc_mean:.3e} (tol {MESH_ENC_MEAN_TOL}): PASS; generated sequences equal {same} "
+          f"of {total}; ROUGE mesh {results[0]['rouge']} single {rouge_1}")
+    print(f"[mesh_eval] the LED encoder on 2 full-length rows (2048 and 1500 real tokens, "
+          f"globals in both blocks), f32, sharded against unsharded: max abs err by rank "
+          f"{[f'{e:.3e}' for e, _ in full]} of max|ref| {[round(m, 3) for _, m in full]} "
+          f"(tol {MESH_FULL_TOL} x): PASS")
+    walls = [max(r["batch_s"][i] for r in results) for i in range(MESH_BATCHES)]
+    print(f"[mesh_eval] wall per batch (s; the slowest rank): mesh {[round(x, 3) for x in walls]}"
+          f", single {[round(x, 3) for x in rep['batch_s']]}; peak memory GiB by rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in results]}, single "
+          f"{single_peak / 2**30:.2f}; collectives per batch by rank (calls, bytes "
+          f"received) {[list(zip(r['calls'], r['bytes'])) for r in results]}; {card}")
+    _mesh_cli(card)
+    _k2_sharded_case(card)
+    q0 = torch.cat([by_d[d]["retrieval"][0][0] for d in (0, 1)]).cuda()
+    kk = k + by_d[0]["retrieval"][0][1].shape[1]
+    _k1_union_case(card, index_to(index, "cuda"), q0, nprobe, kk)
+    _k1_shard_case(card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2788,6 +3327,7 @@ def main() -> int:
         phase_baseline_small()
         bart = phase_baseline("bart", card)
         t5 = phase_baseline("t5", card)
+        mesh = phase_mesh_eval(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2805,12 +3345,13 @@ def main() -> int:
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
-    # launches on the paths (the eight slices, the exported serving step and the two
-    # baselines); K10's paths launch it 0 times (checked), so its count is that of its
-    # own phase
+    # launches on the paths (the eight slices, the exported serving step, the two
+    # baselines and the mesh's four ranks); K10's paths launch it 0 times (checked), so
+    # its count is that of its own phase
     launches = {name: served[name] + exported[name] + sampled[name] + standing[0][name]
                 + train_f32[name] + target_in[name] + capacity[name] + long[name]
-                + retriever[name] + bart[name] + t5[name] for name, _, _ in sources}
+                + retriever[name] + bart[name] + t5[name] + mesh[name]
+                for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",
                 "source": f"retrieval_augmented_mds_tpu_torch/csrc/{src}",

@@ -7,7 +7,8 @@ no renames. An 8-bit Adam state comes over array for array
 (`adam8bit_state_from_jax`): both packages lay it out in the same
 superleaf order. An index built by the JAX package comes over as its arrays
 and static fields (`ivf_index_from_arrays`, `flat_index_from_arrays`), so
-one index can be searched by both packages whatever k-means drew. Works on
+one index can be searched by both packages whatever k-means drew; given a
+mesh, a rank keeps its part of it (its rows, or its clusters). Works on
 numpy-convertible leaves (numpy arrays, or JAX arrays through
 ``np.asarray``, bf16 included); imports no JAX.
 """
@@ -75,26 +76,43 @@ def adam8bit_state_from_jax(state: Any, device=None):
 
 
 def flat_index_from_arrays(arrays: dict[str, Any], *, n: int, metric: str,
-                           normalized: bool, device=None) -> FlatIndex:
+                           normalized: bool, device=None, mesh=None) -> FlatIndex:
     """The port's FlatIndex from a flat index's ``embeddings``, ``row_bias``
-    and ``row_scale`` (None unless SQ8) and static fields."""
+    and ``row_scale`` (None unless SQ8) and static fields. With a ``mesh``
+    of S > 1 shards, this rank's rows [s·R/S, (s+1)·R/S) of the R given
+    (a multiple of S, as the JAX package's sharded layout pads them)."""
     scale = arrays.get("row_scale")
+    shards = 1 if mesh is None else mesh.shard
+    rows = slice(None)
+    if shards > 1:
+        r = len(arrays["row_bias"])
+        if r % shards:
+            raise ValueError(f"{r} rows do not split into {shards} shards")
+        rows = slice(mesh.s * r // shards, (mesh.s + 1) * r // shards)
     return FlatIndex(
-        embeddings=_tensor(arrays["embeddings"], device).contiguous(),
-        row_bias=_tensor(arrays["row_bias"], device).contiguous(),
-        row_scale=None if scale is None else _tensor(scale, device).contiguous(),
-        n=n, metric=metric, normalized=normalized)
+        embeddings=_tensor(np.asarray(arrays["embeddings"])[rows], device).contiguous(),
+        row_bias=_tensor(np.asarray(arrays["row_bias"])[rows], device).contiguous(),
+        row_scale=None if scale is None
+        else _tensor(np.asarray(scale)[rows], device).contiguous(),
+        n=n, metric=metric, normalized=normalized, shards=shards)
 
 
 def ivf_index_from_arrays(arrays: dict[str, Any], *, n: int, metric: str,
                           normalized: bool, n_spill: int = -1,
-                          flat: FlatIndex | None = None, device=None) -> IVFIndex:
+                          flat: FlatIndex | None = None, device=None,
+                          mesh=None) -> IVFIndex:
     """The port's IVFIndex from the arrays of an IVF index (every tensor
     field of `IVFIndex` but ``flat``; the scales None unless SQ8) and its
-    static fields."""
+    static fields. With a ``mesh`` of several shards, this rank's part
+    (`index.ivf.shard_ivf_index`: its clusters, no flat sibling)."""
+    from .index.ivf import shard_ivf_index
+
     fields = [f.name for f in dataclasses.fields(IVFIndex)
-              if f.name not in ("n", "metric", "normalized", "flat", "n_spill")]
+              if f.name not in ("n", "metric", "normalized", "flat", "n_spill", "shards")]
     kw = {f: None if arrays.get(f) is None else _tensor(arrays[f], device).contiguous()
           for f in fields}
-    return IVFIndex(n=n, metric=metric, normalized=normalized, n_spill=n_spill,
-                    flat=flat, **kw)
+    index = IVFIndex(n=n, metric=metric, normalized=normalized, n_spill=n_spill,
+                     flat=flat, **kw)
+    if mesh is None or mesh.shard == 1:
+        return index
+    return shard_ivf_index(index, mesh)

@@ -6,7 +6,8 @@
         [--device cuda|cpu] [--profile]
 
 The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
-``run_predict`` and ``run_pretrain_retriever*`` do, on one device:
+``run_predict`` and ``run_pretrain_retriever*`` do, on one device
+(``validate`` and ``test`` also over a mesh):
 
 * ``fit``: build the data and the parameters (seeded, with the pretrained
   weights the config names loaded over them: ``*_weights`` and
@@ -18,13 +19,18 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
   ``<log_dir>/<run_name>.metrics.jsonl``, the resolved config to
   ``<log_dir>/config_resolved.yaml``; ``logging.teams_webhook`` gets a card
   when the run starts and when it crashes. A ``mesh`` over more than one
-  device raises: that part is not ported yet. A config that sets
+  device raises: training over a mesh is not ported yet. A config that sets
   ``baseline: bart`` or ``t5`` fine-tunes that baseline instead
   (`run_fit_baseline`). ``--profile`` writes a `torch.profiler` Chrome
   trace of the run under ``<log_dir>/trace``.
 * ``validate`` / ``test``: generate over the whole val / test split and
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
-  ``latest.json``) when ``ckpt_dir`` has one.
+  ``latest.json``) when ``ckpt_dir`` has one. Over a ``mesh`` (one process
+  per position: ``torchrun --nproc-per-node N -m
+  retrieval_augmented_mds_tpu_torch.cli validate --config <yaml>``) the
+  store is built data-parallel and placed sharded, each data rank
+  generates for its rows of every batch, and every rank scores the
+  gathered predictions (`parallel.mesh`); only rank 0 prints and writes.
 * ``predict``: generate for the first batch of the test split; with
   ``generation.output_copy_probs``, also the per-token copy traces
   (`models.generate.copy_trace`) as lists.
@@ -141,7 +147,9 @@ def build_params(cfg, device: torch.device):
     return init_rag_pretrained(cfg.model, torch.Generator().manual_seed(cfg.seed)).to(device)
 
 
-def build_store(params, cfg, dm, device: torch.device):
+def build_store(params, cfg, dm, device: torch.device, mesh=None):
+    """Embed the corpus and build the configured index (over a ``mesh``:
+    embedded data-parallel, placed sharded)."""
     from .train.trainer import build_memory_store
 
     arr = dm.store_arrays
@@ -151,21 +159,21 @@ def build_store(params, cfg, dm, device: torch.device):
         token_ids=torch.from_numpy(arr["token_ids"]).to(device),
         token_mask=torch.from_numpy(arr["token_mask"]).to(device),
         row_aids=None if aids is None else torch.from_numpy(aids).to(device),
-        seed=cfg.seed, compute_dtype=compute_dtype(cfg),
+        seed=cfg.seed, compute_dtype=compute_dtype(cfg), mesh=mesh,
     )
 
 
-def load_store(index_dir: str, cfg, device: torch.device):
+def load_store(index_dir: str, cfg, device: torch.device, mesh=None):
     """A MemoryStore from a persisted ``build-index`` directory (either
     package's, flat or IVF), with no re-embedding; ``cfg.index.nprobe``
-    sets the probe width."""
+    sets the probe width. Over a ``mesh``, this rank's part of the index."""
     from .index import load_index
     from .models.retriever_generator import MemoryStore
 
     tok = np.load(os.path.join(index_dir, "corpus_tokens.npz"))
     aids = tok["row_aids"] if "row_aids" in tok.files else None
     return MemoryStore(
-        index=load_index(index_dir, device=device),
+        index=load_index(index_dir, device=device, mesh=mesh),
         token_ids=torch.from_numpy(tok["token_ids"]).to(device),
         token_mask=torch.from_numpy(tok["token_mask"]).to(device),
         row_aids=None if aids is None else torch.from_numpy(aids).to(device),
@@ -173,14 +181,15 @@ def load_store(index_dir: str, cfg, device: torch.device):
     )
 
 
-def serving_store(params, cfg, dm, device: torch.device, index_dir: str | None = None):
+def serving_store(params, cfg, dm, device: torch.device, index_dir: str | None = None,
+                  mesh=None):
     """The store that validate, test, predict and export serve from: None
     under ``mips_disabled``, loaded from ``index_dir``, or built."""
     if cfg.model.mips_disabled:
         return None
     if index_dir:
-        return load_store(index_dir, cfg, device)
-    return build_store(params, cfg, dm, device)
+        return load_store(index_dir, cfg, device, mesh)
+    return build_store(params, cfg, dm, device, mesh)
 
 
 def best_params(cfg, device: torch.device):
@@ -194,11 +203,16 @@ def best_params(cfg, device: torch.device):
     return params
 
 
-def device_batch(host: dict, cfg, device: torch.device) -> dict[str, torch.Tensor]:
-    """Host batch → device tensors, with the teacher-forcing decoder inputs."""
+def device_batch(host: dict, cfg, device: torch.device, mesh=None
+                 ) -> dict[str, torch.Tensor]:
+    """Host batch → device tensors, with the teacher-forcing decoder inputs.
+    Over a ``mesh``, data rank d takes rows [d·B/D, (d+1)·B/D) when D
+    divides B, and the whole batch otherwise (the JAX package replicates
+    such a batch)."""
     from .models.led import shift_tokens_right
 
-    out = {k: torch.from_numpy(np.asarray(v)).to(device)
+    rows = slice(None) if mesh is None else mesh.data_rows(len(host["input_ids"]))
+    out = {k: torch.from_numpy(np.asarray(v)[rows]).to(device)
            for k, v in host.items() if k in _DEVICE_KEYS}
     out["decoder_input_ids"] = shift_tokens_right(
         out["labels"], cfg.model.led.pad_id, cfg.generation.decoder_start_id)
@@ -223,7 +237,8 @@ def build_tx(cfg, params):
 def check_fit_config(cfg) -> None:
     """Raise on what `run_fit` does not run, rather than train something
     else without a word: a baseline (`run_fit_baseline` trains those; ``fit``
-    dispatches to it) and a mesh of several devices (not ported yet)."""
+    dispatches to it) and a mesh of several devices (evaluation runs over a
+    mesh; training over one is the next part of the port)."""
     if cfg.baseline:
         raise ValueError(
             f"baseline {cfg.baseline!r}: run_fit trains the retrieval-augmented model; "
@@ -231,8 +246,10 @@ def check_fit_config(cfg) -> None:
     if max(cfg.mesh.data or 0, cfg.mesh.shard or 0) > 1:
         raise NotImplementedError(
             f"mesh data={cfg.mesh.data} shard={cfg.mesh.shard}: training over several "
-            "devices is not ported yet (ROADMAP queue 1, item 9); leave both unset or "
-            "at most 1"
+            "devices is not ported yet (ROADMAP queue 1, item 9, its training half: "
+            "data-parallel gradients, ZeRO-sharded 8-bit AdamW, the sequence-sharded "
+            "backward); validate and test run over a mesh. Leave both unset or at "
+            "most 1 to fit"
         )
 
 
@@ -352,17 +369,29 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
 
 def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
                   dump_name: str | None = None, split: str = "val", *,
-                  device: torch.device) -> dict[str, float]:
+                  device: torch.device, mesh=None, report: dict | None = None
+                  ) -> dict[str, float]:
     """Generate for every batch of ``split`` (at most ``max_batches``) and
     score the outputs with ROUGE; with ``dump_name``, also write them to
     ``<log_dir>/<dump_name>.json``. Runs without autograd. The ragged last
     batch is padded to ``data.batch_size`` with copies of its first row and
     only its real rows are scored, as the JAX package does: the batch size
     picks the IVF search's route, so a smaller batch could retrieve other
-    rows."""
+    rows.
+
+    Over a ``mesh`` each data rank encodes and generates for its rows of
+    the padded batch (`device_batch`), the ids are gathered over ``data``,
+    every rank scores the same predictions, and only rank 0 writes the
+    dump. With ``report``, each batch's device batch and encoder output
+    (this rank's rows), generated ids (all rows), wall seconds (the device
+    synchronised), and the bytes this rank's collectives received and
+    their number (`parallel.collectives`) are appended to its ``batch``,
+    ``enc``, ``ids``, ``batch_s``, ``collective_bytes`` and
+    ``collective_calls`` lists."""
     from .eval import RougeAccumulator
     from .models.generate import generate
     from .models.retriever_generator import rag_encode
+    from .parallel.collectives import STATS, gather_cat
 
     dtype = compute_dtype(cfg)
     acc = RougeAccumulator()
@@ -377,14 +406,26 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
                 reps = cfg.data.batch_size - n_real
                 batch = {k: np.concatenate([v, np.repeat(v[:1], reps, axis=0)])
                          for k, v in batch.items()}
-            dbatch = device_batch(batch, cfg, device)
-            enc = rag_encode(params, cfg.model, store, dbatch, dtype=dtype)
+            t0, received, calls = time.perf_counter(), STATS["bytes"], STATS["calls"]
+            split_rows = mesh is not None and mesh.splits_batch(cfg.data.batch_size)
+            dbatch = device_batch(batch, cfg, device, mesh)
+            enc = rag_encode(params, cfg.model, store, dbatch, dtype=dtype, mesh=mesh,
+                             data_sharded=split_rows)
             ids = generate(params, cfg.model, enc, cfg.generation, dtype=dtype)
+            if split_rows:
+                ids = gather_cat(ids, mesh.data_group)
+            if report is not None:
+                _sync(device)
+                for key, value in (("batch", dbatch), ("enc", enc), ("ids", ids),
+                                   ("batch_s", time.perf_counter() - t0),
+                                   ("collective_bytes", STATS["bytes"] - received),
+                                   ("collective_calls", STATS["calls"] - calls)):
+                    report.setdefault(key, []).append(value)
             preds = tok.batch_decode(ids.cpu().numpy())[:n_real]
             refs = tok.batch_decode(np.asarray(batch["labels"]))[:n_real]
             acc.add_batch(preds, refs)
             outputs.extend({"prediction": p, "reference": r} for p, r in zip(preds, refs))
-    if dump_name:
+    if dump_name and (mesh is None or mesh.rank == 0):
         from .obs import MetricsLogger
 
         logger = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name)
@@ -394,16 +435,26 @@ def run_eval_loop(cfg, params, store, dm, tok, max_batches: int | None = None,
 
 
 def run_validate(cfg, split: str = "val", index_dir: str | None = None, *,
-                 device: str = "cuda") -> dict[str, float]:
-    """ROUGE over the whole ``split``, from the checkpoint of ``ckpt_dir``
-    (the best-marked one, else the latest) when there is one."""
-    dev = resolve_device(device)
+                 device: str = "cuda", max_batches: int | None = None,
+                 report: dict | None = None) -> dict[str, float]:
+    """ROUGE over the whole ``split`` (its first ``max_batches``), from the
+    checkpoint of ``ckpt_dir`` (the best-marked one, else the latest) when
+    there is one. The config's ``mesh`` is built by `parallel.build_mesh`
+    (which raises on a mesh the world cannot form); over it the store is
+    built data-parallel and placed sharded and the eval loop runs sharded.
+    With ``report``: the mesh, params, store and the eval loop's report."""
+    from .parallel import build_mesh
+
+    mesh = build_mesh(cfg, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     dm, tok = build_data(cfg)
     params = best_params(cfg, dev)
-    store = serving_store(params, cfg, dm, dev, index_dir)
-    return run_eval_loop(cfg, params, store, dm, tok,
+    store = serving_store(params, cfg, dm, dev, index_dir, mesh)
+    if report is not None:
+        report.update(mesh=mesh, params=params, store=store)
+    return run_eval_loop(cfg, params, store, dm, tok, max_batches=max_batches,
                          dump_name=f"{split}_outputs_{int(time.time())}", split=split,
-                         device=dev)
+                         device=dev, mesh=mesh, report=report)
 
 
 def predict_batch(cfg, dm, device: torch.device) -> dict[str, torch.Tensor]:
@@ -930,6 +981,11 @@ def main(argv=None) -> int:
     elif args.command in ("validate", "test"):
         split = "val" if args.command == "validate" else "test"
         out = run_validate(cfg, split, index_dir=args.index, device=args.device)
+        if torch.distributed.is_initialized():  # a mesh: rank 0 prints the result
+            rank = torch.distributed.get_rank()
+            torch.distributed.destroy_process_group()
+            if rank:
+                return 0
     elif args.command == "pretrain-retriever":
         run = {"train": run_pretrain_retriever, "test": run_pretrain_retriever_test,
                "predict": run_pretrain_retriever_predict}[args.mode]

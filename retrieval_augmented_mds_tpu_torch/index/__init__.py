@@ -17,20 +17,27 @@ from .ivf import (  # noqa: F401
     IVFIndex,
     build_ivf_index,
     ivf_search,
+    ivf_search_sharded,
     kmeans,
     load_ivf_index,
     save_ivf_index,
+    shard_ivf_index,
 )
 
 
-def load_index(path: str, *, device=None):
+def load_index(path: str, *, device=None, mesh=None):
     """A persisted index directory (either package's `save_flat_index` or
-    `save_ivf_index` output), dispatched on ``meta.json``'s ``kind``."""
+    `save_ivf_index` output), dispatched on ``meta.json``'s ``kind``. With
+    a ``mesh`` of several shards, this rank's part, as a build over the
+    mesh places it."""
     with open(os.path.join(path, "meta.json")) as f:
         kind = json.load(f).get("kind", "flat")
     if kind == "ivf":
-        return load_ivf_index(path, device=device)
-    return load_flat_index(path, device=device)
+        index = load_ivf_index(path, device=device)
+        if mesh is None or mesh.shard == 1:
+            return index
+        return shard_ivf_index(index, mesh)
+    return load_flat_index(path, device=device, mesh=mesh)
 
 
 def save_index(index, path: str) -> None:

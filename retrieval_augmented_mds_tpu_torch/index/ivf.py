@@ -1,9 +1,8 @@
-"""IVF clustered MIPS index on one device: k-means and probed search.
+"""IVF clustered MIPS index: k-means, probed search, and its mesh sharding.
 
-Counterpart of ``retrieval_augmented_mds_tpu/index/ivf.py`` without the
-mesh sharding (``shard_ivf_index`` and ``ivf_search_sharded`` are not
-ported). The analog of the reference's FAISS IVF factories (``IVF256,SQ8``
-at sotasum/config.yaml:94, ``nprobe`` at sotasum/mips.py:342-345): Lloyd
+Counterpart of ``retrieval_augmented_mds_tpu/index/ivf.py``. The analog
+of the reference's FAISS IVF factories (``IVF256,SQ8`` at
+sotasum/config.yaml:94, ``nprobe`` at sotasum/mips.py:342-345): Lloyd
 iterations are plain matmuls, and the clustered corpus is one fixed-shape
 ``[C, L, D]`` tensor on the device (clusters padded to a common capacity
 L, overflow rows kept in an always-searched spill buffer, so no document
@@ -17,6 +16,16 @@ is dropped).
    k + I ≤ 128, unless ``serving=False``;
 4. the union probe: the batch's probed clusters gathered once and
    searched, with the spill, by the MIPS kernel.
+
+Over a mesh (`parallel.mesh`), `shard_ivf_index` keeps shard rank s's
+clusters [s·C/S, (s+1)·C/S) and the whole centroids and spill, and
+`ivf_search_sharded` probes on every rank, searches the rank's partition
+(all of it, or the probed clusters it owns) with the MIPS kernel, merges
+the shards' candidates, then the spill's, and masks the ignore ids last.
+A search whose queries are this data rank's rows of a batch split over
+``data`` (``data_sharded``) decides its route by the whole batch, B·D,
+and unions the whole batch's probes, as the JAX package does under `jit`,
+where the queries of every data rank are one array.
 
 One deliberate difference from the JAX package: the assignment of the
 whole corpus to the final centroids is chunked like k-means' own, where
@@ -34,21 +43,18 @@ import numpy as np
 import torch
 
 from ..ops.mips_topk import MAX_K, NEG_INF, mips_topk
-from .flat import FlatIndex, build_flat_index, load_flat_index, save_flat_index
+from .flat import (  # noqa: F401
+    FlatIndex,
+    build_flat_index,
+    load_flat_index,
+    merge_topk,
+    round_up,
+    save_flat_index,
+    topk_stable,
+)
 from .flat import search as flat_search
 
 ASSIGN_CHUNK = 8192  # corpus rows per score matrix in k-means and assignment
-
-
-def round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def topk_stable(vals: torch.Tensor, k: int):
-    """Top-k along the last axis, ties to the lower index
-    (``jax.lax.top_k``'s order) → (values, indices int64)."""
-    v, i = torch.sort(vals, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +131,8 @@ class IVFIndex:
     # exact overflow-row count from packing; 0 skips the scan-all and
     # union-probe routes' spill search; -1 = unknown
     n_spill: int = -1
+    # > 1: the clustered fields hold this mesh rank's C / shards clusters
+    shards: int = 1
 
     @property
     def n_clusters(self) -> int:
@@ -332,13 +340,24 @@ def _scan_all_clusters(index: IVFIndex, q, k, ignore):
     return _select(vals, gids, k, ignore)
 
 
-def _union_probe(index: IVFIndex, q, k, nprobe, ignore):
+def _batch_probes(index: IVFIndex, q, nprobe, mesh, data_sharded):
+    """The probes of the whole batch [B·D or B, nprobe]: with
+    ``data_sharded``, every data rank's, gathered in rank order."""
+    probes = probe_clusters(index, q, nprobe)
+    if not data_sharded:
+        return probes
+    from ..parallel.collectives import gather_cat
+
+    return gather_cat(probes, mesh.data_group)
+
+
+def _union_probe(index: IVFIndex, q, k, nprobe, ignore, mesh=None, data_sharded=False):
     """The batch's probed clusters, unioned and gathered once, searched with
     the spill by the MIPS kernel."""
     c = index.n_clusters
-    b = q.shape[0]
-    cap = min(c, b * nprobe)
-    union = union_pad(probe_clusters(index, q, nprobe).reshape(-1), cap, sentinel=c)
+    probes = _batch_probes(index, q, nprobe, mesh, data_sharded)
+    cap = min(c, probes.numel())
+    union = union_pad(probes.reshape(-1), cap, sentinel=c)
     in_union = union < c
     safe = torch.where(in_union, union, torch.zeros_like(union))
     L, d_pad = index.clustered.shape[1:]
@@ -369,14 +388,21 @@ def ivf_search(
     ignore: torch.Tensor | None = None,  # [B, I] int32 global doc ids, -1 pad
     *,
     serving: bool | None = None,
+    mesh=None,
+    data_sharded: bool = False,
 ):
     """Probed search → (scores f32 [B, k], doc ids int32 [B, k]).
 
     ``serving`` pins the per-query route on (None, the default, as on the
     TPU) or off (False: the union probe); the B·nprobe ≥ C routes come
-    first either way."""
-    route = ivf_route(index, queries.shape[0], k, nprobe,
-                      0 if ignore is None else ignore.shape[1], serving)
+    first either way. ``data_sharded``: the queries are this rank's rows of
+    a batch split over the ``mesh``'s data axis; the route and the union
+    are the whole batch's."""
+    if index.shards > 1:
+        raise ValueError("a sharded IVF index is searched by ivf_search_sharded")
+    b = queries.shape[0] * (mesh.data if data_sharded else 1)
+    route = ivf_route(index, b, k, nprobe, 0 if ignore is None else ignore.shape[1],
+                      serving)
     if route == "flat":
         # ids are in row order, so this equals a flat index of the payload
         return flat_search(index.flat, queries, k=k, ignore=ignore)
@@ -390,19 +416,106 @@ def ivf_search(
     q = prepare_queries(index, queries)
     if route == "scan_all":
         return _scan_all_clusters(index, q, k, ignore)
-    return _union_probe(index, q, k, nprobe, ignore)
+    return _union_probe(index, q, k, nprobe, ignore, mesh, data_sharded)
 
 
 def ivf_route(index: IVFIndex, b: int, k: int, nprobe: int, n_ignore: int = 0,
               serving: bool | None = None) -> str:
-    """The route `ivf_search` takes for ``b`` queries and ``n_ignore``
-    ignore columns: "flat", "scan_all", "per_query" or "union_probe"."""
+    """The route `ivf_search` takes for a batch of ``b`` queries (the whole
+    batch, over every data rank) and ``n_ignore`` ignore columns: "flat",
+    "scan_all", "per_query" or "union_probe"."""
     nprobe = min(nprobe, index.n_clusters)
     if b * nprobe >= index.n_clusters:
         return "flat" if index.flat is not None else "scan_all"
     if serving is not False and k + n_ignore <= MAX_K:
         return "per_query"
     return "union_probe"
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh: clusters partitioned over the shard axis
+# ---------------------------------------------------------------------------
+
+def shard_ivf_index(index: IVFIndex, mesh) -> IVFIndex:
+    """This rank's part of ``index``: clusters [s·C/S, (s+1)·C/S) of the
+    clustered payload; the centroids, their bias and the spill whole; no
+    flat sibling (the partition is scanned in place). C must divide into
+    the S shards."""
+    s_n = mesh.shard
+    c = index.n_clusters
+    if c % s_n:
+        raise ValueError(f"{c} clusters do not split into {s_n} shards")
+    part = slice(mesh.s * c // s_n, (mesh.s + 1) * c // s_n)
+    take = lambda t: None if t is None else t[part].contiguous()  # noqa: E731
+    return dataclasses.replace(
+        index, clustered=take(index.clustered), clustered_ids=take(index.clustered_ids),
+        clustered_bias=take(index.clustered_bias),
+        clustered_scale=take(index.clustered_scale), flat=None, shards=s_n)
+
+
+def owned_probed_rows(index: IVFIndex, probes: torch.Tensor, s: int):
+    """The rows of shard rank ``s``'s clusters among ``probes`` (the whole
+    batch's, [B, nprobe] global cluster ids), unioned and gathered once:
+    (corpus [cap·L, D_pad], bias [cap·L] with -3e38 on unused slots, doc
+    ids [cap·L], SQ8 scales [cap, L] or None), cap = min(C/S, B·nprobe)."""
+    c_local, L, d_pad = index.clustered.shape
+    mine = probes - s * c_local
+    mine = torch.where((mine >= 0) & (mine < c_local), mine, torch.full_like(mine, c_local))
+    cap = min(c_local, probes.numel())
+    union = union_pad(mine.reshape(-1), cap, sentinel=c_local)
+    ok = union < c_local
+    safe = torch.where(ok, union, torch.zeros_like(union))
+    corpus = index.clustered[safe].reshape(cap * L, d_pad)
+    bias = torch.where(ok[:, None], index.clustered_bias[safe],
+                       torch.full((cap, L), NEG_INF, device=probes.device)).reshape(-1)
+    ids = index.clustered_ids[safe].reshape(-1)
+    scale = None if index.clustered_scale is None else index.clustered_scale[safe]
+    return corpus, bias, ids, scale
+
+
+def ivf_search_sharded(
+    index: IVFIndex,
+    queries: torch.Tensor,  # [B, D]
+    mesh,
+    k: int = 10,
+    nprobe: int = 8,
+    ignore: torch.Tensor | None = None,  # [B, I] int32 global doc ids, -1 pad
+    *,
+    data_sharded: bool = False,
+):
+    """Probed search over a cluster-partitioned index (`shard_ivf_index`)
+    → (scores f32 [B, k], doc ids int32 [B, k]), the same on every rank of
+    a ``shard`` group. Every rank probes the whole centroid set; when the
+    batch (B·D with ``data_sharded``) times nprobe reaches C it scans its
+    whole partition, else the union of the batch's probed clusters that it
+    owns. Each rank fetches k + I candidates with the MIPS kernel; they are
+    merged over the shard group (`merge_topk`), then with the spill's, and
+    the ignore ids (the reference's self-exclusion) are masked only then,
+    before the final top-k."""
+    kk = k + (0 if ignore is None else ignore.shape[1])
+    c = index.n_clusters
+    nprobe = min(nprobe, c)
+    q = prepare_queries(index, queries)
+    c_local, L, d_pad = index.clustered.shape
+    b = q.shape[0] * (mesh.data if data_sharded else 1)
+    if b * nprobe >= c:
+        corpus = index.clustered.reshape(c_local * L, d_pad)
+        bias = index.clustered_bias.reshape(-1)
+        ids = index.clustered_ids.reshape(-1)
+        scale = index.clustered_scale
+    else:
+        corpus, bias, ids, scale = owned_probed_rows(
+            index, _batch_probes(index, q, nprobe, mesh, data_sharded), mesh.s)
+    vals, pos = mips_topk(q, corpus.contiguous(), kk, bias.contiguous(), None,
+                          None if scale is None else scale.reshape(-1).contiguous())
+    gids = torch.where(pos >= 0, ids[pos.clamp(min=0).long()], torch.full_like(pos, -1))
+    from ..parallel.collectives import gather_stack
+
+    vals, gids = merge_topk(gather_stack(vals, mesh.shard_group),
+                            gather_stack(gids, mesh.shard_group), kk)
+    v2, g2 = _spill_hits(index, q, kk)
+    return _select(torch.cat([vals, v2], dim=1), torch.cat([gids, g2], dim=1), k,
+                   None if ignore is None else ignore.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +530,8 @@ _DTYPE_NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16", torch.float32: "
 
 
 def save_ivf_index(index: IVFIndex, path: str) -> None:
+    if index.shards > 1:
+        raise ValueError("a sharded index holds one rank's clusters; save the whole index")
     os.makedirs(path, exist_ok=True)
 
     def portable(t):

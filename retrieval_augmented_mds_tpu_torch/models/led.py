@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.sliding_attention import SlidingAttention, sliding_global_attention
+from ..ops.sliding_attention import SlidingAttention, attention_fn, gather_seq, seq_block
 from .config import Seq2SeqConfig
 from .core import (
     FFN,
@@ -78,30 +78,35 @@ def led_encode(
     *,
     dtype=torch.float32,
     remat: bool | str = False,
+    seq_mesh=None,
 ) -> torch.Tensor:
-    """Encoder hidden states [B, S, H] (sequence parallelism not ported);
-    ``remat`` checkpoints each layer (`core.maybe_remat`)."""
+    """Encoder hidden states [B, S, H]; ``remat`` checkpoints each layer
+    (`core.maybe_remat`). With ``seq_mesh`` the sequence is split over the
+    mesh's ``shard`` axis: each rank embeds and encodes its block of S /
+    shards tokens (`sliding_attention.attention_fn`), and the blocks are
+    gathered at the end, so every rank returns the whole [B, S, H]."""
     b, s = ids.shape
     if global_mask is None:
         global_mask = torch.zeros_like(padding_mask)
         global_mask[:, 0] = 1
     global_mask = global_mask * padding_mask
     pos = torch.arange(s, device=ids.device)[None, :]
-    x = embed(params.shared_emb, ids, dtype) + embed(params.enc_pos, pos, dtype)
+    blk = seq_block(s, seq_mesh)
+    x = embed(params.shared_emb, ids[:, blk], dtype) + embed(params.enc_pos, pos[:, blk],
+                                                             dtype)
     x = layernorm(params.enc_emb_ln, x)
+    attn = attention_fn(seq_mesh)
 
     def layer_fn(x, lp):
-        a = sliding_global_attention(
-            lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
-            cfg.max_globals,
-        )
+        a = attn(lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
+                 cfg.max_globals)
         x = layernorm(lp.attn_ln, x + a)
         return layernorm(lp.ffn_ln, x + ffn(lp.ffn, x))
 
     layer_fn = maybe_remat(layer_fn, remat)
     for lp in params.encoder:
         x = layer_fn(x, lp)
-    return x
+    return gather_seq(x, seq_mesh)
 
 
 def led_decode(

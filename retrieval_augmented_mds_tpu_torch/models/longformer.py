@@ -2,8 +2,8 @@
 
 Counterpart of ``retrieval_augmented_mds_tpu/models/longformer.py``:
 RoBERTa-style post-LN blocks with sliding/global attention, optional
-SPECTER2 (Pfeiffer) bottleneck adapters, and CLS pooling. Sequence
-parallelism (``seq_mesh``) is not ported.
+SPECTER2 (Pfeiffer) bottleneck adapters, and CLS pooling; with
+``seq_mesh``, the sequence split over the mesh's ``shard`` axis.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.sliding_attention import SlidingAttention, sliding_global_attention
+from ..ops.sliding_attention import SlidingAttention, attention_fn, gather_seq, seq_block
 from .config import EncoderConfig
 from .core import (
     FFN,
@@ -74,9 +74,12 @@ def longformer_encode(
     *,
     dtype=torch.float32,
     remat: bool | str = False,
+    seq_mesh=None,
 ) -> torch.Tensor:
     """Hidden states [B, T, H]; CLS pooling = out[:, 0]. ``remat``
-    checkpoints each layer (`core.maybe_remat`)."""
+    checkpoints each layer (`core.maybe_remat`). With ``seq_mesh``, each
+    rank encodes its block of T / shards tokens and the blocks are
+    gathered at the end (as `led.led_encode`)."""
     b, t = ids.shape
     if global_mask is None:
         # global attention on <s>
@@ -85,17 +88,18 @@ def longformer_encode(
     global_mask = global_mask * padding_mask
 
     pos = torch.arange(t, device=ids.device)[None, :] + cfg.pos_offset
-    x = embed(params.tok_emb, ids, dtype) + embed(params.pos_emb, pos, dtype)
+    blk = seq_block(t, seq_mesh)
+    x = embed(params.tok_emb, ids[:, blk], dtype) + embed(params.pos_emb, pos[:, blk], dtype)
     if hasattr(params, "type_emb"):
         # the single token-type row: a constant on every position
         x = x + params.type_emb.table[0].to(dtype)
     x = layernorm(params.emb_ln, x)
 
+    attn = attention_fn(seq_mesh)
+
     def layer_fn(x, lp):
-        a = sliding_global_attention(
-            lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
-            cfg.max_globals,
-        )
+        a = attn(lp.attn, x, cfg.n_heads, cfg.window, global_mask, padding_mask,
+                 cfg.max_globals)
         x = layernorm(lp.attn_ln, x + a)
         f = ffn(lp.ffn, x)
         if hasattr(lp, "adapter"):
@@ -106,7 +110,7 @@ def longformer_encode(
     layer_fn = maybe_remat(layer_fn, remat)
     for lp in params.layers:
         x = layer_fn(x, lp)
-    return x
+    return gather_seq(x, seq_mesh)
 
 
 def cls_pool(hidden: torch.Tensor, proj: nn.Module | None = None) -> torch.Tensor:

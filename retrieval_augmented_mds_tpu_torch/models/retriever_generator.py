@@ -30,7 +30,7 @@ from torch import nn
 
 from ..index.flat import FlatIndex
 from ..index.flat import search as flat_search
-from ..index.ivf import IVFIndex, ivf_search
+from ..index.ivf import IVFIndex, ivf_search, ivf_search_sharded
 from .config import EncoderConfig, Seq2SeqConfig
 from .copy_decoder import (
     CopyDecoder,
@@ -229,18 +229,26 @@ def _encode_memory_rows(enc_params, enc_cfg, ids, mask, *, dtype, remat=False):
     return hid.reshape(b, s, l, -1)
 
 
-def _retrieve(cfg: RAGConfig, store: MemoryStore, batch, query_cls):
+def _retrieve(cfg: RAGConfig, store: MemoryStore, batch, query_cls, mesh=None,
+              data_sharded: bool = False):
     """The search with the query's gradient stopped, then the gather of the
-    retrieved corpus rows → (ids, mask [B, k, L], scores, row ids [B, k])."""
+    retrieved corpus rows → (ids, mask [B, k, L], scores, row ids [B, k]).
+    Over a ``mesh``: a flat store searches its rows of the ``shard`` axis;
+    an IVF store its clusters when it is sharded, and the whole index on
+    every rank when it is not (a cluster count the shards do not divide)."""
     # retrieved_forcing disables self-exclusion
     ignore = (None if cfg.memory_forcing == "retrieved_forcing"
               else batch.get("mips_ignore"))
+    q = query_cls.detach()
     if isinstance(store.index, FlatIndex):
-        scores, idx = flat_search(store.index, query_cls.detach(), k=cfg.mips_topk,
-                                  ignore=ignore)
+        scores, idx = flat_search(store.index, q, k=cfg.mips_topk, ignore=ignore, mesh=mesh)
+    elif store.index.shards > 1:
+        scores, idx = ivf_search_sharded(store.index, q, mesh, k=cfg.mips_topk,
+                                         nprobe=store.nprobe, ignore=ignore,
+                                         data_sharded=data_sharded)
     else:
-        scores, idx = ivf_search(store.index, query_cls.detach(), k=cfg.mips_topk,
-                                 nprobe=store.nprobe, ignore=ignore)
+        scores, idx = ivf_search(store.index, q, k=cfg.mips_topk, nprobe=store.nprobe,
+                                 ignore=ignore, mesh=mesh, data_sharded=data_sharded)
     safe_idx = idx.clamp(min=0).long()
     return store.token_ids[safe_idx], store.token_mask[safe_idx], scores, idx
 
@@ -273,6 +281,8 @@ def rag_encode(
     dtype=torch.float32,
     remat: bool | str = False,
     copy_force=None,
+    mesh=None,
+    data_sharded: bool = False,
 ) -> RAGEncoderOutput:
     """Retrieval + the main document encoder. batch keys: input_ids/
     attention_mask [B, S]; query_input_ids/query_attention_mask [B, Lq];
@@ -281,7 +291,14 @@ def rag_encode(
     input_memory_ids/mask [B, D, L_mem] and input_memory_count [B] (dual
     memory). ``copy_force`` (a bool, or a 0-d tensor) is the train step's
     copy-forcing flag of ``target_in``; None reads ``cfg.copy_forcing >
-    0``. ``remat`` checkpoints every layer of every encoder."""
+    0``. ``remat`` checkpoints every layer of every encoder.
+
+    Over a ``mesh`` (`parallel.mesh`): the store's index is searched as it
+    was placed (`_retrieve`), and with ``cfg.sequence_shard`` the LED
+    encoder runs sequence-sharded over the ``shard`` axis. ``data_sharded``:
+    the batch is this rank's rows of a batch split over ``data`` (an IVF
+    search then decides its route and its probe union by the whole
+    batch)."""
     input_ids = batch["input_ids"]
     enc_mask = batch["attention_mask"]
 
@@ -300,7 +317,8 @@ def rag_encode(
             mem_ids = batch["target_memory_ids"][:, None]  # [B, 1, L]
             mem_mask = batch["target_memory_mask"][:, None]
         else:
-            mem_ids, mem_mask, faiss_scores, idx = _retrieve(cfg, store, batch, query_cls)
+            mem_ids, mem_mask, faiss_scores, idx = _retrieve(cfg, store, batch, query_cls,
+                                                             mesh, data_sharded)
             if cfg.memory_forcing == "target_in":
                 # the target slot comes first, masked off when the flag is off
                 force = cfg.copy_forcing > 0.0 if copy_force is None else copy_force
@@ -347,7 +365,9 @@ def rag_encode(
     global_mask = torch.where(input_ids == cfg.led.doc_sep_id,
                               torch.ones_like(global_mask), global_mask)
     enc_hidden = led_encode(params.led, cfg.led, input_ids, enc_mask, global_mask,
-                            dtype=dtype, remat=remat)
+                            dtype=dtype, remat=remat,
+                            seq_mesh=mesh if cfg.sequence_shard and mesh is not None
+                            else None)
     return RAGEncoderOutput(
         enc_hidden=enc_hidden, enc_mask=enc_mask, memory=memory,
         memory_mask=memory_mask, memory_bias=memory_bias, copy_seq=copy_seq,

@@ -112,3 +112,35 @@ def sliding_global_attention(
     )
     out = out.masked_fill(~(padding_mask > 0)[:, None, :, None], 0.0)
     return dense(p.o, _merge_heads(out))
+
+
+def seq_block(t: int, seq_mesh) -> slice:
+    """This rank's token block [s·T/S, (s+1)·T/S) (all of T without a mesh)."""
+    if seq_mesh is None:
+        return slice(0, t)
+    tl = t // seq_mesh.shard
+    return slice(seq_mesh.s * tl, (seq_mesh.s + 1) * tl)
+
+
+def attention_fn(seq_mesh):
+    """The encoders' attention: `sliding_global_attention`, or over
+    ``seq_mesh`` its sequence-sharded form, on this rank's block."""
+    if seq_mesh is None:
+        return sliding_global_attention
+    from .seq_attention import sliding_global_attention_seqsharded
+
+    def attn(p, x, n_heads, window, global_mask, padding_mask, max_globals):
+        return sliding_global_attention_seqsharded(p, x, n_heads, window, global_mask,
+                                                   padding_mask, max_globals, seq_mesh)
+
+    return attn
+
+
+def gather_seq(x: torch.Tensor, seq_mesh) -> torch.Tensor:
+    """Every rank's block [B, T/S, H], concatenated along T over the
+    ``shard`` group (``x`` itself without a mesh)."""
+    if seq_mesh is None:
+        return x
+    from ..parallel.collectives import gather_cat
+
+    return gather_cat(x, seq_mesh.shard_group, dim=1)

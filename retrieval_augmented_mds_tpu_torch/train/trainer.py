@@ -179,15 +179,36 @@ def encode_corpus(
     *,
     batch_size: int = 64,
     dtype=torch.float32,
+    mesh=None,
 ) -> torch.Tensor:
     """CLS embeddings [N, H] f32, in batches of ``batch_size`` rows (the
-    last one ragged: rows are encoded independently)."""
+    last one ragged: rows are encoded independently). Over a ``mesh`` whose
+    ``data`` size D divides the batch size, data rank d embeds rows
+    [d·bs/D, (d+1)·bs/D) of every batch (the last one padded with its first
+    row), and the slices are gathered over ``data``: every rank returns all
+    N rows."""
+    n = token_ids.shape[0]
+    split = mesh is not None and mesh.splits_batch(batch_size)
+    per, first, pad = batch_size, 0, 0
+    if split:
+        per = batch_size // mesh.data
+        first, pad = mesh.d * per, (-n) % batch_size
+    if pad:
+        token_ids = torch.cat([token_ids, token_ids[:1].expand(pad, -1)])
+        token_mask = torch.cat([token_mask, token_mask[:1].expand(pad, -1)])
     outs = []
-    for i in range(0, token_ids.shape[0], batch_size):
-        hid = longformer_encode(enc_params, enc_cfg, token_ids[i:i + batch_size],
-                                token_mask[i:i + batch_size], dtype=dtype)
+    for i in range(first, n + pad, batch_size):
+        hid = longformer_encode(enc_params, enc_cfg, token_ids[i:i + per],
+                                token_mask[i:i + per], dtype=dtype)
         outs.append(hid[:, 0].float())
-    return torch.cat(outs, dim=0)
+    if not split:
+        return torch.cat(outs, dim=0)
+    from ..parallel.collectives import gather_stack
+
+    mine = torch.stack(outs)  # [batches, bs / D, H]
+    # [D, batches, bs / D, H] → batch-major rows
+    every = gather_stack(mine, mesh.data_group).transpose(0, 1)
+    return every.reshape(-1, every.shape[-1])[:n]
 
 
 def build_memory_store(
@@ -201,18 +222,23 @@ def build_memory_store(
     seed: int = 0,
     compute_dtype=torch.float32,
     batch_size: int | None = None,
+    mesh=None,
 ) -> MemoryStore:
     """Embed the corpus under the mips encoder and build the configured
     index. ``index_cfg`` is duck-typed (factory/metric/normalize/nprobe/
-    train_size/dtype); ``seed`` draws the IVF k-means sample."""
+    train_size/dtype); ``seed`` draws the IVF k-means sample. Over a
+    ``mesh`` the corpus is embedded data-parallel and the index placed
+    sharded over ``shard``; the token ids and masks stay whole on every
+    rank."""
     emb = encode_corpus(
         params.mips_encoder, model_cfg.mips_enc, token_ids, token_mask,
         batch_size=batch_size or min(64, token_ids.shape[0]), dtype=compute_dtype,
+        mesh=mesh,
     )
     index = build_index_from_factory(
         emb, index_cfg.factory, metric=index_cfg.metric,
         normalize=index_cfg.normalize, dtype=index_cfg.dtype,
-        train_size=index_cfg.train_size, seed=seed,
+        train_size=index_cfg.train_size, seed=seed, mesh=mesh,
     )
     return MemoryStore(index=index, token_ids=token_ids, token_mask=token_mask,
                        row_aids=row_aids, nprobe=index_cfg.nprobe)
