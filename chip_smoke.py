@@ -131,10 +131,23 @@ Phases, in order; any failure exits non-zero:
      union and the spill, as the mesh searched them; a flat shard's rows
      with shifted ignore ids) against their plain versions.
 
+ 18. ``[mesh_fit]``: the training slice's config over the same (2, 2) mesh,
+     the LED sequence-sharded, 4 ranks on the card over gloo, 3 steps with a
+     store refresh, in two forms: AdamW with a bf16 mu and 8-bit AdamW with
+     remat, each ZeRO-sharded over ``data`` (K9 on each data rank's row
+     shard); each against one device's run of the same form: every step's
+     loss, every leaf's gradient norm, the parameters after the last step,
+     the gathered optimizer state, each rank's state bytes; the launches,
+     walls, peaks and collectives by rank; then K3 on a rank's extended LED
+     block (dO zero on its dummy rows) and K9 on a data rank's rows against
+     their plain versions, ``torchrun ... cli fit`` on
+     ``configs/smoke.yaml`` with a checkpoint that one device resumes (its
+     losses those of a run never interrupted), and ``torchrun ... dryrun``.
+
 The line before the last is the per-kernel JSON summary (launches summed
 over the eight slices, the exported serving step (9c: its export and one
-exported serve), the two baselines and the mesh's four ranks (17), K10's
-from its own phase, as no path calls it; ms,
+exported serve), the two baselines and the mesh runs' four ranks (17,
+18), K10's from its own phase, as no path calls it; ms,
 plain_ms and library_ms measured here with CUDA events; bound_ms the least
 time for the same work on an H100 SXM from these inputs); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1313,11 +1326,14 @@ def capacity_superleaf() -> list[int]:
             if n.split(".", 1)[0] not in frozen]
 
 
-def _k9_case(name, sizes, wd, clip, *, timed):
+def _k9_case(name, sizes, wd, clip, *, timed, shard=None):
     """K9 against its plain version from a warm state (one plain update from
     zero moments): update within rtol 1e-6 + atol 1e-9, codes within 1, mu
     scales rtol 1e-6, the nu range rtol = atol = 1e-5 (the JAX package's
-    kernel test)."""
+    kernel test). ``shard`` (d, D): the superleaf padded to a multiple of D
+    rows and K9 run on data rank d's rows only, as the ZeRO-sharded 8-bit
+    AdamW runs it; those rows must also equal, bit for bit, the same rows
+    of K9 over the whole superleaf on the same inputs."""
     import torch
 
     from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
@@ -1327,8 +1343,9 @@ def _k9_case(name, sizes, wd, clip, *, timed):
     from retrieval_augmented_mds_tpu_torch.train import adam8bit as t8
 
     gen = torch.Generator(device="cuda").manual_seed(31)
-    sizes, nbs, _, nb = t8._layout(sizes)
-    state = t8.init_state(sizes, "cuda")
+    d, n_shards = shard or (0, 1)
+    sizes, nbs, _, nb = t8._layout(sizes, n_shards)
+    state = t8.init_state(sizes, "cuda", n_shards)
     mask = torch.arange(t8.BLOCK, device="cuda")[None, :] < state.nvalid
 
     def rand(scale):
@@ -1343,18 +1360,29 @@ def _k9_case(name, sizes, wd, clip, *, timed):
         state.nvalid, p2, scal0, **adam)
     scal = torch.tensor([[1 - 0.9 ** 2, 1 - 0.999 ** 2, 3e-5, clip]], device="cuda")
     args = (rand(1e-3), mq, ms, nq, nlo, nhi, state.nvalid, p2, scal)
+    whole = None
+    if shard:
+        whole = adam8bit_superleaf_update(*args, **adam)
+        rows = slice(d * nb // n_shards, (d + 1) * nb // n_shards)
+        args = tuple(None if a is None else a[rows].contiguous() if a.shape[0] == nb else a
+                     for a in args)
+        nb = rows.stop - rows.start
     got = adam8bit_superleaf_update(*args, **adam)
     ref = adam8bit_superleaf_update_plain(*args, **adam)
     torch.cuda.synchronize()
+    if shard:
+        check(all(torch.equal(a, b[rows]) for a, b in zip(got, whole)),
+              f"K9 {name}: data rank {d}'s rows differ from the whole superleaf's")
+        del whole
     err = (got[0] - ref[0]).abs().max().item()
     check(torch.allclose(got[0], ref[0], rtol=1e-6, atol=1e-9),
           f"K9 {name}: update differs (max abs err {err})")
     flips = []
     for k, what in ((1, "mu_q"), (3, "nu_q")):
-        d = (got[k].int() - ref[k].int()).abs()
-        check(got[k].dtype == ref[k].dtype and d.max().item() <= 1,
+        apart = (got[k].int() - ref[k].int()).abs()
+        check(got[k].dtype == ref[k].dtype and apart.max().item() <= 1,
               f"K9 {name}: {what} differs by more than 1")
-        flips.append(int((d > 0).sum()))
+        flips.append(int((apart > 0).sum()))
     check(torch.allclose(got[2], ref[2], rtol=1e-6, atol=0), f"K9 {name}: mu_scale differs")
     for k in (4, 5):
         check(torch.allclose(got[k], ref[k], rtol=1e-5, atol=1e-5), f"K9 {name}: nu range")
@@ -1365,7 +1393,11 @@ def _k9_case(name, sizes, wd, clip, *, timed):
     n = nb * t8.BLOCK
     bound = roofline(nbytes(*[a for a in args if a is not None], *got),
                      (K9_OPS + (2 if wd else 0)) * n, True)
-    print(f"[K9] {name}: {len(sizes)} leaves, {sum(sizes)} parameters, NB={nb}, wd={wd}, "
+    zeros = int((args[6] == 0).sum())
+    print(f"[K9] {name}: {len(sizes)} leaves, {sum(sizes)} parameters, NB={nb}"
+          + (f" (data rank {d}'s rows of {n_shards}, {zeros} of no valid element; bit-equal "
+             f"to those rows of K9 over the whole superleaf)" if shard else "")
+          + f", wd={wd}, "
           f"clip scale {clip}: PASS (update rtol 1e-6 atol 1e-9: max abs err {err:.3e}; "
           f"codes within 1: {flips[0]} mu and {flips[1]} nu codes differ by 1; scales)"
           + (f"; kernel {ms_k:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1934,7 +1966,7 @@ def phase_host_tail() -> None:
 TRAIN_STEPS = 4
 
 
-def train_slice_config():
+def train_slice_dict() -> dict:
     """``configs/led_base_multi_x_science.yaml`` cut to a few steps: its
     ``IVF256,SQ8`` index (nprobe 8; 131 clusters over the fixture's 1055
     rows) refreshed every 2 steps, no pretrained weights (seeded random
@@ -1942,8 +1974,6 @@ def train_slice_config():
     eval and no checkpoints. Widths, lengths, batch, top-k, memory encoder,
     index and precision are the file's."""
     import yaml
-
-    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
 
     with open(os.path.join(REPO, "configs", "led_base_multi_x_science.yaml")) as f:
         d = yaml.safe_load(f)
@@ -1953,7 +1983,14 @@ def train_slice_config():
     d.update(max_steps=TRAIN_STEPS, eval_every=0, ckpt_dir=None,
              logging={"log_dir": os.path.join(OUT_DIR, "train_slice"),
                       "run_name": "led_base_train"})
-    return config_from_dict(d)
+    return d
+
+
+def train_slice_config():
+    """`train_slice_dict` as a config."""
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    return config_from_dict(train_slice_dict())
 
 
 def _train_run(cfg, tag: str, off_path: tuple[str, ...]) -> tuple[dict, dict]:
@@ -3280,6 +3317,564 @@ def phase_mesh_eval(card: str, precision: str = "bfloat16") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training over a (data, shard) mesh of 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_FIT_STEPS = 3  # the store refreshed before the third
+# 4 ranks' allocators on one card: segments that grow in place, so that a
+# rank's freed blocks are not stranded in its cache when another needs them
+SHARED_CARD_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+MESH_FIT_TIMEOUT = 720  # s: the 4-rank launch of both forms is killed after this
+MESH_FIT_FORMS = {  # form: its train knobs over `train_slice_dict`'s
+    "standing": {},  # AdamW, bf16 mu: ZeRO-sharded over data
+    "capacity": {"adam_8bit": True, "remat": True},  # K9 on each data rank's rows
+}
+# a mesh step's loss against one device's from the same state: bf16 on both,
+# the batch split over data and the LED over shard; three times the largest
+# gap of a correct mesh on the H100 (6.3e-5; PERF.md, mesh fit)
+MESH_FIT_LOSS_RTOL = 2e-4
+# each leaf's gradient norm against one device's, beside a floor of the
+# step's global norm (a leaf's own roundoff where its gradient is ~0), at the
+# steps where both retrieved the same rows: about 8 x the largest gap of a
+# correct mesh there (1.3e-3; PERF.md, mesh fit); a dropped or doubled
+# reduction moves whole groups of leaves by 0.5 or 1
+MESH_FIT_NORM_RTOL = 1e-2
+MESH_FIT_NORM_FLOOR = 1e-4
+
+
+def mesh_fit_config(form: str, mesh: bool = True) -> dict:
+    """`train_slice_dict` in ``form`` (`MESH_FIT_FORMS`) for `MESH_FIT_STEPS`
+    steps with the LED sequence-sharded, over a (data 2, shard 2) mesh
+    (``mesh`` False: the same on one device)."""
+    d = train_slice_dict()
+    d["model"]["sequence_shard"] = True
+    d["train"].update(MESH_FIT_FORMS[form])
+    name = f"mesh_fit_{form}" + ("" if mesh else "_single")
+    d.update(max_steps=MESH_FIT_STEPS,
+             logging={"log_dir": os.path.join(OUT_DIR, name), "run_name": name})
+    if mesh:
+        d["mesh"] = {"data": 2, "shard": 2}
+    else:  # the cluster count the mesh's 2 shards round the fixture's 131 to
+        d["index"]["factory"] = "IVF130,SQ8"
+    return d
+
+
+class _GradNorms:
+    """An optimizer that records every leaf's gradient norm at each update
+    (the gradients it is handed: over a mesh, the reduced ones), then runs
+    the optimizer it wraps, which answers everything else."""
+
+    def __init__(self, tx):
+        self.tx, self.norms = tx, []
+
+    def __getattr__(self, name):
+        return getattr(self.tx, name)
+
+    def update(self, params, grads, state):
+        import torch
+
+        norms = torch.stack(torch._foreach_norm([g.float() for g in grads.values()]))
+        self.norms.append(dict(zip(grads, norms.tolist())))
+        return self.tx.update(params, grads, state)
+
+
+def _fit_recorded(cfg_dict: dict, device: str = "cuda"):
+    """``cli.run_fit`` of the config on ``device``, its launches counted and
+    its optimizer recording the gradient norms → (out, launches, report,
+    norms by step)."""
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    build, made = cli.build_tx, []
+
+    def recording(*a, **k):
+        made.append(_GradNorms(build(*a, **k)))
+        return made[-1]
+
+    rep: dict = {}
+    cli.build_tx = recording
+    try:
+        out, launches = run_counted(lambda: cli.run_fit(config_from_dict(cfg_dict),
+                                                        device=device, report=rep))
+    finally:
+        cli.build_tx = build
+    return out, launches, rep, made[0].norms
+
+
+def _state_bytes(opt_state) -> int:
+    return sum(v.numel() * v.element_size() for v in vars(opt_state).values()
+               if hasattr(v, "element_size"))
+
+
+def _peak(device: str) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _reset(device: str) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _mesh_fit_single(form: str, forms: dict, device: str = "cuda") -> dict:
+    """`mesh_fit_config` of ``form`` on one device → its losses, gradient
+    norms, retrieved rows, step times, peak memory and state bytes; its
+    final parameters saved for the ranks to read."""
+    import torch
+
+    _reset(device)
+    out, launches, rep, norms = _fit_recorded(forms[form], device)
+    state = rep["state"]
+    path = os.path.join(OUT_DIR, f"mesh_fit_{form}_single.pt")
+    torch.save({n: p.detach().cpu() for n, p in state.params.named_parameters()}, path)
+    summary = {"losses": rep["losses"], "norms": norms, "launches": launches,
+               "retrieved": [r.cpu() for r in rep["retrieved"]], "step_s": rep["step_s"],
+               "phase_s": rep["phase_s"], "peak": _peak(device),
+               "state_bytes": _state_bytes(state.opt_state), "path": path,
+               "grad_norm": out["grad_norm"]}
+    del rep, state
+    _reset(device)
+    return summary
+
+
+def _adam_bound(cfg_dict: dict, steps: int) -> float:
+    """The most two AdamW trajectories from one start can part on an
+    element, whatever their gradients (`tests/test_torch_train.py`
+    `_adam_bound`, b1 taken whole: a step moves an element by at most lr_t
+    x sqrt(sum a_j^2 / c_j) of its bias-corrected moment weights, plus the
+    decay); 8-bit moments within twice that."""
+    from retrieval_augmented_mds_tpu_torch.train.optimizer import linear_warmup_schedule
+
+    t = cfg_dict["train"]
+    sched = linear_warmup_schedule(t["lr"], t["warmup_steps"], t["total_steps"])
+    gap = 0.0
+    for count in range(1, steps + 1):
+        lr = float(sched(count - 1))
+        bc1, bc2 = 1 - 0.9 ** count, 1 - 0.999 ** count
+        r2 = sum(((1 - 0.9) * 0.9 ** (count - j) / bc1) ** 2
+                 / ((1 - 0.999) * 0.999 ** (count - j) / bc2) for j in range(1, count + 1))
+        gap = gap * (1 + lr * t.get("weight_decay", 0.0)) + 2 * lr * math.sqrt(r2)
+    return gap * (2 if t.get("adam_8bit") else 1)
+
+
+def _same_update_as_one_device(cfg_dict: dict, state, tx, mesh) -> tuple | None:
+    """One more update of the mesh's ZeRO-sharded optimizer ``tx`` from the
+    run's final state, on gradients drawn from one seed (equal on every
+    rank); on rank 0 the same update by the one-device optimizer of the
+    config from the mesh's gathered state and a copy of the parameters.
+    Both must agree bit for bit, parameters and gathered state (the 8-bit
+    codes and scales, or the bf16 mu and f32 nu) → on rank 0 (parameters,
+    state arrays) compared, else None."""
+    import copy
+
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.train.adam8bit import _ARRAYS as ADAM8BIT_ARRAYS
+    from retrieval_augmented_mds_tpu_torch.train.adam8bit import AdamW8bit
+    from retrieval_augmented_mds_tpu_torch.train.adam8bit import _layout as adam8bit_layout
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    params, opt = state.params, state.opt_state
+    dev = next(params.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+             for n, p in params.named_parameters()}
+    flat = tx.state_arrays(params, opt)  # gathered over data
+    rows = None  # the one device's superleaf rows (a mesh may pad one more)
+    if mesh.rank == 0:
+        one = cli.build_tx(config_from_dict(cfg_dict), params, None)
+        if isinstance(one, AdamW8bit):
+            _, train = one._layout(params)
+            sizes = [dict(params.named_parameters())[n].numel() for n in train]
+            rows = adam8bit_layout(sizes)[3]
+            flat = {k: v[:rows] if k.rsplit(".", 1)[-1] in ADAM8BIT_ARRAYS else v
+                    for k, v in flat.items()}
+        twin = copy.deepcopy(params)
+        twin_state = one.load_state_arrays(twin, flat)
+    del flat
+    tx.update(params, grads, opt)
+    after = tx.state_arrays(params, opt)
+    if mesh.rank != 0:
+        return None
+    one.update(twin, grads, twin_state)
+    ref = one.state_arrays(twin, twin_state)
+    check(set(after) == set(ref), f"mesh_fit: state keys {set(after) ^ set(ref)}")
+    for k, r in ref.items():
+        a = after[k]
+        if rows is not None and k.rsplit(".", 1)[-1] in ADAM8BIT_ARRAYS:
+            a = a[:rows]
+        same = (torch.equal(a.cpu(), r.cpu()) if hasattr(r, "cpu") else a == r)
+        check(same, f"mesh_fit: the ZeRO state's {k} after one update differs from one "
+              f"device's on the same gradients")
+    for (n, p), (_, q) in zip(params.named_parameters(), twin.named_parameters()):
+        check(torch.equal(p, q), f"mesh_fit: parameter {n} after one update differs from "
+              f"one device's on the same gradients")
+    return (len(grads), len(ref))
+
+
+def mesh_fit_rank(init: str, forms: dict, refs: dict, device: str = "cuda") -> dict:
+    """One rank of `phase_mesh_fit`: ``cli.run_fit`` of each form's config
+    over the (2, 2) mesh with the launches counted and the gradient norms
+    recorded, then its parameters against one device's (``refs``: the
+    saved single-device run of the form), and on rank 0 its gathered
+    optimizer state → what the parent checks."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # 4 ranks on the host's 8 cores
+    init_distributed(device, init_method=init)
+    results = {}
+    for form, cfg_dict in forms.items():
+        _reset(device)
+        t0 = time.perf_counter()
+        out, launches, rep, norms = _fit_recorded(cfg_dict, device)
+        wall = time.perf_counter() - t0
+        peak = _peak(device)
+        mesh, state, tx = rep["mesh"], rep["state"], rep["tx"]
+        ref = torch.load(refs[form], mmap=True, weights_only=True)
+        bound = _adam_bound(cfg_dict, MESH_FIT_STEPS)
+        worst = max(((p.detach().cpu() - ref[n]).abs().max().item(), n)
+                    for n, p in state.params.named_parameters())
+        res = {"rank": mesh.rank, "d": mesh.d, "s": mesh.s, "backend": mesh.backend,
+               "device": str(mesh.device), "shards": rep["store"].index.shards,
+               "losses": rep["losses"], "norms": norms, "launches": launches, "wall": wall,
+               "step_s": rep["step_s"], "phase_s": rep["phase_s"],
+               "collectives": rep["collectives"], "peak": peak,
+               "zero_bytes": _state_bytes(state.opt_state),
+               "retrieved": [r.cpu() for r in rep["retrieved"]],
+               "param_err": worst, "param_bound": bound, "grad_norm": out["grad_norm"],
+               "same_update": _same_update_as_one_device(cfg_dict, state, tx.tx, mesh)}
+        results[form] = res
+        del rep, state, tx, ref
+    return results
+
+
+def _norms_apart(mesh_norms, single_norms, steps) -> tuple[float, int, str]:
+    """The largest |mesh - one device| / one device's over the leaf gradient
+    norms of ``steps`` above `MESH_FIT_NORM_FLOOR` x the step's global
+    norm, the leaves held, and the worst leaf; fails beyond
+    `MESH_FIT_NORM_RTOL` (with the floor) on those steps."""
+    worst, held, where = 0.0, 0, ""
+    for i in steps:
+        a, b = mesh_norms[i], single_norms[i]
+        total = math.sqrt(sum(v * v for v in b.values()))
+        for n, ref in b.items():
+            gap = abs(a[n] - ref)
+            if ref >= MESH_FIT_NORM_FLOOR * total:
+                held += 1
+                rel = gap / ref
+                if rel > worst:
+                    worst, where = rel, f"step {i} {n}"
+            check(gap <= MESH_FIT_NORM_RTOL * ref + MESH_FIT_NORM_FLOOR * total,
+                  f"mesh_fit: step {i} {n} gradient norm {a[n]} against one device's {ref}")
+    return worst, held, where
+
+
+def _k3_block_case(card: str) -> None:
+    """K3 on a shard rank's extended block of the `[mesh_fit]` LED layer,
+    as the sequence-sharded backward runs it: a data rank's 2 rows, T/S =
+    1024 tokens of T = 2048 with w = 512 neighbour rows on each side and w
+    dummy query rows on each side whose cotangent is zero, G = 64 (the
+    fixture's padding and valid globals; the model's zero cotangent on
+    padded and global rows): against the plain backward from the same m,
+    l and delta (bf16 tolerance of `_k3_case`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
+        flash_sliding_attention,
+        row_delta,
+    )
+    from retrieval_augmented_mds_tpu_torch.ops.flash_sliding_bwd import (
+        flash_sliding_backward,
+        sliding_backward_plain,
+    )
+
+    w, tl, nh, dh = 512, 1024, 12, 64
+    args, rows_ok, is_global = _k2_inputs(2, nh, 2048, dh, w, 64, FIXTURE_LENGTHS[:2],
+                                          FIXTURE_GLOBALS[:2], torch.bfloat16, seed=11)
+    q, k, v, key_bias, kg, vg, g_bias, _ = args
+    for s in (0, 1):
+        off = s * tl
+        kp, vp = (F.pad(x, (0, 0, w, w)) for x in (k, v))
+        ext = (F.pad(q[:, :, off:off + tl], (0, 0, w, w)).contiguous(),
+               kp[:, :, off:off + tl + 2 * w].contiguous(),
+               vp[:, :, off:off + tl + 2 * w].contiguous(),
+               F.pad(key_bias, (w, w), value=-1e9)[:, off:off + tl + 2 * w].contiguous(),
+               kg, vg, g_bias)
+        out, m, l = flash_sliding_attention(*ext, window=w, return_stats=True)
+        live = F.pad((rows_ok & ~is_global).int(), (w, w))[:, off:off + tl + 2 * w].bool()
+        live[:, :w] = False  # the dummy rows
+        live[:, w + tl:] = False
+        g = torch.Generator(device="cuda").manual_seed(12 + s)
+        do = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        do = do.masked_fill(~live[:, None, :, None], 0.0)
+        bwd = (*ext, do, m, l, row_delta(do, out))
+        got = flash_sliding_backward(*bwd, window=w)
+        ref = sliding_backward_plain(*bwd, w)
+        torch.cuda.synchronize()
+        tol = _grad_tol(torch.bfloat16)
+        err = _compare(f"K3 shard {s}'s extended block", got, ref, tol)
+        ms = cuda_ms(lambda: flash_sliding_backward(*bwd, window=w))
+        plain_ms = cuda_ms(lambda: sliding_backward_plain(*bwd, w))
+        kb = ext[3]
+        flops = 10 * dh * _sliding_pairs(kb, g_bias, w, nh, live)
+        rows, keys, window = _sliding_reads(kb, g_bias, w, live)
+        n_bytes = (nh * dh * 2 * (rows + 2 * (keys + window)) + rows * nh * 3 * m.element_size()
+                   + nbytes(*ext[3:7], do, *got))
+        bound, _ = _route_bounds(n_bytes, flops, torch.bfloat16)
+        print(f"[mesh_fit] K3 on shard {s}'s extended block (B=2 nh=12 T/S={tl} + 2 x {w} "
+              f"halo and dummy rows, dh=64, G=64, bf16, dO zero on the dummy, padded and "
+              f"global rows): PASS (dq, dk, dv, dkg, dvg within {tol} x max|ref|: max abs err "
+              f"{err:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); {card}")
+
+
+def _torchrun(args: list[str], what: str, timeout: float) -> tuple[str, str, float]:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4``
+    of ``args`` from the repo root, its whole process group killed after
+    ``timeout`` → (stdout, stderr, wall s); fails on a non-zero exit."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True,
+                            env=dict(os.environ, **SHARED_CARD_ENV))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{what}: torchrun killed after {timeout} s")
+    check(proc.returncode == 0, f"{what}: torchrun exit {proc.returncode}; stderr tail "
+          f"{err[-2000:]}")
+    return out, err, time.perf_counter() - t0
+
+
+def _mesh_fit_cli(card: str) -> None:
+    """``torchrun ... cli fit`` on ``configs/smoke.yaml`` over the (2, 2)
+    mesh with the LED sequence-sharded, 2 steps and a checkpoint; then one
+    device resumes from it for 2 more steps, against one device that was
+    never interrupted (the store refreshed before step 2 there, built from
+    the resumed weights here: the same weights); then the dry run
+    (`retrieval_augmented_mds_tpu_torch.dryrun`) on 4 ranks."""
+    import shutil
+
+    import yaml
+
+    from retrieval_augmented_mds_tpu_torch import cli
+    from retrieval_augmented_mds_tpu_torch.utils.config import config_from_dict
+
+    with open(os.path.join(REPO, "configs", "smoke.yaml")) as f:
+        base = yaml.safe_load(f)
+    base["model"]["sequence_shard"] = True
+    base["index"]["rebuild_every"] = 2
+
+    def config(name, **over):
+        d = json.loads(json.dumps(base))
+        d.update(eval_every=0, ckpt_dir=os.path.join(OUT_DIR, name, "ckpt"),
+                 logging={"log_dir": os.path.join(OUT_DIR, name), "run_name": name})
+        d.update(over)
+        return d
+
+    shutil.rmtree(os.path.join(OUT_DIR, "mesh_fit_cli"), ignore_errors=True)
+    d = config("mesh_fit_cli", max_steps=2, mesh={"data": 2, "shard": 2})
+    os.makedirs(os.path.join(OUT_DIR, "mesh_fit_cli"), exist_ok=True)
+    path = os.path.join(OUT_DIR, "mesh_fit_cli", "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    out, err, wall = _torchrun(["-m", "retrieval_augmented_mds_tpu_torch.cli", "fit",
+                                "--config", path], "mesh_fit cli fit", CLI_TIMEOUT)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1 and json.loads(lines[0])["steps"] == 2,
+          f"mesh_fit: torchrun fit printed {lines}")
+    ckpt = os.path.join(OUT_DIR, "mesh_fit_resume", "ckpt")
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    shutil.copytree(d["ckpt_dir"], ckpt)
+    resumed, whole = {}, {}
+    cli.run_fit(config_from_dict(config("mesh_fit_resume", max_steps=4)), device="cuda",
+                report=resumed)
+    cli.run_fit(config_from_dict(config("mesh_fit_whole", max_steps=4, ckpt_dir=None)),
+                device="cuda", report=whole)
+    check(len(resumed["losses"]) == 2, f"mesh_fit: the resume ran {resumed['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], whole["losses"][2:]))
+    check(rel <= 1e-4, f"mesh_fit: resumed losses {resumed['losses']} against the "
+          f"uninterrupted run's {whole['losses'][2:]}")
+    print(f"[mesh_fit] torchrun --nproc-per-node 4 -m retrieval_augmented_mds_tpu_torch.cli fit "
+          f"(configs/smoke.yaml, mesh 2 x 2, sequence_shard, 2 steps, a checkpoint): exit 0 in "
+          f"{wall:.1f} s, rank 0's line {lines[0][:160]}; one device resumed from its "
+          f"checkpoint for steps 2-3: losses {[round(x, 6) for x in resumed['losses']]} "
+          f"against the uninterrupted run's {[round(x, 6) for x in whole['losses'][2:]]} "
+          f"(rtol 1e-4: {rel:.2e}): PASS; {card}")
+    out, err, wall = _torchrun(["-m", "retrieval_augmented_mds_tpu_torch.dryrun"],
+                               "mesh_fit dryrun", CLI_TIMEOUT)
+    lines = [ln for ln in out.splitlines() if ln.startswith("dryrun_multichip OK")]
+    check(len(lines) == 1, f"mesh_fit: the dry run printed {out[-500:]}")
+    print(f"[mesh_fit] torchrun --nproc-per-node 4 -m retrieval_augmented_mds_tpu_torch.dryrun "
+          f"in {wall:.1f} s: {lines[0]}; {card}")
+
+
+def mesh_fit_runs(single_cfgs: dict, mesh_cfgs: dict, device: str = "cuda",
+                  rank_fn: str = "chip_smoke:mesh_fit_rank"):
+    """One device's run of each form (`_mesh_fit_single`), then the 4-rank
+    launch of ``rank_fn`` over the mesh configs → (the ranks' results by
+    rank, the single runs by form, the launch's wall s)."""
+    tests = os.path.join(REPO, "tests")  # the local launcher of the mesh tests
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from torch_mesh_launch import launch, store_url
+
+    singles = {form: _mesh_fit_single(form, single_cfgs, device) for form in single_cfgs}
+    _reset(device)
+    work = os.path.join(OUT_DIR, "mesh_fit_ranks")
+    t0 = time.perf_counter()
+    results = launch(rank_fn, 4, workdir=work, timeout=MESH_FIT_TIMEOUT, env=SHARED_CARD_ENV,
+                     args=(store_url(work), mesh_cfgs,
+                           {f: singles[f]["path"] for f in mesh_cfgs}, device))
+    results.sort(key=lambda r: next(iter(r.values()))["rank"])
+    return results, singles, time.perf_counter() - t0
+
+
+def phase_mesh_fit(card: str) -> dict:
+    """`[mesh_fit]`: the train slice's config (`mesh_fit_config`) over a
+    (data 2, shard 2) mesh, the LED sequence-sharded, 4 ranks sharing the
+    one card over gloo, `MESH_FIT_STEPS` steps with a store refresh, in
+    both `MESH_FIT_FORMS`, against one device's run of each form from the
+    same seed and batches: every step's loss (`MESH_FIT_LOSS_RTOL`, or
+    `RETRIEVAL_FLIP_RTOL` where the refresh swapped a retrieved row), every
+    leaf's gradient norm at every step (`_norms_apart`: a dropped or
+    doubled reduction moves whole groups of leaves by 2x), the parameters
+    after the last step (within `_adam_bound`), the gathered optimizer
+    state (the 8-bit codes' agreement; AdamW's moment norms), each rank's
+    ZeRO state bytes, K1-K5 (and K9) launched on every rank, the walls,
+    peaks and collectives. Then K3 on a rank's extended LED block and K9
+    on a data rank's row shard against their plain versions, and
+    `_mesh_fit_cli` → the launches of the 4 ranks, summed."""
+    import gc
+
+    import torch
+
+    results, singles, launch_s = mesh_fit_runs(
+        {f: mesh_fit_config(f, mesh=False) for f in MESH_FIT_FORMS},
+        {f: mesh_fit_config(f) for f in MESH_FIT_FORMS})
+    launches = check_mesh_fit(results, singles, card)
+    print(f"[mesh_fit] the 4-rank launch of both forms: {launch_s:.1f} s")
+    _k3_block_case(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _k9_case("led_base_row_shard", capacity_superleaf(), 0.0, 0.25, timed=True, shard=(1, 2))
+    torch.cuda.empty_cache()
+    _k9_case("tails_row_shard", [16384 + 70, 300, 5, 1000, 129], 0.02, 0.5, timed=False,
+             shard=(1, 2))
+    _mesh_fit_cli(card)
+    return launches
+
+
+def check_mesh_fit(results: list, singles: dict, card: str,
+                   device: str = "cuda:0") -> dict:
+    """`phase_mesh_fit`'s checks and lines for each form's ranks against its
+    single-device run → the launches of the ranks, summed."""
+    import torch
+
+    launches = {}
+    for form, single in singles.items():
+        rs = [r[form] for r in results]
+        path = ["mips_topk", "flash_sliding_attention", "flash_sliding_backward",
+                "flash_dense_attention", "flash_dense_backward"]
+        if MESH_FIT_FORMS[form].get("adam_8bit"):
+            path.append("adam8bit_superleaf_update")
+        for r in rs:
+            check(r["backend"] == "gloo" and r["device"] == device and r["shards"] == 2,
+                  f"mesh_fit {form} rank {r['rank']}: {r['backend']} {r['device']} "
+                  f"shards {r['shards']}")
+            check(device == "cpu" or all(r["launches"][k] > 0 for k in path)
+                  and r["launches"]["ivf_probe_topk"] == 0,
+                  f"mesh_fit {form} rank {r['rank']}: launches {r['launches']}")
+            check(r["losses"] == rs[0]["losses"] and r["norms"] == rs[0]["norms"],
+                  f"mesh_fit {form}: rank {r['rank']}'s losses or gradients differ from rank 0's")
+            check(r["param_err"][0] <= r["param_bound"],
+                  f"mesh_fit {form} rank {r['rank']}: parameter {r['param_err'][1]} "
+                  f"{r['param_err'][0]} from one device's (bound {r['param_bound']})")
+        if MESH_FIT_FORMS[form].get("adam_8bit") and device != "cpu":
+            check(all(r["launches"]["adam8bit_superleaf_update"] == MESH_FIT_STEPS for r in rs),
+                  f"mesh_fit capacity: K9 launches {[r['launches'] for r in rs]}")
+        # losses: data rank d's retrieved rows are one device's rows [2d, 2d + 2)
+        rels = []
+        for i, (a, b) in enumerate(zip(rs[0]["losses"], single["losses"])):
+            same = all(torch.equal(r["retrieved"][i], single["retrieved"][i][2 * r["d"]:
+                                                                          2 * r["d"] + 2])
+                       for r in rs)
+            rel = abs(a - b) / abs(b)
+            tol = MESH_FIT_LOSS_RTOL if same else RETRIEVAL_FLIP_RTOL
+            check(rel <= tol, f"mesh_fit {form}: step {i} loss {a} against one device's {b} "
+                  f"(rtol {tol}, same rows retrieved: {same})")
+            rels.append((rel, same))
+        # the gradients where every rank retrieved one device's rows; after a
+        # swap the memory encoders see other rows (printed, not held)
+        same_steps = [i for i, (_, same) in enumerate(rels) if same]
+        worst, held, where = _norms_apart(rs[0]["norms"], single["norms"], same_steps)
+        flipped = [i for i in range(len(rels)) if i not in same_steps]
+        flip_worst = max((abs(rs[0]["norms"][i][n] - v) / v for i in flipped
+                          for n, v in single["norms"][i].items()
+                          if v >= MESH_FIT_NORM_FLOOR * math.sqrt(
+                              sum(x * x for x in single["norms"][i].values()))), default=0.0)
+        zero = max(r["zero_bytes"] for r in rs)
+        check(zero <= 0.6 * single["state_bytes"],
+              f"mesh_fit {form}: a rank's ZeRO state {zero} bytes against one device's "
+              f"{single['state_bytes']}")
+        n_leaves, n_arrays = rs[0]["same_update"]
+        state_txt = (f"one more update on seeded gradients equal to one device's from the "
+                     f"gathered state, bit for bit: {n_leaves} parameters, {n_arrays} state "
+                     f"arrays")
+        steps = [max(r["step_s"][i] for r in rs) for i in range(MESH_FIT_STEPS)]
+        print(f"[mesh_fit] {form} ({'8-bit AdamW + remat' if form == 'capacity' else 'AdamW, '
+              'bf16 mu'}, ZeRO over data): led_base fit over (data 2, shard 2), 4 ranks on one "
+              f"{card} over gloo, LED 1024 of 2048 tokens a rank, B=4 (2 a data rank), "
+              f"{MESH_FIT_STEPS} steps, store refreshed before step 2")
+        print(f"[mesh_fit] {form} losses mesh {[round(x, 6) for x in rs[0]['losses']]} one "
+              f"device {[round(x, 6) for x in single['losses']]} (rel {[f'{r:.2e}' for r, _ in rels]}"
+              f", same rows {[s for _, s in rels]}): PASS; gradient norms of {held} leaf-steps "
+              f"of steps {same_steps} within {MESH_FIT_NORM_RTOL} (worst {worst:.3e} at "
+              f"{where}; at steps {flipped}, after a swapped row, {flip_worst:.3e}); grad_norm "
+              f"{rs[0]['grad_norm']:.6f} vs {single['grad_norm']:.6f}; parameters within the "
+              f"Adam bound {rs[0]['param_bound']:.3e} (largest {max(r['param_err'][0] for r in rs):.3e})"
+              f"; state: {state_txt}")
+        print(f"[mesh_fit] {form} step wall (s, slowest rank) {[round(x, 3) for x in steps]}, one "
+              f"device {[round(x, 3) for x in single['step_s']]}; phases rank 0 "
+              + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+                          for ph in rs[0]["phase_s"])
+              + f"; peak GiB by rank {[round(r['peak'] / 2**30, 2) for r in rs]}, one device "
+              f"{single['peak'] / 2**30:.2f}; ZeRO state bytes by rank "
+              f"{[r['zero_bytes'] for r in rs]}, one device {single['state_bytes']}; "
+              f"collectives a step (calls, bytes received) rank 0 {rs[0]['collectives']}; "
+              f"run_fit wall by rank {[round(r['wall'], 1) for r in rs]} s; {card}")
+        print(f"[mesh_fit] {form} launches by rank: " + "; ".join(
+            f"{r['rank']} K1 {r['launches']['mips_topk']} K2 "
+            f"{r['launches']['flash_sliding_attention']} K3 "
+            f"{r['launches']['flash_sliding_backward']} K4 {r['launches']['flash_dense_attention']}"
+            f" K5 {r['launches']['flash_dense_backward']} K9 "
+            f"{r['launches']['adam8bit_superleaf_update']}" for r in rs)
+            + f"; one device {single['launches']}")
+        for r in rs:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3328,6 +3923,7 @@ def main() -> int:
         bart = phase_baseline("bart", card)
         t5 = phase_baseline("t5", card)
         mesh = phase_mesh_eval(card)
+        mesh_fit = phase_mesh_fit(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3346,11 +3942,12 @@ def main() -> int:
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
     ]
     # launches on the paths (the eight slices, the exported serving step, the two
-    # baselines and the mesh's four ranks); K10's paths launch it 0 times (checked), so
+    # baselines and the mesh runs' four ranks, evaluating and training); K10's paths
+    # launch it 0 times (checked), so
     # its count is that of its own phase
     launches = {name: served[name] + exported[name] + sampled[name] + standing[0][name]
                 + train_f32[name] + target_in[name] + capacity[name] + long[name]
-                + retriever[name] + bart[name] + t5[name] + mesh[name]
+                + retriever[name] + bart[name] + t5[name] + mesh[name] + mesh_fit[name]
                 for name, _, _ in sources}
     launches["mips_chunkmax"] += k10_launches
     kernels = [{"name": name, "route": "cuda",

@@ -7,7 +7,7 @@
 
 The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
 ``run_predict`` and ``run_pretrain_retriever*`` do, on one device
-(``validate`` and ``test`` also over a mesh):
+(``fit``, ``validate`` and ``test`` also over a mesh):
 
 * ``fit``: build the data and the parameters (seeded, with the pretrained
   weights the config names loaded over them: ``*_weights`` and
@@ -18,8 +18,14 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
   checkpointing as the reference does. Metrics go to
   ``<log_dir>/<run_name>.metrics.jsonl``, the resolved config to
   ``<log_dir>/config_resolved.yaml``; ``logging.teams_webhook`` gets a card
-  when the run starts and when it crashes. A ``mesh`` over more than one
-  device raises: training over a mesh is not ported yet. A config that sets
+  when the run starts and when it crashes. Over a ``mesh`` (one process
+  per position: ``torchrun --nproc-per-node N -m
+  retrieval_augmented_mds_tpu_torch.cli fit --config <yaml>``) each data
+  rank trains on its rows of every batch, the gradients are summed over
+  the ranks, the optimizer state is ZeRO-sharded over ``data``, the store
+  is built and refreshed data-parallel and placed sharded, and only rank 0
+  logs, notifies, prints and writes checkpoints (of the gathered state,
+  which load on one device or any mesh). A config that sets
   ``baseline: bart`` or ``t5`` fine-tunes that baseline instead
   (`run_fit_baseline`). ``--profile`` writes a `torch.profiler` Chrome
   trace of the run under ``<log_dir>/trace``.
@@ -219,9 +225,11 @@ def device_batch(host: dict, cfg, device: torch.device, mesh=None
     return out
 
 
-def build_tx(cfg, params):
+def build_tx(cfg, params, mesh=None):
     """The one optimizer construction: ``fit`` and every command that loads
-    a train state must build the same one, or its state will not load."""
+    a train state must build the same one, or its state will not load.
+    Over a ``mesh`` its state is ZeRO-sharded over ``data``; its
+    checkpoints keep the single-device layout."""
     from .train.optimizer import build_optimizer
 
     t = cfg.train
@@ -230,27 +238,27 @@ def build_tx(cfg, params):
         grad_clip=t.grad_clip,
         frozen_groups=tuple(t.frozen_groups) + cfg.model.frozen_groups(),
         accumulate_steps=t.accumulate_steps, mu_dtype=t.adam_mu_dtype,
-        state_8bit=t.adam_8bit,
+        state_8bit=t.adam_8bit, mesh=mesh,
     )
 
 
 def check_fit_config(cfg) -> None:
     """Raise on what `run_fit` does not run, rather than train something
     else without a word: a baseline (`run_fit_baseline` trains those; ``fit``
-    dispatches to it) and a mesh of several devices (evaluation runs over a
-    mesh; training over one is the next part of the port)."""
+    dispatches to it)."""
     if cfg.baseline:
         raise ValueError(
             f"baseline {cfg.baseline!r}: run_fit trains the retrieval-augmented model; "
             "run_fit_baseline trains the baselines (`fit` picks it)")
-    if max(cfg.mesh.data or 0, cfg.mesh.shard or 0) > 1:
-        raise NotImplementedError(
-            f"mesh data={cfg.mesh.data} shard={cfg.mesh.shard}: training over several "
-            "devices is not ported yet (ROADMAP queue 1, item 9, its training half: "
-            "data-parallel gradients, ZeRO-sharded 8-bit AdamW, the sequence-sharded "
-            "backward); validate and test run over a mesh. Leave both unset or at "
-            "most 1 to fit"
-        )
+
+
+class _Quiet:
+    """The logger of a rank other than 0 over a mesh: it writes nothing."""
+
+    def log(self, *a, **k):
+        pass
+
+    log_hyperparams = close = log
 
 
 def copy_force(cfg, step: int) -> bool | None:
@@ -270,40 +278,62 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     ids and copy-forcing flag, the store builds' and refreshes' times, and
     the objects the run made. The resolved config goes to
     ``<log_dir>/config_resolved.yaml``; ``logging.teams_webhook`` is told
-    when the run starts and when it raises (`obs.TeamsNotifier`)."""
+    when the run starts and when it raises (`obs.TeamsNotifier`).
+
+    The config's ``mesh`` is built by `parallel.build_mesh`; over it (each
+    rank calls this, under ``torchrun``) the run is the JAX package's mesh
+    fit: the batches split over ``data`` (`device_batch`), the LED encoder
+    sequence-sharded over ``shard`` with ``model.sequence_shard``, the
+    optimizer state ZeRO-sharded, the store built, refreshed and searched
+    over the mesh, the eval loop over the mesh; the logs, the Teams cards
+    and the checkpoint files are rank 0's. ``report`` then also holds the
+    ``mesh``, and each step's ``collectives`` (calls, bytes this rank
+    received)."""
     from .obs import MetricsLogger, TeamsNotifier
+    from .parallel import build_mesh
+    from .parallel.collectives import STATS
     from .train.trainer import TrainState, make_train_step, refresh_store
     from .utils.checkpoint import load_train_state, mark_best, save_train_state
     from .utils.config import save_config
 
     check_fit_config(cfg)
-    dev = resolve_device(device)
+    mesh = build_mesh(cfg, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0  # the rank that logs and writes
     dm, tok = build_data(cfg)
     params = build_params(cfg, dev)
-    tx = build_tx(cfg, params)
+    tx = build_tx(cfg, params, mesh)
     state = TrainState.create(params, tx)
     start_step = 0
     if cfg.ckpt_dir and os.path.exists(os.path.join(cfg.ckpt_dir, "latest.json")):
         state, start_step = load_train_state(cfg.ckpt_dir, state, tx)
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
     dtype = compute_dtype(cfg)
     t0 = time.perf_counter()
     # built from the current (possibly resumed) weights, as the reference
-    store = None if cfg.model.mips_disabled else build_store(state.params, cfg, dm, dev)
+    store = (None if cfg.model.mips_disabled
+             else build_store(state.params, cfg, dm, dev, mesh))
     _sync(dev)
     rep = report if report is not None else {}
     rep.update(store_s=time.perf_counter() - t0, step_s=[], phase_s=[], losses=[],
-               refresh_s=[], retrieved=[], copy_force=[])
+               refresh_s=[], retrieved=[], copy_force=[], collectives=[], mesh=mesh)
+    split = mesh is not None and mesh.splits_batch(cfg.data.batch_size)
     step_fn = make_train_step(cfg.model, tx, cfg.train, dtype=dtype,
                               remat=cfg.train.remat,
                               phase_times=rep["phase_s"] if report is not None else None,
-                              retrieved=rep["retrieved"] if report is not None else None)
+                              retrieved=rep["retrieved"] if report is not None else None,
+                              mesh=mesh, data_sharded=split)
 
-    log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name,
-                        tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
-    log.log_hyperparams(dataclasses.asdict(cfg))
-    save_config(cfg, os.path.join(cfg.logging.log_dir, "config_resolved.yaml"))
-    teams = TeamsNotifier(cfg.logging.teams_webhook, cfg.logging.run_name)
+    if lead:
+        log = MetricsLogger(cfg.logging.log_dir, cfg.logging.run_name,
+                            tensorboard=cfg.logging.tensorboard, mlflow=cfg.logging.mlflow)
+        log.log_hyperparams(dataclasses.asdict(cfg))
+        save_config(cfg, os.path.join(cfg.logging.log_dir, "config_resolved.yaml"))
+    else:
+        log = _Quiet()
+    teams = TeamsNotifier(cfg.logging.teams_webhook if lead else None,
+                          cfg.logging.run_name)
     teams.on_fit_start()
     step, metrics, best_rouge1 = start_step, {}, -1.0
     # a resumed run starts "saved" at start_step
@@ -325,37 +355,40 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                     t0 = time.perf_counter()
                     store = refresh_store(state.params, cfg.model, store,
                                           index_cfg=cfg.index, dtype=dtype,
-                                          seed=cfg.seed)
+                                          seed=cfg.seed, mesh=mesh)
                     _sync(dev)
                     rep["refresh_s"].append(time.perf_counter() - t0)
-                dbatch = device_batch(batch, cfg, dev)
+                dbatch = device_batch(batch, cfg, dev, mesh)
                 force = copy_force(cfg, step)
                 rep["copy_force"].append(force)
-                t0 = time.perf_counter()
+                t0, received, calls = time.perf_counter(), STATS["bytes"], STATS["calls"]
                 state, metrics = step_fn(state, store, dbatch, force)
                 loss = float(metrics["loss"])  # waits for the device
                 sec = time.perf_counter() - t0
                 rep["step_s"].append(sec)
                 rep["losses"].append(loss)
+                rep["collectives"].append((STATS["calls"] - calls, STATS["bytes"] - received))
                 metrics["steps_per_s"] = 1.0 / max(sec, 1e-9)
-                metrics["tokens_per_s"] = dbatch["input_ids"].numel() / max(sec, 1e-9)
+                metrics["tokens_per_s"] = np.asarray(batch["input_ids"]).size / max(sec, 1e-9)
                 log.log(step, metrics)
                 step += 1
                 if cfg.ckpt_dir and cfg.train.save_every and step % cfg.train.save_every == 0:
-                    save_train_state(cfg.ckpt_dir, state, tx, step)
+                    save_train_state(cfg.ckpt_dir, state, tx, step, mesh=mesh)
                     last_saved = step
                 if cfg.eval_every and step % cfg.eval_every == 0:
                     ev = run_eval_loop(cfg, state.params, store, dm, tok,
-                                       max_batches=cfg.eval_max_batches, device=dev)
+                                       max_batches=cfg.eval_max_batches, device=dev,
+                                       mesh=mesh)
                     log.log(step, ev, prefix="val_")
                     # keep the checkpoint of the best rouge1
                     if cfg.ckpt_dir and ev.get("rouge1", 0) > best_rouge1:
                         best_rouge1 = ev["rouge1"]
-                        path = save_train_state(cfg.ckpt_dir, state, tx, step)
-                        mark_best(cfg.ckpt_dir, step, path, best_rouge1)
+                        path = save_train_state(cfg.ckpt_dir, state, tx, step, mesh=mesh)
+                        if lead:
+                            mark_best(cfg.ckpt_dir, step, path, best_rouge1)
                         last_saved = step
         if cfg.ckpt_dir and last_saved != step:
-            save_train_state(cfg.ckpt_dir, state, tx, step)
+            save_train_state(cfg.ckpt_dir, state, tx, step, mesh=mesh)
     except BaseException as e:  # noqa: BLE001
         teams.on_exception(e)
         raise
@@ -981,11 +1014,6 @@ def main(argv=None) -> int:
     elif args.command in ("validate", "test"):
         split = "val" if args.command == "validate" else "test"
         out = run_validate(cfg, split, index_dir=args.index, device=args.device)
-        if torch.distributed.is_initialized():  # a mesh: rank 0 prints the result
-            rank = torch.distributed.get_rank()
-            torch.distributed.destroy_process_group()
-            if rank:
-                return 0
     elif args.command == "pretrain-retriever":
         run = {"train": run_pretrain_retriever, "test": run_pretrain_retriever_test,
                "predict": run_pretrain_retriever_predict}[args.mode]
@@ -998,6 +1026,11 @@ def main(argv=None) -> int:
         out = run_export(cfg, args.out, index_dir=args.index, device=args.device)
     else:
         out = run_predict(cfg, index_dir=args.index, device=args.device)
+    if torch.distributed.is_initialized():  # a mesh: rank 0 prints the result
+        rank = torch.distributed.get_rank()
+        torch.distributed.destroy_process_group()
+        if rank:
+            return 0
     print(json.dumps(out, default=str)[:2000])
     return 0
 

@@ -419,11 +419,12 @@ def rag_decode(
 
 def rag_forward(params: RAG, cfg: RAGConfig, store: MemoryStore | None,
                 batch: dict[str, Any], *, dtype=torch.float32,
-                remat: bool | str = False, copy_force=None):
+                remat: bool | str = False, copy_force=None, mesh=None,
+                data_sharded: bool = False):
     """The full teacher-forced forward, with gradients → (out, aux,
-    enc_out)."""
+    enc_out); ``mesh`` and ``data_sharded`` as in `rag_encode`."""
     enc_out = rag_encode(params, cfg, store, batch, dtype=dtype, remat=remat,
-                         copy_force=copy_force)
+                         copy_force=copy_force, mesh=mesh, data_sharded=data_sharded)
     out, aux, _ = rag_decode(params, cfg, enc_out, batch["decoder_input_ids"],
                              dtype=dtype, remat=remat)
     return out, aux, enc_out

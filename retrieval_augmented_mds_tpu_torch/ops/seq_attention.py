@@ -1,4 +1,4 @@
-"""Sequence-sharded sliding-window + global attention (forward).
+"""Sequence-sharded sliding-window + global attention, with its gradient.
 
 Counterpart of ``retrieval_augmented_mds_tpu/ops/seq_attention.py``: the
 same semantics as `sliding_attention.sliding_global_attention`, with the
@@ -27,6 +27,17 @@ tokens split over the mesh's ``shard`` axis. Each shard rank s holds the
 
 Padded rows come out zero, fully masked rows uniform over their 3w + G
 columns, as on one device.
+
+Under autograd every exchange above carries its gradient back
+(`parallel.collectives`: the transpose of each collective): the halo
+edges' gradients return to the neighbours that own them, the globals'
+rows' to their owners, the flash-softmax sums' to every rank that added
+to them; the maxima carry none (a stop-gradient shift, as the JAX
+package's). Each rank's extended block runs the backward of
+`sliding_local_rows` (kernel K3 on the card), its w dummy query rows on
+each side with a zero cotangent. A rank's output is its own block (its
+part of the sum the loss takes), so each rank's parameter gradients are
+its block's share, summed over ``shard`` by the caller.
 """
 
 from __future__ import annotations
@@ -105,7 +116,7 @@ def sliding_global_attention_seqsharded(
     pad_bias = torch.where(padding_mask[:, off:off + tl] > 0, zero, neg)  # [B, Tl]
     logit = (torch.matmul(qg.float(), kgf.float().transpose(-1, -2)) * _scale(dh)
              + pad_bias[:, None, None, :])  # [B, nh, G, Tl]
-    m_l = logit.amax(dim=-1)
+    m_l = logit.amax(dim=-1).detach()  # a shift only: no gradient (stop_gradient)
     p_l = torch.exp(logit - m_l[..., None])
     m_g = all_reduce(m_l, mesh.shard_group, op="max")
     corr = torch.exp(m_l - m_g)

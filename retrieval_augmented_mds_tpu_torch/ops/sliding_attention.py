@@ -138,7 +138,11 @@ def attention_fn(seq_mesh):
 
 def gather_seq(x: torch.Tensor, seq_mesh) -> torch.Tensor:
     """Every rank's block [B, T/S, H], concatenated along T over the
-    ``shard`` group (``x`` itself without a mesh)."""
+    ``shard`` group (``x`` itself without a mesh). Its backward sums every
+    rank's cotangent of a block into that block's owner (the transpose of
+    the gather): the work after it is replicated over ``shard``, so a
+    caller's loss takes it once over the group, each rank's loss holding
+    1/S of it (the mesh's train step)."""
     if seq_mesh is None:
         return x
     from ..parallel.collectives import gather_cat

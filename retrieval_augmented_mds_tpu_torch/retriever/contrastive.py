@@ -101,18 +101,31 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def contrastive_loss(params: Retriever, cfg: RetrieverConfig, batch: dict[str, Any], *,
-                     dtype=torch.float32, gather_axis: str | None = None):
+                     dtype=torch.float32, gather_axis: str | None = None, mesh=None):
     """InfoNCE (+ BOW) → (loss, metrics): ``sentence_loss``, ``token_loss``
     (with ``token_loss``), ``train_accuracy`` (the in-batch top-1 of the
     normalised scores, the first index on ties) and ``loss``, as 0-d
-    tensors, the metrics detached."""
-    if gather_axis is not None:
-        raise NotImplementedError(
-            f"gather_axis={gather_axis!r}: negatives gathered over several devices are not "
-            "ported (ROADMAP queue 1, item 9); the port trains the retriever on one device")
+    tensors, the metrics detached.
+
+    ``gather_axis="data"`` with a ``mesh`` (this rank holding its rows of
+    the batch): the mips embeddings of every data rank are all-gathered,
+    with their gradient, as the global in-batch negatives, and this rank's
+    targets are offset by its position (the JAX package's ``all_gather``
+    over the axis). The loss and metrics are this rank's rows'; their mean
+    over ``data`` is the global batch's."""
     q, m = retriever_forward(params, cfg, batch, dtype=dtype)
-    scores = (q @ m.T) / cfg.temperature
-    target = torch.arange(q.shape[0], device=q.device)
+    offset = 0
+    m_all = m
+    if gather_axis is not None:
+        if gather_axis != "data" or mesh is None:
+            raise ValueError(f"gather_axis={gather_axis!r} needs the mesh's 'data' axis "
+                             "and the mesh")
+        from ..parallel.collectives import gather_cat
+
+        m_all = gather_cat(m, mesh.data_group)
+        offset = mesh.d * q.shape[0]
+    scores = (q @ m_all.T) / cfg.temperature
+    target = torch.arange(q.shape[0], device=q.device) + offset
     loss = F.cross_entropy(scores, target)
     metrics: dict[str, torch.Tensor] = {"sentence_loss": loss.detach()}
     if cfg.token_loss:
@@ -124,7 +137,7 @@ def contrastive_loss(params: Retriever, cfg: RetrieverConfig, batch: dict[str, A
         metrics["token_loss"] = (ql + ml).detach()
         loss = loss + ql + ml
     with torch.no_grad():
-        hit = (_normalize(q) @ _normalize(m).T).argmax(-1) == target
+        hit = (_normalize(q) @ _normalize(m_all).T).argmax(-1) == target
         metrics["train_accuracy"] = hit.float().mean()
     metrics["loss"] = loss.detach()
     return loss, metrics

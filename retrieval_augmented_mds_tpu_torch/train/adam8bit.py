@@ -26,6 +26,14 @@ package's formula, which is not the bf16-mu optimizer's clip).
 
 State per parameter: 2 bytes of codes plus 16 bytes of columns per block
 (~2.1 B), against 6 B for bf16 mu + f32 nu.
+
+Over a mesh with a ``data`` size D > 1 (ZeRO, as the JAX package's
+``adamw8bit(mesh=)``), NB is padded to a multiple of D and data rank d
+keeps rows [d·NB/D, (d+1)·NB/D) of every array; the update runs on those
+rows (K9 on the row shard, its clip from the whole gradient) and the
+update rows are all-gathered over ``data``. The state's shape thus
+depends on D: a state whose NB is not this optimizer's raises, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -163,9 +171,10 @@ class Adam8bitState:
 _ARRAYS = ("mu_q", "mu_scale", "nu_q", "nu_lo", "nu_hi", "nvalid")
 
 
-def init_state(sizes: Sequence[int], device=None) -> Adam8bitState:
-    """Zero moments for leaves of ``sizes`` (in superleaf order)."""
-    sizes, nbs, _, nb = _layout(sizes)
+def init_state(sizes: Sequence[int], device=None, n_shards: int = 1) -> Adam8bitState:
+    """Zero moments for leaves of ``sizes`` (in superleaf order), NB a
+    multiple of ``n_shards``."""
+    sizes, nbs, _, nb = _layout(sizes, n_shards)
     kw = dict(device=device)
     return Adam8bitState(
         count=0,
@@ -187,38 +196,66 @@ class AdamW8bit(AdamW):
 
     def __init__(self, lr, warmup_steps, total_steps, *, weight_decay=0.0,
                  grad_clip=None, frozen_groups: Iterable[str] = (),
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, mesh=None):
         super().__init__(lr, warmup_steps, total_steps, weight_decay=weight_decay,
                          grad_clip=grad_clip, frozen_groups=frozen_groups,
-                         accumulate_steps=accumulate_steps, mu_dtype=None)
+                         accumulate_steps=accumulate_steps, mu_dtype=None, mesh=mesh)
+        self.n_shards = 1 if self.mesh is None else self.mesh.data
 
     def _layout(self, params: nn.Module):
         names = [n for n, _ in params.named_parameters()]
         return names, jax_leaf_order(n for n in names if self.trainable(n))
 
-    def init(self, params: nn.Module) -> Adam8bitState:
+    def _rows(self, nb: int) -> slice:
+        """This data rank's rows of the superleaf."""
+        per = nb // self.n_shards
+        d = 0 if self.mesh is None else self.mesh.d
+        return slice(d * per, (d + 1) * per)
+
+    def _init_full(self, params: nn.Module) -> Adam8bitState:
         names, train = self._layout(params)
         p = dict(params.named_parameters())
         dev = next(iter(p.values())).device
-        state = init_state([p[n].numel() for n in train], dev)
+        state = init_state([p[n].numel() for n in train], dev, self.n_shards)
         if self.accumulate_steps > 1:
             state.acc = torch.zeros(sum(p[n].numel() for n in names), device=dev)
         return state
+
+    def _to_local(self, params, state):
+        names, _ = self._layout(params)
+        rows = self._rows(state.mu_q.shape[0])
+        for k in _ARRAYS:
+            setattr(state, k, getattr(state, k)[rows].contiguous())
+        if state.acc is not None:
+            state.acc = self._part(params, names, state.acc)
+        return state
+
+    def _gathered(self, params, state):
+        names, _ = self._layout(params)
+        whole = {k: self._gather(getattr(state, k), host=True).flatten(0, 1)
+                 for k in _ARRAYS}
+        return dataclasses.replace(
+            state, **whole,
+            acc=None if state.acc is None else self._whole(params, names, state.acc,
+                                                           host=True))
 
     def _inner(self, params, train, grads, state):
         from ..ops.adam8bit_update import adam8bit_superleaf_update
 
         p = dict(params.named_parameters())
         leaves = [p[n] for n in train]
-        _, nbs, _, nb = _layout([x.numel() for x in leaves])
-        if nb != state.mu_q.shape[0]:
-            raise ValueError(f"superleaf row count {nb} != state {state.mu_q.shape[0]} "
-                             "(the parameters changed since init)")
+        _, nbs, nb_real, nb = _layout([x.numel() for x in leaves], self.n_shards)
+        rows = self._rows(nb)
+        if rows.stop - rows.start != state.mu_q.shape[0]:
+            raise ValueError(f"superleaf row count {nb} over {self.n_shards} data ranks "
+                             f"!= state {state.mu_q.shape[0]} rows a rank (the parameters "
+                             "or the mesh changed since init)")
         g2 = _concat_blocks(grads, nb)
         dev = g2.device
         if self.grad_clip:
-            # padding is zero, so this is the tree's global norm
-            norm = torch.linalg.vector_norm(g2)
+            # the tree's global norm, over the rows one device holds (a
+            # mesh's padding rows are zero): the same sum on any mesh
+            norm = torch.linalg.vector_norm(g2[:nb_real])
             clip = torch.clamp(self.grad_clip / torch.clamp(norm, min=1e-30), max=1.0)
         else:
             clip = torch.ones((), device=dev)
@@ -227,10 +264,18 @@ class AdamW8bit(AdamW):
         bc2 = np.float32(1) - np.float32(B2) ** c
         host = torch.tensor([bc1, bc2, self.schedule(state.count)], dtype=torch.float32)
         scal = torch.cat([host.to(dev), clip.reshape(1).float()]).reshape(1, 4)
-        p2 = _concat_blocks(leaves, nb) if self.weight_decay else None
+        p2 = _concat_blocks(leaves, nb)[rows] if self.weight_decay else None
+        g_rows = g2[rows]  # this data rank's rows (all of them on one device)
         upd, mq, ms, nq, nlo, nhi = adam8bit_superleaf_update(
-            g2, state.mu_q, state.mu_scale, state.nu_q, state.nu_lo, state.nu_hi,
-            state.nvalid, p2, scal, b1=B1, b2=B2, eps=EPS, wd=self.weight_decay, out=g2)
+            g_rows, state.mu_q, state.mu_scale, state.nu_q, state.nu_lo, state.nu_hi,
+            state.nvalid, p2, scal, b1=B1, b2=B2, eps=EPS, wd=self.weight_decay, out=g_rows)
+        if self.mesh is not None:  # the other ranks' update rows, into g2's
+            every = self._gather(upd, host=True)
+            per = rows.stop - rows.start
+            for r in range(self.n_shards):
+                if r != self.mesh.d:
+                    g2[r * per:(r + 1) * per].copy_(every[r])
+            upd = g2
         torch._foreach_add_(leaves, _split_updates(upd, [x.shape for x in leaves], nbs))
         state.mu_q, state.mu_scale, state.nu_q = mq, ms, nq
         state.nu_lo, state.nu_hi = nlo, nhi

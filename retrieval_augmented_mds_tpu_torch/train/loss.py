@@ -64,21 +64,33 @@ def label_smoothed_nll_loss_custom(lprobs, target, epsilon, ignore_index=None,
     return (1.0 - epsilon - eps_i) * nll + smooth, nll
 
 
-def label_smoothed_nll_loss_transformers(log_probs, labels, epsilon, ignore_index):
+def label_smoothed_nll_loss_transformers(log_probs, labels, epsilon, ignore_index,
+                                         group=None):
     """HF LabelSmoother semantics on NEGATED log-probs: the smooth term in
-    f32, both terms averaged over the active tokens."""
+    f32, both terms averaged over the active tokens. With a process
+    ``group`` (the mesh's ``data`` group, each member holding its rows of
+    the batch) the active tokens are counted over the group's whole batch,
+    and each member returns its rows' share of that batch's loss: the
+    shares sum to it, weighting every token alike whatever rows a member
+    holds."""
     keep = labels != ignore_index
     nll = _masked(_gather_last(log_probs, labels.clamp(min=0)), keep)
     smooth = _masked(log_probs.float().sum(dim=-1), keep)
-    n_active = keep.sum().clamp(min=1)
+    n_active = keep.sum()
+    if group is not None:
+        from ..parallel.collectives import all_reduce
+
+        n_active = all_reduce(n_active, group)
+    n_active = n_active.clamp(min=1)
     nll = nll.sum() / n_active
     smooth = smooth.sum() / (n_active * log_probs.shape[-1])
     return (1.0 - epsilon) * nll + epsilon * smooth
 
 
-def summarization_loss(log_probs, labels, epsilon, pad_id):
-    """The trainer's loss: real log-probs [B, T, V] in, scalar out."""
+def summarization_loss(log_probs, labels, epsilon, pad_id, group=None):
+    """The trainer's loss: real log-probs [B, T, V] in, scalar out (with a
+    ``group``, this member's share of its whole batch's loss)."""
     v = log_probs.shape[-1]
     return label_smoothed_nll_loss_transformers(
-        -log_probs.reshape(-1, v), labels.reshape(-1), epsilon, pad_id
+        -log_probs.reshape(-1, v), labels.reshape(-1), epsilon, pad_id, group
     )

@@ -20,6 +20,17 @@ the same arithmetic, element for element, in the same order:
 * with ``accumulate_steps`` k > 1 the gradients are averaged (a running
   mean) and the inner update runs on every k-th call only.
 
+Over a mesh (``mesh`` with a ``data`` size D > 1) the state is
+ZeRO-sharded as the JAX package shards it (`parallel.zero`): data rank d
+keeps, for each trainable leaf, ``mu`` and ``nu`` of its part only (slice
+d of D on the leaf's largest axis that D divides, else the whole leaf),
+and so the accumulator's; `update` takes the full gradients, every data
+rank equal (the clip's norm is theirs), updates its parts, and the
+updates are all-gathered over ``data`` before every rank applies them.
+`state_arrays` gathers the state into the single-device layout and
+`load_state_arrays` takes this rank's parts from it, so a checkpoint
+written on one device or over any mesh loads into either.
+
 It does not use ``torch.nn.utils.clip_grad_norm_`` (which adds 1e-6 to
 the norm) or ``torch.optim.AdamW`` (which has no bf16 first moment).
 The parameters are updated IN PLACE. The state keeps ``mu`` and ``nu``
@@ -39,6 +50,8 @@ from typing import Iterable
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.zero import ZeroLayout
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -79,13 +92,16 @@ class AdamW:
 
     def __init__(self, lr, warmup_steps, total_steps, *, weight_decay=0.0,
                  grad_clip=None, frozen_groups: Iterable[str] = (),
-                 accumulate_steps: int = 1, mu_dtype: str | None = "bfloat16"):
+                 accumulate_steps: int = 1, mu_dtype: str | None = "bfloat16",
+                 mesh=None):
         self.schedule = linear_warmup_schedule(lr, warmup_steps, total_steps)
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.frozen = frozenset(frozen_groups)
         self.accumulate_steps = accumulate_steps
         self.mu_dtype = getattr(torch, mu_dtype) if mu_dtype else torch.float32
+        # ZeRO over the mesh's data axis (None: the whole state on every rank)
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
 
     def trainable(self, name: str) -> bool:
         return param_group(name) not in self.frozen
@@ -94,7 +110,58 @@ class AdamW:
         names = [n for n, _ in params.named_parameters()]
         return names, [n for n in names if self.trainable(n)]
 
+    def _zero(self, params: nn.Module, names) -> ZeroLayout:
+        """This data rank's parts of the leaves ``names``."""
+        p = dict(params.named_parameters())
+        return ZeroLayout([p[n].shape for n in names], self.mesh.data, self.mesh.d)
+
+    def _gather(self, x: torch.Tensor, host: bool = False) -> torch.Tensor:
+        """Every data rank's ``x`` (one shape on all), stacked [D, ...]
+        (``host``: see `collectives.gather_stack`)."""
+        from ..parallel.collectives import gather_stack
+
+        if x.dtype == torch.bfloat16:  # moved as its bytes (gloo has no 16-bit ints)
+            return gather_stack(x.view(torch.uint8), self.mesh.data_group, host).view(x.dtype)
+        return gather_stack(x, self.mesh.data_group, host)
+
+    def _whole(self, params, names, local: torch.Tensor, host: bool = False) -> torch.Tensor:
+        """Every data rank's flat parts of ``names`` → the whole leaves,
+        flat in ``names`` order (the single-device layout)."""
+        lay = self._zero(params, names)
+        every = self._gather(local, host)
+        return torch.cat([lay.whole_leaf(every, i).reshape(-1) for i in range(len(names))])
+
+    def _part(self, params, names, flat: torch.Tensor) -> torch.Tensor:
+        """The single-device flat buffer of ``names`` → this rank's parts."""
+        p = dict(params.named_parameters())
+        offs = _offsets(params, names)
+        leaves = [flat[slice(*offs[n])].view(p[n].shape) for n in names]
+        return self._zero(params, names).local(leaves).to(flat.dtype)
+
     def init(self, params: nn.Module) -> OptState:
+        full = self._init_full(params)
+        return full if self.mesh is None else self._to_local(params, full)
+
+    def _to_local(self, params: nn.Module, state):
+        """A whole state → this data rank's parts of it."""
+        names, train = self._layout(params)
+        state.mu = self._part(params, train, state.mu)
+        state.nu = self._part(params, train, state.nu)
+        if state.acc is not None:
+            state.acc = self._part(params, names, state.acc)
+        return state
+
+    def _gathered(self, params: nn.Module, state):
+        """Every data rank's parts of ``state`` → the whole state (a copy,
+        on the host when gloo stages the gathers there)."""
+        names, train = self._layout(params)
+        return dataclasses.replace(
+            state, mu=self._whole(params, train, state.mu, host=True),
+            nu=self._whole(params, train, state.nu, host=True),
+            acc=None if state.acc is None else self._whole(params, names, state.acc,
+                                                           host=True))
+
+    def _init_full(self, params: nn.Module) -> OptState:
         names, train = self._layout(params)
         p = dict(params.named_parameters())
         dev = next(iter(p.values())).device
@@ -117,22 +184,35 @@ class AdamW:
         if self.accumulate_steps <= 1:
             self._inner(params, train, [grads[n] for n in train], state)
             return state
-        flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+        if self.mesh is None:
+            flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+        else:
+            flat = self._zero(params, names).local([grads[n] for n in names])
         state.acc += (flat - state.acc) / (state.mini_step + 1)
         emit = state.mini_step == self.accumulate_steps - 1
         state.mini_step = (state.mini_step + 1) % self.accumulate_steps
         if emit:
-            offs = _offsets(params, names)
-            self._inner(params, train, [state.acc[slice(*offs[n])] for n in train], state)
+            acc = state.acc if self.mesh is None else self._whole(params, names, state.acc)
+            offs, p = _offsets(params, names), dict(params.named_parameters())
+            self._inner(params, train, [acc[slice(*offs[n])].view(p[n].shape) for n in train],
+                        state)
             state.acc.zero_()
         return state
 
     def _inner(self, params, train, grads, state):
-        """One inner update from ``grads``, the trainable leaves' gradients
-        (in ``train`` order)."""
-        g = torch.cat([x.reshape(-1).float() for x in grads])
+        """One inner update from ``grads``, the trainable leaves' whole
+        gradients (in ``train`` order)."""
+        p = dict(params.named_parameters())
+        if self.mesh is None:
+            g = torch.cat([x.reshape(-1).float() for x in grads])
+            if self.grad_clip:
+                norm = torch.sqrt((g * g).sum())
+        else:
+            if self.grad_clip:  # the whole gradient's, as one device sums it
+                norm = _flat_norm(grads)
+            lay = self._zero(params, train)
+            g = lay.local(grads)
         if self.grad_clip:
-            norm = torch.sqrt((g * g).sum())
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
         # as the reference's jitted update computes it: b1 rounded to mu's
         # dtype (JAX's weak typing), b1 * mu in f32 (XLA keeps the excess
@@ -144,16 +224,23 @@ class AdamW:
         bc1 = np.float32(1) - np.float32(B1) ** np.float32(count)
         bc2 = np.float32(1) - np.float32(B2) ** np.float32(count)
         u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + EPS)
-        p = dict(params.named_parameters())
         if self.weight_decay:
-            u = u + self.weight_decay * torch.cat([p[n].reshape(-1) for n in train])
+            u = u + self.weight_decay * (
+                torch.cat([p[n].reshape(-1) for n in train]) if self.mesh is None
+                else lay.local([p[n] for n in train]))
         u = u * float(-self.schedule(state.count))
-        views, off = [], 0
-        for n in train:
-            views.append(u[off:off + p[n].numel()].view_as(p[n]))
-            off += p[n].numel()
-        torch._foreach_add_([p[n] for n in train], views)
         state.mu, state.nu, state.count = mu.to(self.mu_dtype), nu, count
+        if self.mesh is None:
+            views, off = [], 0
+            for n in train:
+                views.append(u[off:off + p[n].numel()].view_as(p[n]))
+                off += p[n].numel()
+            torch._foreach_add_([p[n] for n in train], views)
+        else:  # every data rank's parts of the update, joined leaf by leaf
+            every = self._gather(u, host=True)
+            del g, u, mu, nu  # the optimizer's temporaries, before the leaves
+            for i, n in enumerate(train):
+                p[n].add_(lay.whole_leaf(every, i).to(p[n].device))
 
     # -- optax's state layout, for checkpoints ------------------------------
 
@@ -191,8 +278,11 @@ class AdamW:
         state.nu = _cat(flat, chain + "0/.nu/{}", train, state.nu.device)
 
     def state_arrays(self, params: nn.Module, state) -> dict[str, np.ndarray]:
-        """``state`` as optax's flattened key paths (``/``-joined) → arrays."""
+        """``state`` as optax's flattened key paths (``/``-joined) → arrays
+        (over a mesh, gathered: every data rank must call it)."""
         names, train = self._layout(params)
+        if self.mesh is not None:
+            state = self._gathered(params, state)
         out = self._inner_arrays(params, train, state)
         if state.acc is not None:
             out[".opt_state/.mini_step"] = np.int32(state.mini_step)
@@ -206,14 +296,22 @@ class AdamW:
         return out
 
     def load_state_arrays(self, params: nn.Module, flat: dict):
-        """The inverse of `state_arrays` (arrays may be numpy or torch)."""
+        """The inverse of `state_arrays` (arrays may be numpy or torch;
+        over a mesh, this data rank's parts of them)."""
         names, train = self._layout(params)
-        state = self.init(params)
+        state = self._init_full(params)
         self._load_inner(params, train, flat, state)
         if state.acc is not None:
             state.mini_step = int(flat[".opt_state/.mini_step"])
             state.acc = _cat(flat, ".opt_state/.acc_grads/{}", names, state.acc.device)
-        return state
+        return state if self.mesh is None else self._to_local(params, state)
+
+
+def _flat_norm(tensors) -> torch.Tensor:
+    """The global norm of ``tensors`` as the one-device update takes it
+    (over their f32 concatenation), the concatenation freed on return."""
+    g = torch.cat([x.reshape(-1).float() for x in tensors])
+    return torch.sqrt((g * g).sum())
 
 
 def _cat(flat: dict, key: str, names, device) -> torch.Tensor:
@@ -245,12 +343,14 @@ def build_optimizer(
     accumulate_steps: int = 1,
     mu_dtype: str | None = "bfloat16",
     state_8bit: bool = False,
+    mesh=None,
 ) -> AdamW:
     """The reference's `build_optimizer` knobs. ``state_8bit`` returns the
     blockwise 8-bit AdamW of `train.adam8bit` (``mu_dtype`` is then
-    unused), whose update is kernel K9 on the card."""
+    unused), whose update is kernel K9 on the card. Over a ``mesh`` with a
+    ``data`` size above 1, the state is ZeRO-sharded over ``data``."""
     kw = dict(weight_decay=weight_decay, grad_clip=grad_clip,
-              frozen_groups=frozen_groups, accumulate_steps=accumulate_steps)
+              frozen_groups=frozen_groups, accumulate_steps=accumulate_steps, mesh=mesh)
     if state_8bit:
         from .adam8bit import AdamW8bit
 

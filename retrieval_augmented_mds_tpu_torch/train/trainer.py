@@ -8,7 +8,12 @@ Counterpart of ``retrieval_augmented_mds_tpu/train/trainer.py``:
   (`train.optimizer.AdamW`). The step returns the reference's metric
   names. Where the reference returns a new state, the port updates the
   parameters and the optimizer state in place and returns the same
-  `TrainState`.
+  `TrainState`. Over a mesh (`parallel.mesh`, one process per position)
+  each rank runs its rows of the batch, the LED encoder sequence-sharded
+  with ``sequence_shard``; its loss is its share of the global batch's
+  (the tokens counted over ``data``, the work replicated over ``shard``
+  taken 1/S a rank), so every gradient summed over all the ranks is the
+  global one, and the metrics are the global batch's.
 * `make_retriever_train_step`: the retriever's contrastive step
   (`retriever.contrastive.contrastive_loss` with gradients, then one
   optimizer update), in f32 as the JAX package runs it.
@@ -34,6 +39,7 @@ from ..index.ivf import IVFIndex
 from ..models.core import remat_context
 from ..models.longformer import longformer_encode
 from ..models.retriever_generator import MemoryStore, RAGConfig, rag_forward
+from ..parallel.collectives import all_reduce, all_reduce_grads
 from .loss import summarization_loss
 from .optimizer import AdamW, OptState, param_group
 
@@ -64,33 +70,51 @@ def make_train_step(
     remat: bool | str = False,
     phase_times: list[dict[str, float]] | None = None,
     retrieved: list[torch.Tensor] | None = None,
+    mesh=None,
+    data_sharded: bool | None = None,
 ) -> Callable:
     """Returns ``train_step(state, store, batch, copy_force=None) →
     (state, metrics)``, metrics as 0-d tensors; ``copy_force`` is the
     step's copy-forcing flag under ``target_in`` (`rag_encode`). With
     ``phase_times``, each step synchronises the device between its phases
-    and appends ``{"forward", "backward", "optimizer"}`` wall seconds to the
-    list. With ``retrieved``, each step that searches the store appends its
-    retrieved row ids [B, k] (on the device) to that list."""
+    and appends ``{"forward", "backward", "optimizer"}`` wall seconds (and
+    over a mesh ``"reduce"``, the gradients' all_reduce) to the list. With
+    ``retrieved``, each step that searches the store appends its retrieved
+    row ids [B, k] (on the device) to that list.
+
+    Over a ``mesh``, ``batch`` is this rank's rows of the global batch
+    (`cli.device_batch`) when ``data_sharded`` (default: the mesh has a
+    ``data`` size above 1), else the whole batch on every rank. The
+    gradients are summed over every rank (`collectives.all_reduce_grads`)
+    before the clip; ``tx`` is the optimizer built over the same mesh."""
     remat_context(remat)  # an unsupported policy raises here, not mid-step
+    split = mesh is not None and mesh.data > 1 and data_sharded is not False
+    # this rank's share of the loss: work replicated over a group counts
+    # once over it
+    share = 1.0 if mesh is None else 1.0 / (mesh.shard * (1 if split else mesh.data))
 
     def loss_fn(params, store, batch, copy_force):
         out, aux, enc_out = rag_forward(params, cfg, store, batch, dtype=dtype,
-                                        remat=remat, copy_force=copy_force)
+                                        remat=remat, copy_force=copy_force, mesh=mesh,
+                                        data_sharded=split)
         if cfg.mips_disabled or enc_out.memory is None:
             log_probs = torch.log_softmax(out, dim=-1)
         else:
             log_probs = out
         loss = summarization_loss(log_probs, batch["labels"],
-                                  hyper.label_smoothing_eps, cfg.led.pad_id)
+                                  hyper.label_smoothing_eps, cfg.led.pad_id,
+                                  group=mesh.data_group if split else None)
         metrics: dict[str, Any] = {"loss": loss.detach()}
         if retrieved is not None and enc_out.retrieved_idx is not None:
             retrieved.append(enc_out.retrieved_idx.detach())
         with torch.no_grad():
             if aux.get("copy_gate") is not None:
                 mask = (batch["labels"] != cfg.led.pad_id)[..., None]
-                metrics["copy_gate_mean"] = ((aux["copy_gate"] * mask).sum()
-                                             / mask.sum().clamp(min=1))
+                gate, count = (aux["copy_gate"] * mask).sum(), mask.sum()
+                if split:  # a ratio over the global batch
+                    gate, count = all_reduce(torch.stack([gate, count.to(gate.dtype)]),
+                                             mesh.data_group)
+                metrics["copy_gate_mean"] = gate / count.clamp(min=1)
                 metrics["copy_probs_mass"] = aux["copy_probs"].sum(-1).mean()
             if enc_out.mips_scores is not None:
                 metrics["mips_score_mean"] = enc_out.mips_scores.mean()
@@ -103,6 +127,14 @@ def make_train_step(
                 counts = batch.get("aid_counts", torch.ones_like(batch["gold_aid"]))
                 rm = retriever_metrics_fixed(hits, counts)
                 metrics.update({f"retriever_{k}": v for k, v in rm.items()})
+            if split:
+                # the loss shares sum to the global loss; the other metrics
+                # are means over equal shares of the global batch
+                names = [k for k in metrics if k != "copy_gate_mean"]
+                tot = all_reduce(torch.stack([metrics[k].float() for k in names]),
+                                 mesh.data_group)
+                for i, k in enumerate(names):
+                    metrics[k] = tot[i] if k == "loss" else tot[i] / mesh.data
         return loss, metrics
 
     def mark(times: dict, name: str, t0: float, device) -> float:
@@ -120,10 +152,14 @@ def make_train_step(
         loss, metrics = loss_fn(params, store, batch, copy_force)
         if phase_times is not None:
             t0 = mark(times, "forward", t0, device)
-        grads = _backward_grads(params, loss)
+        grads = _backward_grads(params, loss if mesh is None else loss * share)
         named = list(params.named_parameters())
         if phase_times is not None:
             t0 = mark(times, "backward", t0, device)
+        if mesh is not None:
+            all_reduce_grads(list(grads.values()))
+            if phase_times is not None:
+                t0 = mark(times, "reduce", t0, device)
         with torch.no_grad():
             metrics["grad_norm"] = _global_norm(grads.values())
             if hyper.grad_group_norms:
@@ -153,17 +189,30 @@ def _backward_grads(params, loss) -> dict[str, torch.Tensor]:
     return grads
 
 
-def make_retriever_train_step(cfg, tx: AdamW) -> Callable:
+def make_retriever_train_step(cfg, tx: AdamW, *, gather_axis: str | None = None,
+                              mesh=None) -> Callable:
     """Returns ``step(state, batch) → (state, metrics)``: the contrastive
     loss in f32 with autograd (the token table gets gradient through the
     encoder and, with ``token_loss``, through the tied BOW logits), then
     one update of ``tx``. Metrics are `contrastive_loss`'s, as 0-d
-    tensors."""
+    tensors. With ``gather_axis="data"`` and a ``mesh`` (``batch`` this
+    rank's rows): the negatives are gathered over ``data``, the loss is
+    the mean over the data ranks of theirs (each rank's gradient 1/D of
+    its own, summed over every rank), and the metrics are those means."""
     from ..retriever.contrastive import contrastive_loss
 
     def step(state: TrainState, batch):
-        loss, metrics = contrastive_loss(state.params, cfg, batch)
-        tx.update(state.params, _backward_grads(state.params, loss), state.opt_state)
+        loss, metrics = contrastive_loss(state.params, cfg, batch, gather_axis=gather_axis,
+                                         mesh=mesh)
+        if gather_axis is None:
+            grads = _backward_grads(state.params, loss)
+        else:
+            grads = _backward_grads(state.params, loss / (mesh.data * mesh.shard))
+            all_reduce_grads(list(grads.values()))
+            names = sorted(metrics)
+            tot = all_reduce(torch.stack([metrics[k] for k in names]), mesh.data_group)
+            metrics = {k: tot[i] / mesh.data for i, k in enumerate(names)}
+        tx.update(state.params, grads, state.opt_state)
         state.step += 1
         return state, metrics
 
@@ -267,18 +316,22 @@ def refresh_store(
     batch_size: int = 64,
     dtype=torch.float32,
     seed: int = 0,
+    mesh=None,
 ) -> MemoryStore:
     """Re-embed the corpus under the CURRENT mips encoder and return a new
     store (the caller swaps it in); ``index_cfg`` pins the factory knobs,
     else they are recovered from ``store``. Same path as the first build,
     so a refresh under equal weights equals a fresh build. The store's
-    ``nprobe`` is kept."""
+    ``nprobe`` is kept. Over a ``mesh``, the corpus is embedded
+    data-parallel and the new index placed sharded, as the first build
+    (`build_memory_store`; ``index_cfg`` is then needed, a sharded store
+    not recording its factory)."""
     n = store.index.n
     new = build_memory_store(
         params, cfg, index_cfg or _index_cfg_from_store(store),
         token_ids=store.token_ids[:n], token_mask=store.token_mask[:n],
         row_aids=store.row_aids, seed=seed, compute_dtype=dtype,
-        batch_size=batch_size,
+        batch_size=batch_size, mesh=mesh,
     )
     return MemoryStore(index=new.index, token_ids=store.token_ids,
                        token_mask=store.token_mask, row_aids=store.row_aids,

@@ -7,7 +7,10 @@ leaves stored as their uint16 bits and listed under ``__bf16_keys__``,
 the 8-bit optimizer's int8/uint8 codes stored and loaded as such;
 ``latest.json`` points at the newest save and ``best.json`` marks the
 checkpoint to keep. A checkpoint written by either package loads in the
-other when both build the same optimizer. `export_encoders` /
+other when both build the same optimizer. Over a mesh the optimizer's
+state is gathered into the single-device layout, rank 0 writes the file,
+and every rank loads it and keeps its own part, so a checkpoint moves
+between one device and any mesh. `export_encoders` /
 `import_encoders` write and read the retriever's ``encoders.npz`` (the
 query and mips encoder groups) in the same layout.
 """
@@ -79,13 +82,19 @@ def load_params(params: torch.nn.Module, flat: dict) -> None:
         p.copy_(arr.to(p.dtype))
 
 
-def save_train_state(ckpt_dir: str, state, tx, step: int, keep: int = 1) -> str:
+def save_train_state(ckpt_dir: str, state, tx, step: int, keep: int = 1,
+                     mesh=None) -> str:
     """Write ``ckpt_dir/step_<N>.npz``, point ``latest.json`` at it and
     prune all but the newest ``keep`` saves (never the one ``best.json``
-    marks)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    marks). Over a ``mesh`` every rank calls this (the state is gathered),
+    rank 0 writes, and every rank returns once the files are there."""
     path = os.path.join(ckpt_dir, f"step_{step}.npz")
-    save_arrays(path, state_arrays(state, tx))
+    flat = state_arrays(state, tx)
+    if mesh is not None and mesh.rank != 0:
+        torch.distributed.barrier()
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_arrays(path, flat)
     with open(os.path.join(ckpt_dir, "latest.json"), "w") as f:
         json.dump({"step": step, "path": path}, f)
     protected = set()
@@ -99,6 +108,8 @@ def save_train_state(ckpt_dir: str, state, tx, step: int, keep: int = 1) -> str:
     )
     for old in existing[:-keep]:
         os.remove(os.path.join(ckpt_dir, old))
+    if mesh is not None:
+        torch.distributed.barrier()
     return path
 
 
@@ -123,7 +134,8 @@ def checkpoint_path(ckpt_dir: str, prefer: str = "latest") -> str:
 
 def load_train_state(ckpt_dir: str, state, tx, prefer: str = "latest"):
     """Load a save (as `checkpoint_path` picks it) into ``state`` in place
-    → (state, step)."""
+    → (state, step); over a mesh (``tx`` built over it) each rank keeps its
+    part of the optimizer state."""
     meta = _meta(ckpt_dir, prefer)
     flat = load_arrays(meta["path"])
     load_params(state.params, flat)

@@ -1,10 +1,11 @@
 """`fit` of the port on the CPU: the settings it refuses, and the run
 record it writes.
 
-A config that asks for a part of the reference's `fit` that the port does
-not have yet (a mesh of several devices) raises before any work, naming
-the ROADMAP queue that ports it, instead of training the RAG model on one
-device without a word. A baseline config goes to `run_fit_baseline`, and
+A config whose mesh the world cannot form (a (2, 2) mesh in a world of
+one process) raises before any work, naming the ``torchrun`` command that
+forms it, instead of training on one device without a word; a mesh with
+one axis given runs on one device, as the JAX package's `build_mesh`
+rules. A baseline config goes to `run_fit_baseline`, and
 `run_fit` itself refuses one. `fit` writes the resolved config beside its
 metrics, as the reference's does.
 """
@@ -64,19 +65,22 @@ def test_fit_refuses_a_baseline_config(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mesh,refused", [
-    ({"data": 2}, True), ({"shard": 4}, True), ({"data": 2, "shard": 2}, True),
+    ({"data": 2}, False), ({"shard": 4}, False), ({"data": 2, "shard": 2}, True),
     ({"data": 1, "shard": 1}, False), ({"data": 0}, False), ({}, False),
 ])
 def test_fit_refuses_a_mesh_of_several_devices(tmp_path, mesh, refused):
-    """mesh.data or mesh.shard above 1 raises; 0, 1 or unset is the one
-    device the port trains on."""
+    """In a world of one process: a mesh of both axes that needs several
+    raises (`fit` over a mesh runs under ``torchrun``,
+    tests/test_torch_mesh_fit.py), before any file is written; one axis
+    given, 0, 1 or unset is the one device `build_mesh` leaves, and
+    `check_fit_config` refuses none of them."""
     cfg = config_from_dict(_tiny(tmp_path, mesh=mesh))
     assert cfg.mesh == MeshConfig(**mesh)
+    cli.check_fit_config(cfg)
     if refused:
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
             cli.run_fit(cfg, device="cpu")
-    else:
-        cli.check_fit_config(cfg)
+        assert not (tmp_path / "runs").exists()
 
 
 def test_fit_refuses_a_teams_webhook(tmp_path, capsys):

@@ -855,6 +855,44 @@ def test_f32_sliding_backward_on_tensor_cores(gen, t, w, g, dh, model_do):
     _sliding_backward_case(gen, t, w, dh, model_do, torch.float32, g=g)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [0, 1])
+def test_sliding_backward_on_a_ranks_extended_block(gen, dtype, s):
+    """K3 as the sequence-sharded encoder runs it on shard rank s of 2: the
+    rank's 256 rows of a 512-token sequence extended by its neighbours' w =
+    64 K/V rows (zeros and a -1e9 bias past the sequence) and w dummy query
+    rows on each side, whose cotangent is zero, beside the model's zero dO
+    on padded and global rows: each gradient within the kernel tests'
+    tolerance of the plain backward from the same m, l, delta; dq = 0
+    exactly on the dummy rows; a bit-equal rerun."""
+    import torch.nn.functional as F
+
+    t, w, tl, dh = 512, 64, 256, 64
+    args, padded, is_global = _led_inputs(gen, t, dh, w, dtype=dtype)
+    q, k, v, key_bias, kg, vg, g_bias = args
+    off = s * tl
+    kp, vp = (F.pad(x, (0, 0, w, w)) for x in (k, v))
+    ext = (F.pad(q[:, :, off:off + tl], (0, 0, w, w)).contiguous(),
+           kp[:, :, off:off + tl + 2 * w].contiguous(),
+           vp[:, :, off:off + tl + 2 * w].contiguous(),
+           F.pad(key_bias, (w, w), value=-1e9)[:, off:off + tl + 2 * w].contiguous(),
+           kg, vg, g_bias)
+    out, m, l = flash_sliding_attention(*ext, window=w, return_stats=True)
+    dead = F.pad((padded | is_global).int(), (w, w), value=1)[:, off:off + tl + 2 * w].bool()
+    dead[:, :w] = dead[:, w + tl:] = True  # the dummy rows
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    do = do.masked_fill(dead[:, None, :, None], 0.0)
+    bwd = (*ext, do, m, l, row_delta(do, out))
+    got = flash_sliding_backward(*bwd, window=w)
+    want = sliding_backward_plain(*bwd, w)
+    tol = SLIDING_TOL[dtype][0]
+    for a, r in zip(got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item()
+    assert not got[0][:, :, :w].any() and not got[0][:, :, w + tl:].any()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, flash_sliding_backward(*bwd, window=w)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sliding_backward_in_one_split(gen, dtype):
     """At T = 64 pass 3 walks its one query tile in one split, writing dkg
@@ -1231,6 +1269,28 @@ def test_adam8bit_kernel_matches_plain(gen, wd, clip, sizes):
     _adam8bit_close(got, adam8bit_superleaf_update_plain(*args, wd=wd, **ADAM))
     assert (got[1][-3:] == 0).all() and (got[3][-3:] == 0).all()
     assert torch.equal(got[4][-3:], torch.full_like(got[4][-3:], t8._LOG_TINY))
+
+
+@pytest.mark.parametrize("d", [0, 1])
+def test_adam8bit_kernel_on_a_data_ranks_rows(gen, d):
+    """K9 as the ZeRO-sharded 8-bit AdamW runs it: on data rank d's rows
+    of a superleaf whose odd block count (143) is padded to 144 for 2 data
+    ranks (rank 1's last row holds no valid element): against its plain
+    version (`_adam8bit_close`), and those rows bit-equal to K9 over the
+    whole superleaf on the same inputs."""
+    sizes = [16384 + 70, 300, 5, 1000, 129]
+    _, _, nb_real, nb = t8._layout(sizes, 2)
+    assert (nb_real, nb) == (143, 144)
+    args = _adam8bit_inputs(gen, sizes, 0.02, 0.5, pad_rows=1)
+    whole = adam8bit_superleaf_update(*args, wd=0.02, **ADAM)
+    rows = slice(d * nb // 2, (d + 1) * nb // 2)
+    part = tuple(None if a is None else a[rows].contiguous() if a.shape[0] == nb else a
+                 for a in args)
+    assert int((part[6] == 0).sum()) == d
+    got = adam8bit_superleaf_update(*part, wd=0.02, **ADAM)
+    _adam8bit_close(got, adam8bit_superleaf_update_plain(*part, wd=0.02, **ADAM))
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b[rows])
 
 
 def test_adam8bit_kernel_writes_over_the_gradients(gen):

@@ -166,11 +166,18 @@ def test_validate_refuses_a_mesh_the_world_cannot_form(tmp_path):
         cli.run_validate(cfg, device="cpu")
 
 
-def test_fit_over_a_mesh_still_raises_and_names_the_next_slice(tmp_path):
-    cfg = config_from_dict(_config(str(tmp_path), "Flat"))
-    with pytest.raises(NotImplementedError, match="item 9, its training half"):
+def test_fit_over_a_mesh_is_accepted_and_a_baseline_still_raises(tmp_path):
+    """`check_fit_config` accepts the (2, 2) mesh config (`fit` over it runs
+    under torchrun: tests/test_torch_mesh_fit.py) and refuses only a
+    baseline; in a world of one process that mesh raises the launch it
+    needs, as `validate` does, before any file is written."""
+    cfg = config_from_dict(_config(str(tmp_path / "runs"), "Flat"))
+    cli.check_fit_config(cfg)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         cli.run_fit(cfg, device="cpu")
-    cli.check_fit_config(dataclasses.replace(cfg, mesh=config_from_dict({}).mesh))
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(ValueError, match="baseline 'bart'"):
+        cli.check_fit_config(dataclasses.replace(cfg, baseline="bart"))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])

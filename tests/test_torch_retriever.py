@@ -175,10 +175,12 @@ def test_contrastive_loss_and_gradients_match_jax(kw):
 
 
 def test_gather_axis_raises():
+    """``gather_axis`` without the mesh it names raises (over a mesh it
+    gathers the negatives: tests/test_torch_mesh_fit.py)."""
     rcfg, jrcfg = _configs()
     _, model = _params(rcfg, jrcfg)
     batch = {k: _t(v) for k, v in _pairs(0, 2).items()}
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         tcon.contrastive_loss(model, rcfg, batch, gather_axis="data")
 
 

@@ -15,7 +15,8 @@ Returns each rank's return value, in rank order. When a rank exits
 non-zero, or the ``timeout`` (seconds) runs out, every rank still running
 is killed and `RankFailure` names the ranks and the end of their stderr.
 
-A rank's standard output and error go to ``<workdir>/rank<r>.log``.
+A rank's standard output and error go to ``<workdir>/rank<r>.log``. A
+rank ends its process group itself once its result is written.
 """
 
 from __future__ import annotations
@@ -97,6 +98,12 @@ def _main(spec: str, workdir: str) -> None:
     rank = os.environ["RANK"]
     with open(os.path.join(workdir, f"rank{rank}.result.pkl"), "wb") as f:
         pickle.dump(result, f)
+    # end the process group here, not in the interpreter's teardown, where
+    # gloo's threads can be destroyed while still joinable (an abort)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
