@@ -27,8 +27,7 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
   logs, notifies, prints and writes checkpoints (of the gathered state,
   which load on one device or any mesh). A config that sets
   ``baseline: bart`` or ``t5`` fine-tunes that baseline instead
-  (`run_fit_baseline`). ``--profile`` writes a `torch.profiler` Chrome
-  trace of the run under ``<log_dir>/trace``.
+  (`run_fit_baseline`).
 * ``validate`` / ``test``: generate over the whole val / test split and
   score it with ROUGE, from the checkpoint ``best.json`` marks (else
   ``latest.json``) when ``ckpt_dir`` has one. Over a ``mesh`` (one process
@@ -58,6 +57,11 @@ The subcommands do what the JAX package's ``run_fit``, ``run_validate``,
 
 Serving runs under ``torch.no_grad()``. Everything runs on CUDA by default
 and raises when CUDA is missing, unless ``--device cpu`` is given.
+``--profile`` writes a `torch.profiler` Chrome trace of any command under
+``<logging.log_dir>/trace`` (`obs.trace`): the host's operators, the card's
+kernels, and the program's spans (`obs.span`: ``train.step``,
+``generate.step``, ``store.build`` and their parts) as ranges on the same
+timeline.
 """
 
 from __future__ import annotations
@@ -341,6 +345,7 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
     # the batch order is a function of (seed, step): epoch e shuffles with
     # seed + e, so a resumed run re-enters the same permutation
     steps_per_epoch = max(1, len(dm.split_indices("train")) // cfg.data.batch_size)
+    last_end = time.perf_counter()
     try:
         while step < cfg.max_steps:
             epoch, skip = divmod(step, steps_per_epoch)
@@ -364,12 +369,17 @@ def run_fit(cfg, *, device: str = "cuda", report: dict[str, Any] | None = None
                 t0, received, calls = time.perf_counter(), STATS["bytes"], STATS["calls"]
                 state, metrics = step_fn(state, store, dbatch, force)
                 loss = float(metrics["loss"])  # waits for the device
-                sec = time.perf_counter() - t0
+                end = time.perf_counter()
+                sec = end - t0
                 rep["step_s"].append(sec)
                 rep["losses"].append(loss)
                 rep["collectives"].append((STATS["calls"] - calls, STATS["bytes"] - received))
                 metrics["steps_per_s"] = 1.0 / max(sec, 1e-9)
-                metrics["tokens_per_s"] = np.asarray(batch["input_ids"]).size / max(sec, 1e-9)
+                # the batch's real source tokens over all the time since the
+                # last step ended, the wait for this batch included
+                metrics["tokens_per_s"] = (float(np.asarray(batch["attention_mask"]).sum())
+                                           / max(end - last_end, 1e-9))
+                last_end = end
                 log.log(step, metrics)
                 step += 1
                 if cfg.ckpt_dir and cfg.train.save_every and step % cfg.train.save_every == 0:
@@ -580,12 +590,13 @@ def run_fit_baseline(cfg, *, device: str = "cuda",
     the train split, not from every example (the val split included). With
     ``report``, also fills in each step's wall seconds (synchronised) and
     loss, each val batch's ``generate`` seconds and ids, and the final
-    state. Each step and each batch's decoding is a `torch.profiler` range
-    (``baseline_step``, ``baseline_generate``) in a ``--profile`` trace."""
+    state. Each step and each batch's decoding is a program span
+    (`obs.span`: ``baseline_step``, ``baseline_generate``), a range of a
+    ``--profile`` trace."""
     from .eval import RougeAccumulator
     from .models.bart import init_bart
     from .models.t5 import init_t5
-    from .obs import MetricsLogger
+    from .obs import MetricsLogger, span
     from .train.baseline import make_seq2seq_train_step, seq2seq_greedy
     from .train.optimizer import build_optimizer
     from .train.trainer import TrainState
@@ -620,7 +631,7 @@ def run_fit_baseline(cfg, *, device: str = "cuda",
                 db = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
                       for k in ("input_ids", "attention_mask", "labels")}
                 t0 = time.perf_counter()
-                with torch.profiler.record_function("baseline_step"):
+                with span("baseline_step"):
                     state, metrics = step_fn(state, db)
                     rep["losses"].append(float(metrics["loss"]))  # waits for the device
                 rep["step_s"].append(time.perf_counter() - t0)
@@ -640,7 +651,7 @@ def run_fit_baseline(cfg, *, device: str = "cuda",
                 batch = {k: np.concatenate([v, np.repeat(v[:1], reps, axis=0)])
                          for k, v in batch.items()}
             t0 = time.perf_counter()
-            with torch.profiler.record_function("baseline_generate"):
+            with span("baseline_generate"):
                 ids = seq2seq_greedy(
                     family, state.params, mcfg,
                     torch.from_numpy(np.asarray(batch["input_ids"])).to(dev),
@@ -993,8 +1004,8 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
     p.add_argument("--profile", action="store_true",
-                   help="fit: write a torch.profiler Chrome trace of the run into "
-                   "<log_dir>/trace")
+                   help="write a torch.profiler Chrome trace of the command into "
+                   "<log_dir>/trace: host ops, the card's kernels and the program's spans")
     args = p.parse_args(argv)
 
     from .models.retriever_generator import RAGConfig
@@ -1002,30 +1013,32 @@ def main(argv=None) -> int:
 
     cfg = (load_config(args.config) if args.config
            else ExperimentConfig(model=RAGConfig.tiny()))
-    if args.command == "fit":
-        runner = run_fit_baseline if cfg.baseline else run_fit
-        if args.profile:
-            from .obs import trace
 
-            with trace(os.path.join(cfg.logging.log_dir, "trace")):
-                out = runner(cfg, device=args.device)
-        else:
-            out = runner(cfg, device=args.device)
-    elif args.command in ("validate", "test"):
-        split = "val" if args.command == "validate" else "test"
-        out = run_validate(cfg, split, index_dir=args.index, device=args.device)
-    elif args.command == "pretrain-retriever":
-        run = {"train": run_pretrain_retriever, "test": run_pretrain_retriever_test,
-               "predict": run_pretrain_retriever_predict}[args.mode]
-        out = run(cfg, device=args.device)
-    elif args.command == "build-index":
-        out = run_build_index(cfg, args.out, device=args.device)
-    elif args.command == "bench-index":
-        out = run_bench_index(cfg, device=args.device)
-    elif args.command == "export":
-        out = run_export(cfg, args.out, index_dir=args.index, device=args.device)
+    def run():
+        if args.command == "fit":
+            return (run_fit_baseline if cfg.baseline else run_fit)(cfg, device=args.device)
+        if args.command in ("validate", "test"):
+            split = "val" if args.command == "validate" else "test"
+            return run_validate(cfg, split, index_dir=args.index, device=args.device)
+        if args.command == "pretrain-retriever":
+            return {"train": run_pretrain_retriever, "test": run_pretrain_retriever_test,
+                    "predict": run_pretrain_retriever_predict}[args.mode](
+                        cfg, device=args.device)
+        if args.command == "build-index":
+            return run_build_index(cfg, args.out, device=args.device)
+        if args.command == "bench-index":
+            return run_bench_index(cfg, device=args.device)
+        if args.command == "export":
+            return run_export(cfg, args.out, index_dir=args.index, device=args.device)
+        return run_predict(cfg, index_dir=args.index, device=args.device)
+
+    if args.profile:
+        from .obs import trace
+
+        with trace(os.path.join(cfg.logging.log_dir, "trace")):
+            out = run()
     else:
-        out = run_predict(cfg, index_dir=args.index, device=args.device)
+        out = run()
     if torch.distributed.is_initialized():  # a mesh: rank 0 prints the result
         rank = torch.distributed.get_rank()
         torch.distributed.destroy_process_group()

@@ -17,6 +17,12 @@ caller gives none), so the ids are not the JAX package's, whose noise is
 ``jax.random``'s. With beams the flag is ignored, as in the JAX package.
 `copy_trace` runs the decoder teacher-forced over generated ids (the
 dense attention kernels K4/K6 on the card).
+
+`generate` is the program span ``generate`` (`obs.profiling.span`); each
+decode position is ``generate.step``, with ``generate.decode`` (the cached
+decoder step: the decoder, the copy head and the mixture) and
+``generate.search`` (the processors, then argmax, or top-k, the finished
+set and the cache reorder) inside it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import dataclasses
 
 import torch
 
+from ..obs.profiling import span
 from .copy_decoder import precompute_copy_kv
 from .led import init_decode_caches, shift_tokens_right
 from .retriever_generator import RAGConfig, RAGEncoderOutput, rag_decode
@@ -146,7 +153,7 @@ def generate(params, cfg: RAGConfig, enc_out: RAGEncoderOutput,
     [B', V], caches)`` with ``pos`` a 0-d int64 tensor; None builds it
     from ``params`` (`decode_step`), a loaded exported step
     (`serving.serve`) takes its place."""
-    with torch.no_grad():
+    with torch.no_grad(), span("generate"):
         if step is None:
             step = decode_step(params, cfg, dtype, copy_head_kv(params, cfg, enc_out, dtype))
         if opts.num_beams <= 1:
@@ -210,15 +217,18 @@ def _greedy(params, cfg, enc_out, opts: GenerationOptions, dtype, step, generato
     seqs[:, 0] = opts.decoder_start_id
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for t in range(t_max):
-        logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))
-        logp = _scores_after_step(seqs, t, logp, opts, eos)
-        if opts.do_sample:
-            logp = _sample_filter(logp, opts.top_k, opts.top_p, opts.temperature)
-            logp = logp + _gumbel_noise(generator, t, logp.shape, logp.dtype)
-        nxt = torch.argmax(logp, dim=-1).to(torch.int32)
-        nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
-        seqs[:, t + 1] = nxt
-        done = done | (nxt == eos)
+        with span("generate.step"):
+            with span("generate.decode"):
+                logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))
+            with span("generate.search"):
+                logp = _scores_after_step(seqs, t, logp, opts, eos)
+                if opts.do_sample:
+                    logp = _sample_filter(logp, opts.top_k, opts.top_p, opts.temperature)
+                    logp = logp + _gumbel_noise(generator, t, logp.shape, logp.dtype)
+                nxt = torch.argmax(logp, dim=-1).to(torch.int32)
+                nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
+                seqs[:, t + 1] = nxt
+                done = done | (nxt == eos)
     return seqs[:, 1:]
 
 
@@ -248,49 +258,52 @@ def _beam(params, cfg, enc_out, opts: GenerationOptions, dtype, step):
     rows = torch.arange(b, device=dev)[:, None] * beams
 
     for t in range(t_max):
-        logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))  # [bb, V]
-        v = logp.shape[-1]
-        logp = _scores_after_step(seqs, t, logp, opts, eos)
-        total = (scores.reshape(bb, 1) + logp).reshape(b, beams * v)
-        top_scores, top_idx = _topk(total, 2 * beams)
-        src_beam = top_idx // v
-        tok_id = (top_idx % v).to(torch.int32)
-        is_eos = tok_id == eos
+        with span("generate.step"):
+            with span("generate.decode"):
+                logp, caches = step(enc_out, seqs[:, t], caches, _position(t, dev))  # [bb, V]
+            with span("generate.search"):
+                v = logp.shape[-1]
+                logp = _scores_after_step(seqs, t, logp, opts, eos)
+                total = (scores.reshape(bb, 1) + logp).reshape(b, beams * v)
+                top_scores, top_idx = _topk(total, 2 * beams)
+                src_beam = top_idx // v
+                tok_id = (top_idx % v).to(torch.int32)
+                is_eos = tok_id == eos
 
-        # finished candidates (length-penalised) compete for the final set
-        lp = _length_penalty(t + 1, opts.length_penalty).to(dev)
-        cand_fin = torch.where(is_eos, top_scores / lp,
-                               torch.full_like(top_scores, NEG))
-        cand_seqs = seqs[(rows + src_beam).reshape(-1)].reshape(b, 2 * beams, -1)
-        cand_seqs[:, :, t + 1] = torch.where(is_eos, torch.full_like(tok_id, pad),
-                                             tok_id)
-        all_fin_scores = torch.cat([fin_scores, cand_fin], dim=1)
-        all_fin_seqs = torch.cat([fin_seqs, cand_seqs], dim=1)
-        fin_top, fin_pos = _topk(all_fin_scores, beams)
-        new_fin_seqs = torch.gather(
-            all_fin_seqs, 1, fin_pos[:, :, None].expand(b, beams, t_max + 1)
-        )
-        if opts.early_stopping:
-            # once `beams` hypotheses finished, the finished set is frozen
-            was_done = (fin_scores > NEG / 2).all(dim=1)
-            fin_seqs = torch.where(was_done[:, None, None], fin_seqs, new_fin_seqs)
-            fin_scores = torch.where(was_done[:, None], fin_scores, fin_top)
-        else:
-            fin_seqs, fin_scores = new_fin_seqs, fin_top
+                # finished candidates (length-penalised) compete for the final set
+                lp = _length_penalty(t + 1, opts.length_penalty).to(dev)
+                cand_fin = torch.where(is_eos, top_scores / lp,
+                                       torch.full_like(top_scores, NEG))
+                cand_seqs = seqs[(rows + src_beam).reshape(-1)].reshape(b, 2 * beams, -1)
+                cand_seqs[:, :, t + 1] = torch.where(is_eos, torch.full_like(tok_id, pad),
+                                                     tok_id)
+                all_fin_scores = torch.cat([fin_scores, cand_fin], dim=1)
+                all_fin_seqs = torch.cat([fin_seqs, cand_seqs], dim=1)
+                fin_top, fin_pos = _topk(all_fin_scores, beams)
+                new_fin_seqs = torch.gather(
+                    all_fin_seqs, 1, fin_pos[:, :, None].expand(b, beams, t_max + 1)
+                )
+                if opts.early_stopping:
+                    # once `beams` hypotheses finished, the finished set is frozen
+                    was_done = (fin_scores > NEG / 2).all(dim=1)
+                    fin_seqs = torch.where(was_done[:, None, None], fin_seqs, new_fin_seqs)
+                    fin_scores = torch.where(was_done[:, None], fin_scores, fin_top)
+                else:
+                    fin_seqs, fin_scores = new_fin_seqs, fin_top
 
-        # alive candidates: the best `beams` that did not emit eos
-        alive_scores = torch.where(is_eos, torch.full_like(top_scores, NEG),
-                                   top_scores)
-        scores, alive_pos = _topk(alive_scores, beams)
-        alive_beam = torch.gather(src_beam, 1, alive_pos)
-        alive_tok = torch.gather(tok_id, 1, alive_pos)
-        gather = (rows + alive_beam).reshape(-1)
-        seqs = seqs[gather]
-        seqs[:, t + 1] = alive_tok.reshape(-1)
-        # reorder every beam-laid-out cache entry; cross K/V are per item
-        for layer in caches:
-            for name in ("k", "v"):
-                layer[name] = layer[name][gather]
+                # alive candidates: the best `beams` that did not emit eos
+                alive_scores = torch.where(is_eos, torch.full_like(top_scores, NEG),
+                                           top_scores)
+                scores, alive_pos = _topk(alive_scores, beams)
+                alive_beam = torch.gather(src_beam, 1, alive_pos)
+                alive_tok = torch.gather(tok_id, 1, alive_pos)
+                gather = (rows + alive_beam).reshape(-1)
+                seqs = seqs[gather]
+                seqs[:, t + 1] = alive_tok.reshape(-1)
+                # reorder every beam-laid-out cache entry; cross K/V are per item
+                for layer in caches:
+                    for name in ("k", "v"):
+                        layer[name] = layer[name][gather]
 
     lp = _length_penalty(t_max, opts.length_penalty).to(dev)
     use_fin = fin_scores[:, 0] > scores[:, 0] / lp

@@ -31,6 +31,7 @@ from torch import nn
 from ..index.flat import FlatIndex
 from ..index.flat import search as flat_search
 from ..index.ivf import IVFIndex, ivf_search, ivf_search_sharded
+from ..obs.profiling import span
 from .config import EncoderConfig, Seq2SeqConfig
 from .copy_decoder import (
     CopyDecoder,
@@ -298,7 +299,13 @@ def rag_encode(
     encoder runs sequence-sharded over the ``shard`` axis. ``data_sharded``:
     the batch is this rank's rows of a batch split over ``data`` (an IVF
     search then decides its route and its probe union by the whole
-    batch)."""
+    batch). The call is the program span ``encode`` (`obs.profiling.span`)."""
+    with span("encode"):
+        return _encode(params, cfg, store, batch, dtype, remat, copy_force, mesh,
+                       data_sharded)
+
+
+def _encode(params, cfg, store, batch, dtype, remat, copy_force, mesh, data_sharded):
     input_ids = batch["input_ids"]
     enc_mask = batch["attention_mask"]
 

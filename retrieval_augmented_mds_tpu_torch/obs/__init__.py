@@ -1,3 +1,3 @@
 from .logging import MetricsLogger, fault_tolerant  # noqa: F401
 from .callbacks import TeamsNotifier  # noqa: F401
-from .profiling import phase_timer, trace  # noqa: F401
+from .profiling import recorded, span, trace  # noqa: F401

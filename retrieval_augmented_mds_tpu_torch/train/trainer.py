@@ -22,10 +22,16 @@ Counterpart of ``retrieval_augmented_mds_tpu/train/trainer.py``:
   ``fit``).
 * `refresh_store`: rebuild the index under the current mips encoder
   weights and swap it in, the reference's stale-index refresh.
+
+Both steps are the program span ``train.step`` (`obs.profiling.span`), with
+``train.forward``, ``train.backward``, ``train.reduce`` (over a mesh) and
+``train.optimizer`` inside it; the store build is ``store.build``, with
+``store.embed`` and ``store.index``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import types
@@ -39,6 +45,7 @@ from ..index.ivf import IVFIndex
 from ..models.core import remat_context
 from ..models.longformer import longformer_encode
 from ..models.retriever_generator import MemoryStore, RAGConfig, rag_forward
+from ..obs.profiling import span
 from ..parallel.collectives import all_reduce, all_reduce_grads
 from .loss import summarization_loss
 from .optimizer import AdamW, OptState, param_group
@@ -137,43 +144,47 @@ def make_train_step(
                     metrics[k] = tot[i] if k == "loss" else tot[i] / mesh.data
         return loss, metrics
 
-    def mark(times: dict, name: str, t0: float, device) -> float:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        times[name] = t1 - t0
-        return t1
-
     def train_step(state: TrainState, store, batch, copy_force=None):
         params = state.params
+        times = {} if phase_times is not None else None
         device = next(params.parameters()).device
-        times: dict[str, float] = {}
-        t0 = time.perf_counter()
-        loss, metrics = loss_fn(params, store, batch, copy_force)
-        if phase_times is not None:
-            t0 = mark(times, "forward", t0, device)
-        grads = _backward_grads(params, loss if mesh is None else loss * share)
-        named = list(params.named_parameters())
-        if phase_times is not None:
-            t0 = mark(times, "backward", t0, device)
-        if mesh is not None:
-            all_reduce_grads(list(grads.values()))
-            if phase_times is not None:
-                t0 = mark(times, "reduce", t0, device)
-        with torch.no_grad():
-            metrics["grad_norm"] = _global_norm(grads.values())
-            if hyper.grad_group_norms:
-                for group in dict.fromkeys(param_group(n) for n, _ in named):
-                    metrics[f"grad_norm_{group}"] = _global_norm(
-                        g for n, g in grads.items() if param_group(n) == group)
-        tx.update(params, grads, state.opt_state)
-        state.step += 1
-        if phase_times is not None:
-            mark(times, "optimizer", t0, device)
+        with span("train.step"):
+            with _phase("forward", times, device):
+                loss, metrics = loss_fn(params, store, batch, copy_force)
+            with _phase("backward", times, device):
+                grads = _backward_grads(params, loss if mesh is None else loss * share)
+                named = list(params.named_parameters())
+            if mesh is not None:
+                with _phase("reduce", times, device):
+                    all_reduce_grads(list(grads.values()))
+            with _phase("optimizer", times, device):
+                with torch.no_grad():
+                    metrics["grad_norm"] = _global_norm(grads.values())
+                    if hyper.grad_group_norms:
+                        for group in dict.fromkeys(param_group(n) for n, _ in named):
+                            metrics[f"grad_norm_{group}"] = _global_norm(
+                                g for n, g in grads.items() if param_group(n) == group)
+                tx.update(params, grads, state.opt_state)
+                state.step += 1
+        if times is not None:
             phase_times.append(times)
         return state, metrics
 
     return train_step
+
+
+@contextlib.contextmanager
+def _phase(name: str, times: dict[str, float] | None, device):
+    """A phase of a train step: the span ``train.<name>``; with ``times``,
+    the device synchronised at its end and its wall seconds in
+    ``times[name]``."""
+    with span(f"train.{name}"):
+        t0 = time.perf_counter()
+        yield
+        if times is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times[name] = time.perf_counter() - t0
 
 
 def _backward_grads(params, loss) -> dict[str, torch.Tensor]:
@@ -202,18 +213,23 @@ def make_retriever_train_step(cfg, tx: AdamW, *, gather_axis: str | None = None,
     from ..retriever.contrastive import contrastive_loss
 
     def step(state: TrainState, batch):
-        loss, metrics = contrastive_loss(state.params, cfg, batch, gather_axis=gather_axis,
-                                         mesh=mesh)
-        if gather_axis is None:
-            grads = _backward_grads(state.params, loss)
-        else:
-            grads = _backward_grads(state.params, loss / (mesh.data * mesh.shard))
-            all_reduce_grads(list(grads.values()))
-            names = sorted(metrics)
-            tot = all_reduce(torch.stack([metrics[k] for k in names]), mesh.data_group)
-            metrics = {k: tot[i] / mesh.data for i, k in enumerate(names)}
-        tx.update(state.params, grads, state.opt_state)
-        state.step += 1
+        with span("train.step"):
+            with span("train.forward"):
+                loss, metrics = contrastive_loss(state.params, cfg, batch,
+                                                 gather_axis=gather_axis, mesh=mesh)
+            with span("train.backward"):
+                grads = _backward_grads(state.params, loss if gather_axis is None
+                                        else loss / (mesh.data * mesh.shard))
+            if gather_axis is not None:
+                with span("train.reduce"):
+                    all_reduce_grads(list(grads.values()))
+                    names = sorted(metrics)
+                    tot = all_reduce(torch.stack([metrics[k] for k in names]),
+                                     mesh.data_group)
+                    metrics = {k: tot[i] / mesh.data for i, k in enumerate(names)}
+            with span("train.optimizer"):
+                tx.update(state.params, grads, state.opt_state)
+                state.step += 1
         return state, metrics
 
     return step
@@ -279,16 +295,19 @@ def build_memory_store(
     ``mesh`` the corpus is embedded data-parallel and the index placed
     sharded over ``shard``; the token ids and masks stay whole on every
     rank."""
-    emb = encode_corpus(
-        params.mips_encoder, model_cfg.mips_enc, token_ids, token_mask,
-        batch_size=batch_size or min(64, token_ids.shape[0]), dtype=compute_dtype,
-        mesh=mesh,
-    )
-    index = build_index_from_factory(
-        emb, index_cfg.factory, metric=index_cfg.metric,
-        normalize=index_cfg.normalize, dtype=index_cfg.dtype,
-        train_size=index_cfg.train_size, seed=seed, mesh=mesh,
-    )
+    with span("store.build"):
+        with span("store.embed"):
+            emb = encode_corpus(
+                params.mips_encoder, model_cfg.mips_enc, token_ids, token_mask,
+                batch_size=batch_size or min(64, token_ids.shape[0]), dtype=compute_dtype,
+                mesh=mesh,
+            )
+        with span("store.index"):
+            index = build_index_from_factory(
+                emb, index_cfg.factory, metric=index_cfg.metric,
+                normalize=index_cfg.normalize, dtype=index_cfg.dtype,
+                train_size=index_cfg.train_size, seed=seed, mesh=mesh,
+            )
     return MemoryStore(index=index, token_ids=token_ids, token_mask=token_mask,
                        row_aids=row_aids, nprobe=index_cfg.nprobe)
 

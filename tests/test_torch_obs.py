@@ -268,30 +268,34 @@ def test_fit_tells_teams_when_it_starts_and_when_it_crashes(tmp_path, hook, monk
 
 
 def test_phase_timer_and_trace(tmp_path):
-    """`phase_timer` sums and counts into its `PhaseTimes`; `trace` writes
-    one Chrome trace of the block, also when the block raises."""
+    """The phase timer's successor, `span`: spans run and nest outside a
+    profiler and record nothing there, also when the block raises; `trace`
+    writes one Chrome trace of the block, also when it raises, with the
+    spans opened in it as ranges there and in `recorded`."""
     import torch
 
-    times = tprofiling.PhaseTimes()
     for _ in range(3):
-        with tprofiling.phase_timer("a", times):
-            pass
+        with tprofiling.span("a"):
+            with tprofiling.span("b"):
+                pass
     with pytest.raises(KeyError):
-        with tprofiling.phase_timer("b", times):
+        with tprofiling.span("b"):
             raise KeyError("x")
-    assert dict(times.counts) == {"a": 3, "b": 1}
-    assert set(times.report()) == {"a", "b"} and all(v >= 0 for v in times.report().values())
     with tprofiling.trace(str(tmp_path / "t1")):
-        torch.ones(8).cumsum(0)
+        with tprofiling.span("a"):
+            torch.ones(8).cumsum(0)
+    assert [s.name for s in tprofiling.recorded()] == ["a"]
     with pytest.raises(ValueError):
         with tprofiling.trace(str(tmp_path / "t2")):
-            raise ValueError("inside")
+            with tprofiling.span("b"):
+                raise ValueError("inside")
+    assert [(s.name, s.end_ns >= s.start_ns) for s in tprofiling.recorded()] == [("b", True)]
     for sub in ("t1", "t2"):
         (name,) = os.listdir(tmp_path / sub)
         events = json.load(open(tmp_path / sub / name))["traceEvents"]
         assert isinstance(events, list)
     names = {e.get("name") for e in json.load(open(tmp_path / "t1" / name))["traceEvents"]}
-    assert "aten::cumsum" in names
+    assert {"aten::cumsum", "a"} <= names
 
 
 def test_fit_profile_writes_a_trace(tmp_path):
@@ -305,4 +309,6 @@ def test_fit_profile_writes_a_trace(tmp_path):
     (name,) = os.listdir(tmp_path / "runs" / "trace")
     events = json.load(open(tmp_path / "runs" / "trace" / name))["traceEvents"]
     assert "aten::log_softmax" in {e.get("name") for e in events}
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert ranges.count("baseline_step") == 2 and "baseline_generate" in ranges
     assert (tmp_path / "runs" / "t_bart.metrics.jsonl").exists()
