@@ -34,6 +34,12 @@ Phases, in order; any failure exits non-zero:
      queries of 118-124 valid tokens of 512, K3 with the model's dO), K2/K3
      beside SDPA in f32 under the same mask and beside both f32 bounds
      (split TF32 on the tensor cores, which they run; the CUDA cores);
+  5a. the cached decoder step's attention kernel (``flash_decode_attention``,
+     no TPU kernel: the JAX package's step is XLA einsums) against its plain
+     version at the predict cell's shapes: the cross-attention of 256 items
+     x 4 beams over strided K/V of 2048 keys (traffic-like source lengths),
+     bf16 and f32, and the self-attention over a 257-slot cache at position
+     128, beside the plain version, SDPA and the bytes bound;
   5b. kernel K10 (phase 1 of the two-phase MIPS top-k) against its plain
      version at K1's serving shape, bf16 and f32 (beside ``torch.mm`` of
      the scores), its top-k against K1's and its scores at K1's hits
@@ -63,8 +69,10 @@ Phases, in order; any failure exits non-zero:
      encode program and the decode-step program, `torch.export`, weights
      and store as inputs), loaded and served with 9's params, store and
      batch: ids equal 9's; K1, K2 and K8 launched through their custom ops
-     by the exported encode as often as by the eager ``rag_encode``; the
-     export, load, encode and serve wall times beside the eager ones;
+     by the exported encode as often as by the eager ``rag_encode``, and the
+     cached step's attention kernel through ``ramds::flash_decode`` 2 x 6 x
+     256 times a serve, exported or eager; the export, load, encode and
+     serve wall times beside the eager ones;
   9d. K2's host time per call through its custom op against the direct
      ctypes launch, at the Longformer row's shape;
   9e. the host tail: the native batch loader against the Python gather over
@@ -203,18 +211,23 @@ def _counters() -> dict:
     from retrieval_augmented_mds_tpu_torch.ops.adam8bit_update import (
         adam8bit_superleaf_update,
     )
+    from retrieval_augmented_mds_tpu_torch.ops.flash_decode import flash_decode_attention
     from retrieval_augmented_mds_tpu_torch.ops.mips_topk import mips_chunkmax, mips_topk
 
     return {f.__name__: f for f in (mips_topk, flash_sliding_attention,
                                     flash_sliding_backward, flash_dense_attention,
                                     flash_dense_backward, ivf_probe_topk,
                                     adam8bit_superleaf_update, flash_dense_blocked,
-                                    flash_dense_blocked_backward, mips_chunkmax)}
+                                    flash_dense_blocked_backward, mips_chunkmax,
+                                    flash_decode_attention)}
 
 
 # kernels that only the long-source slice runs, and K10, which no path runs
 LONG_ONLY = ("flash_dense_blocked", "flash_dense_blocked_backward")
 NO_PATH = ("mips_chunkmax",)
+# the cached decoder step's attention: only decoding launches it, never a fit
+# that does not evaluate
+DECODE_ONLY = ("flash_decode_attention",)
 
 
 def run_counted(fn):
@@ -951,6 +964,110 @@ def phase_k45():
     return cross
 
 
+def _source_lengths(rng, n: int, width: int = 2048) -> list[int]:
+    """Source lengths in tokens as the benchmark's Multi-XScience traffic
+    draws them (portbench/traffic.py): an abstract and 1 + Poisson(3.42)
+    cited abstracts, each log-normal (mean 143.6 words, sigma 0.45), one
+    token a word, a <DOC_SEP> between documents and <s>, </s> around, cut
+    to ``width``: about 780 of 2048 on average."""
+    sigma = 0.45
+    mu = math.log(143.6) - sigma * sigma / 2
+    docs = 2 + rng.poisson(3.42, n)
+    return [min(width, 1 + int(d) + int(sum(max(1, round(x))
+                                            for x in rng.lognormal(mu, sigma, int(d)))))
+            for d in docs]
+
+
+def _decode_case(name, q, k, v, mask, sdpa_args):
+    """The cached step's attention kernel against `flash_decode_plain` (tol x
+    max|ref|), a rerun bit-equal, and the times of the kernel, the plain
+    version and SDPA under the same mask (``sdpa_args``: q, k, v, mask as
+    SDPA takes them), beside the bytes bound: the K/V rows of the open keys
+    (each row's open keys; a row with none reads all S), q, the output and
+    the mask, read or written once."""
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_plain,
+    )
+
+    bq, nh, t, dh = q.shape
+    b, s = k.shape[0], k.shape[2]
+    out = flash_decode_attention(q, k, v, mask)
+    ref = flash_decode_plain(q, k, v, mask)
+    again = flash_decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    tol = _grad_tol(q.dtype)
+    err = _compare(f"flash_decode {name}", [out], [ref], tol)
+    check(torch.equal(out, again), f"flash_decode {name}: a second run gave other bits")
+    rows_open = mask.expand(b, s).sum(1)
+    open_keys = int(torch.where(rows_open > 0, rows_open, s).sum())
+    tiles = (rows_open + 63) // 64 * 64  # the kernel reads 64-key tiles whole
+    tile_keys = int(torch.where(rows_open > 0, tiles.clamp(max=s), s).sum())
+    per_key = nh * dh * k.element_size()
+    n_bytes = 2 * per_key * open_keys + nbytes(q, out, mask)
+    rows = bq // b * t  # query rows of an item: its beams' tokens
+    bound, cores = _route_bounds(n_bytes, 4 * dh * rows * nh * open_keys, q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = [cuda_ms(lambda: flash_decode_attention(q, k, v, mask)),
+             cuda_ms(lambda: flash_decode_plain(q, k, v, mask)),
+             cuda_ms(lambda: sdpa(*sdpa_args[:3], attn_mask=sdpa_args[3]))]
+    eff = n_bytes / (times[0] * 1e-3) / 1e12
+    print(f"[decode_attn] {name} {q.dtype}: q [{bq}, {nh}, {t}, {dh}] k/v [{b}, {nh}, {s}, "
+          f"{dh}] strides {tuple(k.stride())}, open keys {open_keys} of {b * s} "
+          f"({tile_keys} in open 64-key tiles): PASS (within {tol} x max|ref|: {err:.3e}; a "
+          f"second run bit-equal); kernel {times[0]:.4f} ms ({eff:.2f} TB/s), plain "
+          f"{times[1]:.4f} ms, sdpa {times[2]:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}, {n_bytes / 1e9:.3f} GB; the open tiles' K/V "
+          f"{2 * per_key * tile_keys / 1e9:.3f} GB); kernel / bound "
+          f"{times[0] / bound['bound_ms']:.2f}" + cores)
+    return result(err, times[0], times[1], bound, times[2])
+
+
+def phase_decode_attn() -> dict:
+    """The cached decoder step's attention kernel (`flash_decode_attention`)
+    alone at the rag_predict cell's shapes (bf16, 12 heads of 64): the
+    cross-attention of B = 256 items x 4 beams over un-expanded, strided
+    encoder K/V of S = 2048 with source lengths drawn like the traffic's;
+    the self-attention of B' = 1024 beam rows over a 257-slot cache at
+    position 128 (keys 0-128 open). Each against its plain version, timed
+    (10 launches after 2 warm-ups) beside the plain version, SDPA under the
+    same mask (the folded beams as SDPA's query rows), and the bytes bound;
+    the cross case also in f32 (the BART baseline's cached decode)."""
+    import numpy as np
+    import torch
+
+    from retrieval_augmented_mds_tpu_torch.models.core import causal_mask
+
+    nh, dh = 12, 64
+    lengths = _source_lengths(np.random.default_rng(23), 256)
+    print(f"[decode_attn] source lengths (traffic-like): mean {np.mean(lengths):.1f}, min "
+          f"{min(lengths)}, max {max(lengths)} of 2048")
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def heads(rows, t, dtype):  # split from a [rows, t, nh dh] projection: strided
+        x = torch.randn((rows, t, nh * dh), generator=g, device="cuda").to(dtype)
+        return x.reshape(rows, t, nh, dh).permute(0, 2, 1, 3)
+
+    mask = (torch.arange(2048, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
+    cross = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = heads(1024, 1, dtype), heads(256, 2048, dtype), heads(256, 2048, dtype)
+        qf = q.reshape(256, 4, nh, dh).permute(0, 2, 1, 3)  # the beams as query rows
+        cross[dtype] = _decode_case("cross B=256 g=4 S=2048", q, k, v, mask,
+                                    (qf, k, v, mask[:, None, None, :]))
+        del k, v
+    q = heads(1024, 1, torch.bfloat16)
+    kc, vc = (torch.randn((1024, nh, 257, dh), generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    smask = causal_mask(1, 257, torch.tensor(128, device="cuda"), "cuda")
+    _decode_case("self B'=1024 Tmax=257 pos=128", q, kc, vc, smask.reshape(1, 257),
+                 (q, kc, vc, smask))
+    return cross[torch.bfloat16]
+
+
 def _blocked_case(name, b, t, s, causal, lengths, dtype, *, timed=True):
     """K6 against `dense_rows_blocked_plain` (out, lse) and K7 against
     `dense_blocked_backward_plain` (dq, dk, dv from the same out, lse, g).
@@ -1485,7 +1602,8 @@ def _small_fit(tag: str, cfg, off_path: tuple[str, ...] = ()) -> dict:
     gpu, cpu = {}, {}
     _, launches = run_counted(lambda: cli.run_fit(cfg, device="cuda", report=gpu))
     cli.run_fit(cfg, device="cpu", report=cpu)
-    off = ("ivf_probe_topk", "adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH, *off_path)
+    off = ("ivf_probe_topk", "adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH, *DECODE_ONLY,
+           *off_path)
     check(all(n > 0 for name, n in launches.items() if name not in off),
           f"{tag}: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1, f"{tag}: no store refresh")
@@ -1577,7 +1695,7 @@ def phase_small_fit_8bit() -> None:
     cli.run_fit(cfg, device="cpu", report=cpu)
     check(launches["adam8bit_superleaf_update"] == 3, f"small 8-bit fit: K9 {launches}")
     check(all(n > 0 for name, n in launches.items()
-              if name not in ("ivf_probe_topk", *LONG_ONLY, *NO_PATH)),
+              if name not in ("ivf_probe_topk", *LONG_ONLY, *NO_PATH, *DECODE_ONLY)),
           f"small 8-bit fit: a kernel not launched {launches}")
     lg, lc = torch.tensor(gpu["losses"]), torch.tensor(cpu["losses"])
     check(len(lg) == 3 and bool(torch.isfinite(lg).all()), f"small 8-bit fit losses {lg}")
@@ -1646,7 +1764,8 @@ def phase_small_ivf() -> None:
     _, launches = run_counted(lambda: cli.run_fit(fcfg, device="cuda", report=gpu))
     cli.run_fit(fcfg, device="cpu", report=cpu)
     check(all(n > 0 for name, n in launches.items()
-              if name not in ("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH)),
+              if name not in ("adam8bit_superleaf_update", *LONG_ONLY, *NO_PATH,
+                              *DECODE_ONLY)),
           f"small IVF fit: a kernel not launched {launches}")
     check(len(gpu["refresh_s"]) == 1 and isinstance(gpu["store"].index, IVFIndex),
           "small IVF fit: no IVF refresh")
@@ -1719,6 +1838,10 @@ def phase_slice(report: dict | None = None) -> dict:
     route = ivf_route(idx_obj, b, cfg.model.mips_topk, nprobe, ign.shape[1])
     check(isinstance(idx_obj, IVFIndex) and route == "per_query", f"route {route}")
     check(launches["ivf_probe_topk"] > 0, f"K8 not launched: {launches}")
+    decode_launches = 2 * cfg.model.led.dec_layers * cfg.generation.max_new_tokens
+    check(launches["flash_decode_attention"] == decode_launches,
+          f"the cached step's attention kernel launched {launches['flash_decode_attention']} "
+          f"times, not {decode_launches} (self and cross, each decoder layer and token)")
     _, ref = ivf_search(index_to(idx_obj, "cpu"), enc.query_cls.cpu(), k=cfg.model.mips_topk,
                         nprobe=nprobe, ignore=ign.cpu())
     check(torch.equal(ref, idx.cpu()), f"retrieval {idx.tolist()} differs from the plain "
@@ -1835,12 +1958,17 @@ def phase_export(sliced: dict, card: str) -> dict:
 
     runs = {"exported": [], "eager": []}
     served = None
+    # the cached step's attention, through ramds::flash_decode in the program
+    decode_launches = 2 * cfg.model.led.dec_layers * cfg.generation.max_new_tokens
     for kind in ("exported", "eager", "eager", "exported"):
         fn = (lambda: serving.serve(art, params, store, batch)) if kind == "exported" \
             else eager_serve
         (ids, sec), launches = run_counted(lambda: _synced(fn))
         check(torch.equal(ids.cpu(), sliced["ids"].cpu()),
               f"{kind} serve: ids differ from [slice]'s run_predict ids")
+        check(launches["flash_decode_attention"] == decode_launches,
+              f"{kind} serve: {launches['flash_decode_attention']} flash_decode launches, "
+              f"not {decode_launches}")
         runs[kind].append(sec)
         if kind == "exported" and served is None:
             served = launches
@@ -1855,7 +1983,8 @@ def phase_export(sliced: dict, card: str) -> dict:
           f"wall (encode + {cfg.generation.max_new_tokens} decode steps, beam "
           f"{cfg.generation.num_beams}), exported, eager, eager, exported: "
           f"{runs['exported'][0]:.3f}, {runs['eager'][0]:.3f}, {runs['eager'][1]:.3f}, "
-          f"{runs['exported'][1]:.3f} s; ids equal [slice]'s in all four")
+          f"{runs['exported'][1]:.3f} s; ids equal [slice]'s in all four, each with "
+          f"{decode_launches} flash_decode launches")
     launches = {name: exported[name] + served[name] for name in exported}
     print(f"[export] launches of the phase (run_export, one exported serve): "
           f"{ {n: launches[n] for n in EXPORT_KERNELS} }")
@@ -1996,13 +2125,15 @@ def train_slice_config():
 def _train_run(cfg, tag: str, off_path: tuple[str, ...]) -> tuple[dict, dict]:
     """``cli.run_fit`` of ``cfg`` on the card with the launch counts read
     around it and the peak device memory → (launches, summary). Every
-    kernel launches, but those in ``off_path``, which must not."""
+    kernel launches, but those in ``off_path`` and the decoding kernel
+    (the fit evaluates nothing), which must not."""
     import gc
 
     import torch
 
     from retrieval_augmented_mds_tpu_torch import cli
 
+    off_path = (*off_path, *DECODE_ONLY)
     report: dict = {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2494,15 +2625,18 @@ DENSE_PAIR = ("flash_dense_attention", "flash_dense_backward")
 
 def _baseline_launches(tag, cfg, launches, steps, val_batches) -> None:
     """BART launches K4 once per encoder layer and twice per decoder layer
-    (causal self, cross) on every step, K5 as many, and K4 once per encoder
-    layer for each val batch's greedy decoding (its cached decoder is
-    plain); T5 launches no kernel (its attention is plain, as in the JAX
-    package); no other kernel is on either path."""
+    (causal self, cross) on every step, K5 as many, and for each val batch's
+    greedy decoding K4 once per encoder layer and the cached step's
+    attention kernel twice per decoder layer and token; T5 launches no
+    kernel (its attention is plain, as in the JAX package); no other kernel
+    is on either path."""
     led = cfg.model.led
     per_step = led.enc_layers + 2 * led.dec_layers
     if cfg.baseline == "bart":
         want = {"flash_dense_attention": per_step * steps + led.enc_layers * val_batches,
-                "flash_dense_backward": per_step * steps}
+                "flash_dense_backward": per_step * steps,
+                "flash_decode_attention": 2 * led.dec_layers
+                * cfg.generation.max_new_tokens * val_batches}
     else:
         want = {name: 0 for name in DENSE_PAIR}
     want = {name: want.get(name, 0) for name in launches}
@@ -3898,6 +4032,7 @@ def main() -> int:
                     "flash_sliding_backward": phase_k3()}
         measured["flash_dense_attention"], measured["flash_dense_backward"] = phase_k45()
         measured["flash_dense_blocked"], measured["flash_dense_blocked_backward"] = phase_k67()
+        measured["flash_decode_attention"] = phase_decode_attn()
         measured["mips_chunkmax"], k10_launches = phase_k10()
         measured["ivf_probe_topk"] = phase_k8()
         measured["adam8bit_superleaf_update"] = phase_k9()
@@ -3940,6 +4075,8 @@ def main() -> int:
         ("flash_dense_blocked_backward", "flash_dense_bwd.cu",
          "ops/flash_dense.py:300 (and :371, :410)"),
         ("mips_chunkmax", "mips_chunkmax.cu", "ops/mips_topk.py:254"),
+        ("flash_decode_attention", "flash_decode.cu",
+         "models/core.py attention (XLA einsums: no TPU kernel)"),
     ]
     # launches on the paths (the eight slices, the exported serving step, the two
     # baselines and the mesh runs' four ranks, evaluating and training); K10's paths

@@ -182,6 +182,28 @@ def _logits(q: torch.Tensor, k: torch.Tensor, dh: int) -> torch.Tensor:
     return torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
 
 
+def decode_key_mask(q, k, v, mask, bias) -> torch.Tensor | None:
+    """The key mask [B or 1, S] of a cached call (cache or precomputed K/V)
+    that `ops.flash_decode` takes on the card, or None. It takes CUDA tensors
+    of one dtype, bf16 or f32, head dim 32, 64 or 128, no additive bias, and
+    a bool mask that holds one value per key, [B or 1, 1, 1, S]: the cross
+    mask, and the causal mask of a one-token step. Every other call, and
+    every CPU call, keeps the plain path."""
+    if (q.device.type != "cuda" or bias is not None or mask is None
+            or mask.dtype != torch.bool or mask.dim() != 4):
+        return None
+    from ..ops.flash_decode import HEAD_DIMS
+
+    if q.dtype not in (torch.bfloat16, torch.float32) or not k.dtype == v.dtype == q.dtype:
+        return None
+    b, s = k.shape[0], k.shape[2]
+    if q.shape[-1] not in HEAD_DIMS or tuple(mask.shape[1:]) != (1, 1, s):
+        return None
+    if mask.shape[0] not in (1, b):
+        return None
+    return mask.reshape(mask.shape[0], s)
+
+
 def attention(
     p: MHA,
     x_q: torch.Tensor,  # [B, Tq, H]
@@ -198,7 +220,9 @@ def attention(
     the same dict, its ``k``/``v`` replaced and ``pos`` advanced). With
     ``kv``, the key/value heads are reused. When the q batch is a multiple
     of the kv batch (beams against un-expanded encoder K/V) the beams fold
-    into the query axis."""
+    into the query axis. A cached call whose mask holds one value per key
+    runs `ops.flash_decode` on the card (`decode_key_mask`), which reads K/V
+    in place: no f32 copy, layout copy or logits tensor."""
     dh = p.q.kernel.shape[1] // n_heads
     q = _split_heads(dense(p.q, x_q), n_heads)
     if kv is not None:
@@ -209,11 +233,19 @@ def attention(
 
     if cache is not None:
         k, v = cache_write(cache, k, v)
+    if q.shape[0] % k.shape[0]:
+        raise ValueError(f"q batch {q.shape[0]} not a multiple of {k.shape[0]}")
+
+    key_mask = None
+    if cache is not None or kv is not None:
+        key_mask = decode_key_mask(q, k, v, mask, bias)
+    if key_mask is not None:
+        from ..ops.flash_decode import flash_decode_attention
+
+        return dense(p.o, _merge_heads(flash_decode_attention(q, k, v, key_mask))), cache
 
     g = 1
     if k.shape[0] != q.shape[0]:
-        if q.shape[0] % k.shape[0]:
-            raise ValueError(f"q batch {q.shape[0]} not a multiple of {k.shape[0]}")
         g = q.shape[0] // k.shape[0]
         q = _fold_groups(q, g)
 

@@ -26,7 +26,8 @@ NVCC_FLAGS = (
 
 # every kernel source of csrc/, by name
 KERNELS = ("mips_topk", "flash_sliding_fwd", "flash_sliding_bwd", "flash_dense_fwd",
-           "flash_dense_bwd", "ivf_probe_topk", "adam8bit_update", "mips_chunkmax")
+           "flash_dense_bwd", "ivf_probe_topk", "adam8bit_update", "mips_chunkmax",
+           "flash_decode")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

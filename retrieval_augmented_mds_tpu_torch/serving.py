@@ -15,7 +15,9 @@ re-export:
 * ``serve_decode_step.pt2``: (param leaves, encoder-output leaves, copy-KV
   leaves, cache leaves, token ids [B·beams], pos) → (log-probs
   [B·beams, V], the caches' new k/v). ``pos`` is a 0-d int64 tensor, so
-  the one program serves every position;
+  the one program serves every position. On the card its decoder layers'
+  self- and cross-attention run the cached step's kernel through
+  ``ramds::flash_decode``;
 * ``serve_step.json``: the manifest (the JAX package's keys, as far as they
   apply), and ``serve_config.yaml``: the resolved config, which the decode
   loop reads.
@@ -238,7 +240,8 @@ def load_serving(out_dir: str) -> ServingArtifact:
     """Load an artifact that `export_serving` wrote. Imports the modules
     that register the kernels' custom ops first."""
     from .index import ivf_serving  # noqa: F401  (ramds::ivf_probe_topk)
-    from .ops import flash_sliding, mips_topk  # noqa: F401  (ramds::flash_sliding_fwd, ::mips_topk)
+    from .ops import flash_decode, flash_sliding, mips_topk  # noqa: F401  (ramds::flash_decode,
+    # ::flash_sliding_fwd, ::mips_topk)
     from .utils.config import load_config
 
     from torch.export.graph_signature import InputKind, OutputKind

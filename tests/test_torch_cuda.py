@@ -23,6 +23,10 @@ from retrieval_augmented_mds_tpu_torch.ops.flash_dense import (
     flash_dense_blocked,
     flash_dense_blocked_backward,
 )
+from retrieval_augmented_mds_tpu_torch.ops.flash_decode import (
+    flash_decode_attention,
+    flash_decode_plain,
+)
 from retrieval_augmented_mds_tpu_torch.ops.flash_sliding import (
     flash_sliding_attention,
     local_rows_plain,
@@ -1423,3 +1427,106 @@ def test_top_k_1_sampling_on_the_card_is_greedy(gen):
     top1 = generate(params, cfg.model, enc, GenerationOptions(
         max_new_tokens=16, do_sample=True, temperature=0.8, top_k=1, top_p=0.95))
     assert torch.equal(top1, greedy)
+
+
+# ---------------------------------------------------------------------------
+# the cached decoder step's attention (ops/flash_decode.py)
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(gen, dtype, dh, b, g, s, nh=3):
+    """q [b g, nh, 1, dh] and k/v [b, nh, s, dh] as the decoder makes them:
+    heads split from [*, T, nh dh] projections (strided, not contiguous)."""
+    def heads(rows, t):
+        x = torch.randn((rows, t, nh * dh), generator=gen, device="cuda").to(dtype)
+        return x.reshape(rows, t, nh, dh).permute(0, 2, 1, 3)
+
+    return heads(b * g, 1), heads(b, s), heads(b, s)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_decode_kernel_cross_matches_plain(gen, dh, dtype, tol):
+    """Folded beams (g = 4) against un-expanded, strided cross K/V: sources
+    of 1, 63, 64, 65 and 2048 tokens of S = 2048, and one of none (its rows
+    uniform over the S keys), within tol x max|ref|; a rerun bit-equal."""
+    lengths = [1, 63, 64, 65, 2048, 0]
+    q, k, v = _decode_inputs(gen, getattr(torch, dtype), dh, len(lengths), 4, 2048)
+    assert not k.is_contiguous()
+    mask = (torch.arange(2048, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
+    before = flash_decode_attention.launches
+    out = flash_decode_attention(q, k, v, mask)
+    assert flash_decode_attention.launches == before + 1
+    _close([out], [flash_decode_plain(q, k, v, mask)], tol)
+    assert torch.equal(out, flash_decode_attention(q, k, v, mask))
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 256])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_decode_kernel_cache_matches_plain(gen, pos, dh, dtype, tol):
+    """The self-attention over a 257-slot cache at the one-token step's
+    causal mask (keys up to ``pos``), the slots after it holding values that
+    must not count; one mask row for every beam."""
+    from retrieval_augmented_mds_tpu_torch.models.core import causal_mask
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((8, 3, 1, dh), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((8, 3, 257, dh), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    mask = causal_mask(1, 257, torch.tensor(pos, device="cuda"), "cuda").reshape(1, 257)
+    out = flash_decode_attention(q, k, v, mask)
+    _close([out], [flash_decode_plain(q, k, v, mask)], tol)
+
+
+def test_decode_kernel_rejects_bad_inputs(gen):
+    q, k, v = _decode_inputs(gen, torch.float32, 48, 2, 2, 64)
+    mask = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode_attention(q, k, v, mask)
+    q, k, v = _decode_inputs(gen, torch.float32, 64, 2, 2, 64)
+    with pytest.raises(ValueError, match="key_mask"):
+        flash_decode_attention(q, k, v, mask.float())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_generate_through_the_decode_kernel(gen, monkeypatch, dtype, tol):
+    """`generate` (beam 2, configs/smoke.yaml's tiny LED with its copy head)
+    on the card takes the kernel for every decoder layer's self- and
+    cross-attention, 2 x dec_layers launches a step, and serves the ids of
+    the same card's plain path (`decode_key_mask` turned off), each step's
+    log-probs within tol x max|ref|."""
+    from retrieval_augmented_mds_tpu_torch.models import core
+    from retrieval_augmented_mds_tpu_torch.models.generate import (
+        copy_head_kv,
+        decode_step,
+        generate,
+    )
+
+    cfg, rep = _smoke_encoded()
+    params, enc = rep["params"], rep["enc"]
+
+    def run():
+        logps = []
+        inner = decode_step(params, cfg.model, dtype, copy_head_kv(params, cfg.model, enc,
+                                                                   dtype))
+
+        def step(*args):
+            logp, caches = inner(*args)
+            logps.append(logp)
+            return logp, caches
+
+        before = flash_decode_attention.launches
+        ids = generate(params, cfg.model, enc, cfg.generation, dtype=dtype, step=step)
+        return ids, torch.stack(logps), flash_decode_attention.launches - before
+
+    ids, logp, launches = run()
+    steps = cfg.generation.max_new_tokens
+    assert launches == 2 * cfg.model.led.dec_layers * steps
+    monkeypatch.setattr(core, "decode_key_mask", lambda *a: None)
+    ref_ids, ref_logp, ref_launches = run()
+    assert ref_launches == 0
+    assert torch.equal(ids, ref_ids)
+    finite = ref_logp > -1e3  # tokens the mixture gives no mass: -inf or ~-1e9 on both
+    assert torch.equal(finite, logp > -1e3)
+    _close([logp[finite]], [ref_logp[finite]], tol)
